@@ -1,0 +1,37 @@
+"""repro_torch: the pJDS / SELL-C-sigma spMVM and Krylov solve of
+``repro``, ported to PyTorch with hand-written CUDA kernels for Hopper.
+
+Lazy top-level API (PEP 562) -- importing ``repro_torch`` loads nothing
+heavy and builds no kernel::
+
+    import repro_torch
+    op = repro_torch.operator(m, format="sell")        # on CUDA
+    y = op @ x
+    res = repro_torch.solve(m, b, tune="off", fallback="off")
+
+Entry points run on CUDA unless given ``device="cpu"``; with no CUDA
+and no device they raise.  The package imports neither JAX nor the
+``repro`` package: ``core/`` holds its own copies of the host code.
+"""
+from __future__ import annotations
+
+__all__ = ["solve", "SolveResult", "SolveFailure", "operator"]
+
+_LAZY = {
+    "solve": "repro_torch.api",
+    "SolveResult": "repro_torch.core.solvers",
+    "SolveFailure": "repro_torch.api",
+    "operator": "repro_torch.core.operator",
+}
+
+
+def __getattr__(name: str):
+    target = _LAZY.get(name)
+    if target is None:
+        raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")
+    import importlib
+    return getattr(importlib.import_module(target), name)
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))

@@ -1,0 +1,31 @@
+"""What the port has not reached yet, and where ROADMAP.md lists it.
+
+Every option the reference offers but this package does not yet run
+raises :func:`not_ported` -- never a quiet fallback -- naming the item of
+ROADMAP.md's queue 1 that will bring it.
+"""
+from __future__ import annotations
+
+__all__ = ["ROADMAP_ITEMS", "not_ported"]
+
+ROADMAP_ITEMS = {
+    "ellpack_r": "1.1 (K4: ELLPACK-R kernel)",
+    "matmat": "1.2 (K5: multi-RHS pJDS kernel, matmat and 2-D x)",
+    "cmrs": "1.3 (K6: CMRS kernel)",
+    "bicgstab": "1.4 (BiCGStab, fused BiCGStab, preconditioned CG)",
+    "precond": "1.4 (BiCGStab, fused BiCGStab, preconditioned CG)",
+    "fallback": "1.5 (the degradation ladder)",
+    "refine": "1.6 (mixed-precision refinement)",
+    "block_cg": "1.7 (block CG, Lanczos, block Lanczos)",
+    "transpose": "1.8 (rmatvec, .T and transpose='device')",
+    "autograd": "1.9 (the autograd Function)",
+    "reorder": "1.10 (RCM preprocessing and Matrix-Market I/O)",
+    "tune": "1.12 (the autotuner)",
+}
+
+
+def not_ported(what: str, key: str) -> NotImplementedError:
+    """The error an unported option raises."""
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet: ROADMAP.md, open item "
+        f"{ROADMAP_ITEMS[key]}")

@@ -1,0 +1,225 @@
+"""``repro_torch.solve`` -- the front door to a linear solve.
+
+Port of ``repro/api.py`` for this slice.  For a host matrix it builds
+the operator (on CUDA unless ``device="cpu"``), picks the strategy --
+the fused spMV+dots CG over K3 whenever the operand is a single-device
+SELL matrix with a resident RHS and no preconditioner, composed CG
+otherwise -- runs it, and certifies the true residual: a result with
+``status == "converged"`` has ``||b - A x|| / ||b|| <= tol``.
+
+The keywords keep the reference's names and defaults.  Values this
+slice does not run raise ``NotImplementedError`` naming their ROADMAP
+item, never a quiet fallback: ``tune`` other than ``"off"`` (so the
+default ``"auto"`` raises too), ``fallback`` other than ``"off"`` (the
+degradation ladder; its kernel->ref rung must never hide a kernel
+failure), refinement and sub-f32 ``dtype``, ``method`` other than
+``"cg"`` and any ``precond``.  So the slice's calls are::
+
+    res = repro_torch.solve(m, b, tune="off", fallback="off")
+    res = repro_torch.solve(m, b, format="pjds", tune="off", fallback="off")
+"""
+from __future__ import annotations
+
+import math
+import time
+
+import numpy as np
+import torch
+
+from repro_torch._todo import not_ported
+from repro_torch.core import solvers as S
+from repro_torch.core.solvers import SolveResult
+from repro_torch.kernels._backend import host_tensor, resolve_device
+
+__all__ = ["solve", "SolveFailure", "SolveResult"]
+
+_METHODS = ("cg", "bicgstab", "block_cg")
+_DEFAULT_MAXITER = {"cg": 500, "bicgstab": 1000, "block_cg": 500}
+
+
+class SolveFailure(RuntimeError):
+    """Raised when the degradation ladder is exhausted.  The ladder is
+    not ported yet (``fallback="off"`` returns the typed result instead),
+    so this slice never raises it; it is kept so callers can name it."""
+
+    def __init__(self, message: str, *, result=None, ladder=None):
+        super().__init__(message)
+        self.result = result
+        self.ladder = list(ladder or [])
+
+
+def _is_host_matrix(a) -> bool:
+    from repro_torch.core import formats as F
+    return isinstance(a, F.CSRMatrix)
+
+
+def _is_sub_f32(dtype) -> bool:
+    if dtype is None:
+        return False
+    if isinstance(dtype, torch.dtype):
+        return dtype.is_floating_point and dtype.itemsize < 4
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    return name in ("bfloat16", "float16")
+
+
+def _fused_eligible(op, method: str, precond, b: torch.Tensor) -> bool:
+    """The fused iteration needs a single-device SELL operand with the
+    resident-x grid, square, a 1-D RHS, no preconditioner, and CG."""
+    from repro_torch.core.operator import DeviceOperator
+    return (method == "cg" and precond is None
+            and b.dim() == 1 and isinstance(op, DeviceOperator)
+            and op.fmt == "sell" and op.dev.x_tiles == 1
+            and op.shape[0] == op.shape[1])
+
+
+def _fused_dots_of(op):
+    """The fused-pass closure over ``op``'s SELL operand, cached on the
+    operator instance."""
+    cached = getattr(op, "_fused_dots", None)
+    if cached is None:
+        from repro_torch.kernels.fused_iter import make_matvec_dots
+        cached = make_matvec_dots(op.dev.dev, backend=op.backend)
+        op._fused_dots = cached
+    return cached
+
+
+def _pad_to(v: torch.Tensor, n_pad: int) -> torch.Tensor:
+    return v if v.shape[0] == n_pad else \
+        torch.nn.functional.pad(v, (0, n_pad - v.shape[0]))
+
+
+def _one_solve(op, b, *, strategy, maxiter, tol, x0=None) -> SolveResult:
+    if strategy == "fused":
+        mvd = _fused_dots_of(op)
+        n, n_pad = op.shape[0], op.dev.dev.n_rows_pad
+        x0p = None if x0 is None else _pad_to(x0, n_pad)
+        res = S.fused_cg(mvd, _pad_to(b, n_pad), x0=x0p, maxiter=maxiter,
+                         tol=tol)
+        res.x = res.x[:n]
+        return res
+    return S.cg(op, b, x0=x0, maxiter=maxiter, tol=tol)
+
+
+def _true_rel_residual(op, b, x) -> float:
+    """Certified relative true residual ||b - A x|| / ||b||."""
+    r = b - S._matvec_of(op)(x)
+    nb = torch.clamp(torch.linalg.vector_norm(b), min=1e-30)
+    return float(torch.linalg.vector_norm(r) / nb)
+
+
+def _certify(res: SolveResult, op, b, tol: float) -> SolveResult:
+    """Demote a "converged" claim whose certified true residual misses
+    tol.  Skipped when the solver certified already (the fused drive
+    measures the true residual itself).  Unlike the reference, an error
+    raised while certifying is not caught: it would be a kernel launch
+    failure, and those surface."""
+    if tol <= 0:
+        return res
+    if "true_residual" not in res.diagnostics:
+        rn = _true_rel_residual(op, b, res.x)
+        res.diagnostics["true_residual"] = rn
+        res.diagnostics["certified"] = rn == rn and rn <= tol
+    if res.status == "converged" and not res.diagnostics.get("certified"):
+        res.status_code = S.STATUS_DIVERGED
+        res.converged = False
+        res.diagnostics["demoted"] = True
+    return res
+
+
+def _certified_solve(op, b, *, strategy, maxiter, tol, x0) -> SolveResult:
+    """The reference ladder's primary rung: solve, certify, and
+    warm-restart (at most twice) while a certification miss from
+    recurrence drift still improves."""
+    rn_prev, restarts, iters_acc = float("inf"), 0, None
+    while True:
+        res = _one_solve(op, b, strategy=strategy, maxiter=maxiter, tol=tol,
+                         x0=x0)
+        res = _certify(res, op, b, tol)
+        iters_acc = res.iters if iters_acc is None else iters_acc + res.iters
+        res.iters = iters_acc
+        rn = res.diagnostics.get("true_residual")
+        if (res.diagnostics.get("demoted") and restarts < 2
+                and rn is not None and math.isfinite(rn) and rn < rn_prev):
+            x0, rn_prev, restarts = res.x, rn, restarts + 1
+            continue
+        return res
+
+
+def _as_vector(v, dev: torch.device) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        return v.to(dev)
+    return host_tensor(np.asarray(v), dev)
+
+
+def solve(a, b, *, method: str = "cg", precond=None, tol: float = 1e-6,
+          maxiter: int | None = None, x0=None, tune="auto",
+          refine="auto", fallback="auto", format: str = "auto", dtype=None,
+          index_dtype="auto", backend="auto", device=None,
+          **convert_kwargs) -> SolveResult:
+    """Solve ``A x = b``; see the module docstring for what this slice
+    runs and what raises.
+
+    ``a``: a host ``CSRMatrix`` (an operator is built on ``device`` --
+    CUDA by default, raising when there is none -- with ``format`` /
+    ``dtype`` / ``index_dtype`` / ``backend`` and further ``as_device``
+    keywords), an existing ``DeviceOperator`` (used as-is), or a bare
+    matvec closure (composed strategy).  ``b``: a numpy array or
+    tensor (moved to the operator's device; float64 becomes float32).
+    With ``format="auto"`` a host matrix is built as SELL, the fused
+    strategy's format, as in the reference.
+    """
+    if method not in _METHODS:
+        raise ValueError(f"method must be one of {_METHODS}; got {method!r}")
+    if fallback not in ("auto", True, "off", False, None):
+        raise ValueError(f"fallback must be 'auto' or 'off'; got "
+                         f"{fallback!r}")
+    if method != "cg":
+        raise not_ported(f"method={method!r}", method if method == "block_cg"
+                         else "bicgstab")
+    if precond is not None:
+        raise not_ported("precond", "precond")
+    if tune not in ("off", False, None):
+        raise not_ported(f"tune={tune!r}", "tune")
+    if fallback not in ("off", False, None):
+        raise not_ported(f"fallback={fallback!r}", "fallback")
+    if refine is True or _is_sub_f32(dtype):
+        raise not_ported("refinement and sub-f32 dtype", "refine")
+    maxiter = _DEFAULT_MAXITER[method] if maxiter is None else maxiter
+    phase_s: dict = {"tune": 0.0}
+
+    t0 = time.perf_counter()
+    if _is_host_matrix(a):
+        from repro_torch.core.operator import operator
+        build_kwargs = dict(convert_kwargs)
+        build_kwargs.setdefault("format", format)
+        if build_kwargs["format"] == "auto":
+            build_kwargs["format"] = "sell"       # fused-eligible build
+        op = operator(a, dtype=dtype, index_dtype=index_dtype,
+                      backend=backend, device=device, **build_kwargs)
+        dev = op.device
+    else:
+        from repro_torch.core.operator import SparseOperator
+        if not (isinstance(a, SparseOperator) or callable(a)):
+            raise TypeError(
+                f"solve takes a repro_torch CSRMatrix, a SparseOperator or "
+                f"a matvec callable; got {type(a).__name__}")
+        op = a
+        dev = op.device if hasattr(op, "device") else resolve_device(device)
+        if device is not None and resolve_device(device) != dev:
+            raise ValueError(f"the operator lives on {dev}, not {device}")
+    phase_s["build"] = time.perf_counter() - t0
+
+    b = _as_vector(b, dev)
+    if b.dim() != 1:
+        raise ValueError(f"{method} expects a 1-D b; got shape "
+                         f"{tuple(b.shape)}")
+    x0 = None if x0 is None else _as_vector(x0, dev)
+    strategy = "fused" if _fused_eligible(op, method, precond, b) \
+        else "composed"
+
+    t0 = time.perf_counter()
+    res = _certified_solve(op, b, strategy=strategy, maxiter=maxiter,
+                           tol=tol, x0=x0)
+    phase_s["solve"] = time.perf_counter() - t0
+    res.info["phase_s"] = phase_s
+    return res

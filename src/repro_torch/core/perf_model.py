@@ -1,0 +1,213 @@
+"""The memory-bound spMVM time model that prices the dispatch decision.
+
+A copy of what ``repro.core.perf_model`` gives ``select_format``: the
+device spec record, the stored-byte model (paper Eq. 1 generalised to
+compressed streams), the out-of-kernel permutation cost, the CMRS
+compute floor, the solver-iteration byte count, and the calibration
+hook those functions read.  ``TPU_V5E`` stays so the port can be held
+to the reference's decisions; :data:`H100` is the port's default spec.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Optional
+
+__all__ = [
+    "TPUSpec",
+    "TPU_V5E",
+    "H100",
+    "Calibration",
+    "set_calibration",
+    "clear_calibration",
+    "spmvm_bytes",
+    "perm_traffic_bytes",
+    "CMRS_RIS_BYTES",
+    "cmrs_reduce_seconds",
+    "predicted_spmv_seconds",
+    "SOLVER_SPMV_COUNT",
+    "SOLVER_VECTOR_PASSES",
+    "solver_iteration_bytes",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class TPUSpec:
+    """One accelerator's data-sheet numbers.  The name is the
+    reference's; the record describes a GPU just as well (``vmem_bytes``
+    is then the per-block shared memory, ``ici_bw`` the per-direction
+    NVLink rate)."""
+
+    name: str
+    peak_flops: float        # FLOP/s per chip (bf16 matrix units)
+    peak_flops_f32: float    # FLOP/s per chip on the f32 spMVM path
+    hbm_bw: float            # bytes/s per chip
+    ici_bw: float            # bytes/s per link
+    vmem_bytes: int
+    hbm_bytes: int
+
+
+TPU_V5E = TPUSpec(
+    name="tpu-v5e",
+    peak_flops=197e12,
+    peak_flops_f32=197e12 / 4,  # f32 through the MXU at quarter rate
+    hbm_bw=819e9,
+    ici_bw=50e9,
+    vmem_bytes=128 * 2 ** 20,
+    hbm_bytes=16 * 2 ** 30,
+)
+
+# NVIDIA H100 SXM data sheet: 989 TFLOP/s dense bf16, 67 TFLOP/s f32
+# outside the tensor cores, 3.35 TB/s HBM3, 80 GB, NVLink 450 GB/s each
+# way, 227 KB of shared memory per block.  Rates assume the 700 W limit.
+H100 = TPUSpec(
+    name="h100-sxm",
+    peak_flops=989e12,
+    peak_flops_f32=67e12,
+    hbm_bw=3.35e12,
+    ici_bw=450e9,
+    vmem_bytes=232_448,
+    hbm_bytes=80 * 10 ** 9,
+)
+
+
+# ------------------------------------------------------------- calibration
+@dataclasses.dataclass(frozen=True)
+class Calibration:
+    """Measured correction to the memory-bound time model:
+    ``predicted = bytes / (spec.hbm_bw * bw_scale) + overhead_s[fmt]``."""
+
+    bw_scale: float
+    overhead_s: Mapping[str, float] = dataclasses.field(default_factory=dict)
+    source: str = ""
+
+    def __post_init__(self):
+        if not (self.bw_scale > 0):
+            raise ValueError(f"bw_scale must be > 0; got {self.bw_scale}")
+
+
+_CALIBRATION: Optional[Calibration] = None
+
+
+def set_calibration(cal: Optional[Calibration]) -> None:
+    """Install ``cal`` as the process-wide default calibration (read by
+    every :func:`predicted_spmv_seconds` call without an explicit
+    ``calibration=``).  ``None`` uninstalls."""
+    global _CALIBRATION
+    if cal is not None and not isinstance(cal, Calibration):
+        raise TypeError(f"expected Calibration or None; got {type(cal)}")
+    _CALIBRATION = cal
+
+
+def clear_calibration() -> None:
+    set_calibration(None)
+
+
+# -------------------------------------------------------------- byte model
+def spmvm_bytes(stored_elements: int, n_rows: int, alpha: float,
+                n_nzr: float, value_bytes: int = 8,
+                index_bytes: int = 4, x_tiles: int = 1,
+                n_row_blocks: int = 1,
+                vec_bytes: int | None = None) -> float:
+    """Minimum device-memory traffic of one spMVM in a given format:
+    matrix values + indices stream once; RHS traffic scales with alpha;
+    LHS written once.  ``value_bytes``/``index_bytes`` are the STORED
+    widths, ``vec_bytes`` the (uncompressed, >= f32) vector width.
+    ``x_tiles > 1`` prices the reference's column-blocked-x grid."""
+    if vec_bytes is None:
+        vec_bytes = max(4, value_bytes)
+    if x_tiles > 1:
+        rhs = n_row_blocks * n_rows * vec_bytes        # x re-read per block
+    else:
+        rhs = alpha * n_nzr * n_rows * vec_bytes       # resident: alpha term
+    return (
+        x_tiles * stored_elements * (value_bytes + index_bytes)
+        + rhs
+        + 2 * n_rows * vec_bytes
+    )
+
+
+def perm_traffic_bytes(n_rows: int, value_bytes: int = 4,
+                       index_bytes: int = 4,
+                       window_local: bool = False) -> float:
+    """Extra traffic of undoing a row sort OUTSIDE the kernel: the
+    permutation index stream plus a read+write pass over y.  A
+    window-local (SELL-C-sigma) unpermute happens inside the kernel and
+    costs nothing."""
+    if window_local:
+        return 0.0
+    return float(n_rows) * (2 * value_bytes + index_bytes)
+
+
+# CMRS stores one extra byte per slot: the int8 row-in-strip stream.
+CMRS_RIS_BYTES = 1
+
+
+def cmrs_reduce_seconds(stored_elements: int, b_r: int,
+                        spec: TPUSpec = H100) -> float:
+    """Compute term of the CMRS in-kernel segment reduction as the
+    reference prices it: ``2 * b_r`` f32 flops per stored slot."""
+    return 2.0 * float(stored_elements) * float(b_r) / spec.peak_flops_f32
+
+
+def predicted_spmv_seconds(stored_elements: int, n_rows: int, n_nzr: float,
+                           perm_bytes: float = 0.0,
+                           irregular_factor: float = 1.0,
+                           spec: TPUSpec = H100,
+                           value_bytes: int = 4,
+                           index_bytes: int = 4,
+                           x_tiles: int = 1,
+                           n_row_blocks: int = 1,
+                           vec_bytes: int | None = None,
+                           fmt: str | None = None,
+                           calibration="default") -> float:
+    """Memory-bound time estimate of one spMVM in a candidate format --
+    the quantity ``kernels.ops.select_format`` minimises -- with the
+    alpha -> 1/N_nzr RHS-reuse limit and an optional calibration."""
+    n_nzr = max(n_nzr, 1e-9)
+    alpha = 1.0 / n_nzr
+    b = spmvm_bytes(stored_elements, n_rows, alpha, n_nzr,
+                    value_bytes, index_bytes, x_tiles, n_row_blocks,
+                    vec_bytes)
+    t = (b * irregular_factor + perm_bytes) / spec.hbm_bw
+    if calibration == "default":
+        calibration = _CALIBRATION
+    if calibration is not None:
+        t = t / calibration.bw_scale
+        if fmt is not None:
+            t += calibration.overhead_s.get(fmt, 0.0)
+    return max(t, 0.0)
+
+
+# ------------------------------------------------- solver-iteration model
+# spMV applications per Krylov iteration.
+SOLVER_SPMV_COUNT: Mapping[str, int] = {
+    "cg": 1,
+    "bicgstab": 2,
+    "block_cg": 1,
+}
+
+# Carrier-vector passes per iteration beyond the spMV's own rhs/lhs
+# traffic (each pass = n_rows * vec_bytes read OR written).
+SOLVER_VECTOR_PASSES: Mapping[str, Mapping[str, int]] = {
+    "cg": {"composed": 12, "fused": 7},
+    "bicgstab": {"composed": 22, "fused": 14},
+    "block_cg": {"composed": 12, "fused": 12},
+}
+
+
+def solver_iteration_bytes(stored_elements: int, n_rows: int, n_nzr: float,
+                           *, method: str = "cg",
+                           strategy: str = "composed",
+                           value_bytes: int = 4, index_bytes: int = 4,
+                           vec_bytes: int = 4, n_vec: int = 1,
+                           x_tiles: int = 1,
+                           n_row_blocks: int = 1) -> float:
+    """Minimum device-memory traffic of ONE solver iteration: the
+    method's spMV streams plus the carrier-vector passes around them."""
+    spmv_count = SOLVER_SPMV_COUNT[method]
+    passes = SOLVER_VECTOR_PASSES[method][strategy]
+    alpha = 1.0 / max(n_nzr, 1e-9)
+    spmv = spmvm_bytes(stored_elements, n_rows, alpha, n_nzr,
+                       value_bytes, index_bytes, x_tiles, n_row_blocks,
+                       vec_bytes)
+    return spmv_count * spmv + passes * n_vec * float(n_rows) * vec_bytes

@@ -1,0 +1,467 @@
+"""Device containers, the per-format matvecs and the dispatch layer.
+
+Port of ``repro/kernels/ops.py`` for the formats of this slice:
+
+* **Containers** -- ``to_device_pjds`` / ``to_device_sell`` /
+  ``to_device_csr`` move a host format (``core.formats``) onto a device
+  as plain dataclasses of tensors, with the kernel metadata computed
+  once: the per-block diagonal offsets ``block_start`` that K1-K3 loop
+  over, the block id per diagonal (``row_block``) the plain versions
+  segment-sum by, and the largest stored column (checked against x).
+* **Matvecs** -- ``pjds_matvec`` / ``sell_matvec`` launch K1 / K2 for a
+  CUDA tensor and take the plain version for a CPU tensor; ``csr_matvec``
+  is plain torch everywhere, as in the reference (it has no kernel).
+* **Dispatch** -- ``select_format`` prices the candidate formats with
+  ``core.perf_model`` exactly as the reference does (same decision under
+  the same spec; the port's default spec is the H100), and ``as_device``
+  converts once, caches, and wraps the result in a :class:`SparseDevice`
+  whose ``matvec`` works in the ORIGINAL basis.
+
+Storage widths follow the reference: host float64 values are stored as
+f32 (or bf16 with ``dtype=``), column indices as int32, or int16 when
+the span fits (``index_dtype="auto"``).  Formats whose kernels are not
+ported yet (ELLPACK-R, CMRS) raise ``NotImplementedError`` when chosen.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import hashlib
+import weakref
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch._todo import not_ported
+from repro_torch.core import formats as F
+from repro_torch.core import perf_model as PM
+from . import ref as R
+from ._backend import host_tensor, resolve_backend, resolve_device, value_dtype
+from .pjds_spmv import pjds_matvec_kernel_call
+from .sell_spmv import sell_matvec_kernel_call, window_blocks
+
+__all__ = [
+    "PJDSDevice",
+    "SELLDevice",
+    "CSRDevice",
+    "SparseDevice",
+    "to_device_pjds",
+    "to_device_sell",
+    "to_device_csr",
+    "pjds_matvec",
+    "sell_matvec",
+    "csr_matvec",
+    "select_format",
+    "as_device",
+    "clear_device_cache",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class PJDSDevice:
+    """Device-resident pJDS operand (permuted basis).  ``val`` is the f32
+    or bf16 value stream, ``col_idx`` the int32 or int16 index stream,
+    both (total_jds, b_r); ``block_start`` (n_blocks + 1,) int32 bounds
+    each row block's diagonals for the kernels; ``row_block``
+    (total_jds,) int32 is the block of each diagonal for the plain
+    version; ``max_col`` the largest stored column index."""
+
+    val: torch.Tensor
+    col_idx: torch.Tensor
+    row_block: torch.Tensor
+    block_start: torch.Tensor
+    n_blocks: int
+    b_r: int
+    chunk_l: int
+    max_col: int
+
+    @property
+    def n_rows_pad(self) -> int:
+        return self.n_blocks * self.b_r
+
+
+@dataclasses.dataclass(frozen=True)
+class SELLDevice:
+    """Device-resident SELL-C-sigma operand: the pJDS layout plus the
+    window-local inverse permutation ``inv_perm`` (n_blocks * b_r,)
+    int32 that K2/K3 apply inside each window."""
+
+    val: torch.Tensor
+    col_idx: torch.Tensor
+    row_block: torch.Tensor
+    block_start: torch.Tensor
+    inv_perm: torch.Tensor
+    n_blocks: int
+    b_r: int
+    chunk_l: int
+    sigma: int
+    max_col: int
+
+    @property
+    def n_rows_pad(self) -> int:
+        return self.n_blocks * self.b_r
+
+
+@dataclasses.dataclass(frozen=True)
+class CSRDevice:
+    """Device-resident CSR as flat nnz streams (gather + index_add_; the
+    reference has no kernel for it either)."""
+
+    data: torch.Tensor
+    indices: torch.Tensor
+    row_ids: torch.Tensor
+    n_rows: int
+
+
+def _blocked_parts(p: F.PJDSMatrix, chunk_l: int, dtype, device) -> dict:
+    if np.any(p.block_len % chunk_l):
+        raise ValueError(
+            f"chunk_l={chunk_l} must divide every block length; rebuild the "
+            f"matrix with diag_align a multiple of chunk_l")
+    row_block = np.repeat(np.arange(p.n_blocks, dtype=np.int32),
+                          p.block_len)
+    return dict(
+        val=host_tensor(p.val, device, value_dtype(dtype)),
+        col_idx=host_tensor(p.col_idx, device),
+        row_block=host_tensor(row_block, device),
+        block_start=host_tensor(p.block_start, device),
+        n_blocks=p.n_blocks, b_r=p.b_r, chunk_l=chunk_l,
+        max_col=int(p.col_idx.max(initial=0)))
+
+
+def to_device_pjds(p: F.PJDSMatrix, chunk_l: int = 8, dtype=None,
+                   device=None) -> PJDSDevice:
+    return PJDSDevice(**_blocked_parts(p, chunk_l, dtype,
+                                       resolve_device(device)))
+
+
+def to_device_sell(s: F.SELLMatrix, chunk_l: int = 8, dtype=None,
+                   device=None) -> SELLDevice:
+    p = s.pjds
+    # K2/K3 index their shared-memory slab with inv_perm: every row must
+    # stay inside its output window (true by construction; checked so a
+    # corrupt operand raises here instead of reading out of bounds).
+    span = window_blocks(s.sigma, p.b_r, p.n_blocks) * p.b_r
+    rows = np.arange(p.n_rows_pad)
+    if np.any(p.inv_perm // span != rows // span):
+        raise ValueError("inv_perm moves rows across sigma windows")
+    dev = resolve_device(device)
+    return SELLDevice(inv_perm=host_tensor(p.inv_perm, dev), sigma=s.sigma,
+                      **_blocked_parts(p, chunk_l, dtype, dev))
+
+
+def to_device_csr(m: F.CSRMatrix, dtype=None, device=None) -> CSRDevice:
+    dev = resolve_device(device)
+    row_ids = np.repeat(np.arange(m.n_rows, dtype=np.int32),
+                        m.row_lengths())
+    return CSRDevice(
+        data=host_tensor(m.data, dev, value_dtype(dtype)),
+        indices=host_tensor(m.indices, dev),
+        row_ids=host_tensor(row_ids, dev),
+        n_rows=m.n_rows,
+    )
+
+
+def pjds_matvec(a: PJDSDevice, x: torch.Tensor, backend: str = "auto",
+                x_tiles: int = 1) -> torch.Tensor:
+    """y = A x in the permuted basis; y has n_rows_pad entries.  K1 for
+    a CUDA tensor, the plain version for a CPU tensor.  ``x_tiles`` is
+    accepted for parity and changes nothing."""
+    del x_tiles
+    if resolve_backend(x, backend) == "kernel":
+        return pjds_matvec_kernel_call(a.val, a.col_idx, a.block_start, x,
+                                       n_blocks=a.n_blocks,
+                                       max_col=a.max_col)
+    return R.pjds_matvec_ref(a.val, a.col_idx, a.row_block, x, a.n_blocks)
+
+
+def sell_matvec(a: SELLDevice, x: torch.Tensor, backend: str = "auto",
+                x_tiles: int = 1) -> torch.Tensor:
+    """y = A x with rows back in the ORIGINAL order; n_rows_pad entries.
+    K2 for a CUDA tensor, the plain version for a CPU tensor."""
+    del x_tiles
+    if resolve_backend(x, backend) == "kernel":
+        return sell_matvec_kernel_call(a.val, a.col_idx, a.block_start,
+                                       a.inv_perm, x, n_blocks=a.n_blocks,
+                                       sigma=a.sigma, max_col=a.max_col)
+    return R.sell_matvec_ref(a.val, a.col_idx, a.row_block, a.inv_perm, x,
+                             a.n_blocks)
+
+
+def csr_matvec(a: CSRDevice, x: torch.Tensor,
+               backend: str = "auto") -> torch.Tensor:
+    # No kernel for CSR in the reference either: the plain version IS
+    # the implementation on every device.
+    del backend
+    return R.csr_matvec_ref(a.data, a.indices, a.row_ids, x, a.n_rows)
+
+
+# --------------------------------------------------------------------------
+# Unified dispatch
+# --------------------------------------------------------------------------
+_CSR_MIN_ROWS_FACTOR = 2       # below 2*b_r rows, block padding dominates
+_ELL_OVERHEAD_TOL = 0.05       # near-constant rows: skip sorting entirely
+
+
+def _itemsize(dt) -> int:
+    if isinstance(dt, torch.dtype):
+        return dt.itemsize
+    if dt == "bfloat16":         # numpy knows the name only via ml_dtypes
+        return 2
+    return np.dtype(dt).itemsize
+
+
+def select_format(
+    m: F.CSRMatrix,
+    *,
+    b_r: int = 128,
+    diag_align: int = 8,
+    sigma: Optional[int] = None,
+    spec: PM.TPUSpec = PM.H100,
+    value_dtype=None,
+    index_dtype="auto",
+    x_tiles: int = 1,
+) -> str:
+    """Pick a storage format from row-length statistics alone -- the
+    reference's rule, unchanged: price each candidate's predicted
+    memory-bound spMVM time (stored widths as they will be stored, the
+    RHS/LHS at the >= f32 vector width, plus the out-of-kernel
+    permutation cost), then take the first minimum in the order
+    ellpack_r < sell < pjds < cmrs.  CSR wins only for degenerate inputs.
+    The decision can name a format whose kernel this package has not
+    ported (``as_device`` then raises)."""
+    n = m.n_rows
+    if m.nnz == 0 or n < _CSR_MIN_ROWS_FACTOR * b_r:
+        return "csr"
+    rl = m.row_lengths()
+    n_nzr = m.n_nzr
+    if sigma is None:
+        sigma = 8 * b_r
+    vb = _itemsize(value_dtype) if value_dtype is not None \
+        else m.data.dtype.itemsize
+    vecb = max(4, m.data.dtype.itemsize)
+    ib = F.resolve_index_dtype(index_dtype, m.shape[1]).itemsize
+    n_row_blocks = -(-n // b_r)
+
+    ell_elems = F.estimate_storage_elements(rl, "ellpack_r", b_r, diag_align)
+    if x_tiles <= 1 and ell_elems / m.nnz - 1.0 <= _ELL_OVERHEAD_TOL:
+        return "ellpack_r"    # rows (nearly) constant: no sort, no perm
+
+    candidates = {
+        "ellpack_r": PM.predicted_spmv_seconds(
+            ell_elems, n, n_nzr, spec=spec, value_bytes=vb, index_bytes=ib,
+            vec_bytes=vecb, fmt="ellpack_r"),
+        "sell": PM.predicted_spmv_seconds(
+            F.estimate_storage_elements(rl, "sell", b_r, diag_align, sigma),
+            n, n_nzr,
+            perm_bytes=PM.perm_traffic_bytes(n, vecb, window_local=True),
+            spec=spec, value_bytes=vb, index_bytes=ib, vec_bytes=vecb,
+            x_tiles=x_tiles, n_row_blocks=n_row_blocks, fmt="sell"),
+        "pjds": PM.predicted_spmv_seconds(
+            F.estimate_storage_elements(rl, "pjds", b_r, diag_align),
+            n, n_nzr,
+            perm_bytes=PM.perm_traffic_bytes(n, vecb, window_local=False),
+            spec=spec, value_bytes=vb, index_bytes=ib, vec_bytes=vecb,
+            x_tiles=x_tiles, n_row_blocks=n_row_blocks, fmt="pjds"),
+    }
+    cmrs_elems = F.estimate_storage_elements(rl, "cmrs", b_r, diag_align)
+    candidates["cmrs"] = max(
+        PM.predicted_spmv_seconds(
+            cmrs_elems, n, n_nzr, spec=spec, value_bytes=vb,
+            index_bytes=ib + PM.CMRS_RIS_BYTES, vec_bytes=vecb,
+            x_tiles=x_tiles, n_row_blocks=n_row_blocks, fmt="cmrs"),
+        PM.cmrs_reduce_seconds(cmrs_elems * x_tiles, b_r, spec))
+    if x_tiles > 1:
+        candidates.pop("ellpack_r")   # its kernel keeps x resident
+    return min(candidates, key=candidates.get)
+
+
+@dataclasses.dataclass
+class SparseDevice:
+    """A matrix ready for ``y = A x``: one chosen format, converted once.
+    Whatever the inner format, ``matvec`` consumes x and returns y in the
+    ORIGINAL basis (length ``shape[0]``)."""
+
+    fmt: str
+    shape: Tuple[int, int]
+    dev: Union[PJDSDevice, SELLDevice, CSRDevice]
+    # pJDS only: the first n_rows entries of the inverse global row sort
+    inv_perm: Optional[torch.Tensor]
+    x_tiles: int = 1
+
+    @property
+    def n_rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    @property
+    def values(self) -> torch.Tensor:
+        return self.dev.data if self.fmt == "csr" else self.dev.val
+
+    def matvec(self, x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+        """y = A x, original basis, length shape[0]."""
+        if x.dim() == 2:
+            raise not_ported("matmat (a 2-D x)", "matmat")
+        if x.dim() != 1:
+            raise ValueError(f"x must be 1-D; got shape {tuple(x.shape)}")
+        if x.shape[0] < self.shape[1]:
+            raise ValueError(
+                f"x has {x.shape[0]} entries; matrix has {self.shape[1]} "
+                f"columns")
+        if x.device != self.device:
+            raise ValueError(f"x is on {x.device}; the operand on "
+                             f"{self.device}")
+        if self.fmt == "csr":
+            return csr_matvec(self.dev, x, backend)
+        if self.fmt == "sell":
+            return sell_matvec(self.dev, x, backend)[: self.n_rows]
+        if self.fmt == "pjds":
+            y_p = pjds_matvec(self.dev, x, backend)
+            return y_p.index_select(0, self.inv_perm)
+        raise ValueError(f"unknown format {self.fmt!r}")
+
+
+# Conversion cache: host matrix -> device representation, keyed by the
+# host object's id and the build parameters; a weakref callback evicts
+# the entry when the host matrix is garbage-collected.
+_DEVICE_CACHE: dict = {}
+
+# Dense ndarray inputs get a small content-addressed LRU, so equal
+# content maps to the same CSRMatrix object and the id-keyed cache hits.
+_DENSE_CSR_CACHE: "collections.OrderedDict" = collections.OrderedDict()
+_DENSE_CSR_CACHE_MAX = 16
+
+
+def _dense_to_csr_cached(a: np.ndarray) -> F.CSRMatrix:
+    key = (a.shape, a.dtype.str,
+           hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest())
+    hit = _DENSE_CSR_CACHE.get(key)
+    if hit is not None:
+        _DENSE_CSR_CACHE.move_to_end(key)
+        return hit
+    m = F.csr_from_dense(a)
+    _DENSE_CSR_CACHE[key] = m
+    while len(_DENSE_CSR_CACHE) > _DENSE_CSR_CACHE_MAX:
+        _DENSE_CSR_CACHE.popitem(last=False)
+    return m
+
+
+def clear_device_cache() -> None:
+    _DEVICE_CACHE.clear()
+    _DENSE_CSR_CACHE.clear()
+
+
+def _cache_put(key, m, dev) -> None:
+    try:
+        ref = weakref.ref(m, lambda _unused, k=key: _DEVICE_CACHE.pop(k, None))
+    except TypeError:            # not weakref-able: skip caching
+        return
+    _DEVICE_CACHE[key] = (ref, dev)
+
+
+def as_device(
+    a: Union[F.CSRMatrix, np.ndarray, SparseDevice],
+    format: str = "auto",
+    *,
+    b_r: int = 128,
+    diag_align: int = 8,
+    sigma: Optional[int] = None,
+    chunk_l: int = 16,
+    dtype=None,
+    index_dtype="auto",
+    x_tiles: Union[int, str] = "auto",
+    tune: str = "off",
+    validate: str = "off",
+    reorder: str = "off",
+    device=None,
+) -> SparseDevice:
+    """Wrap a matrix as a :class:`SparseDevice`, converting at most once.
+
+    ``a`` may be a host CSRMatrix, a dense ndarray, or an existing
+    SparseDevice (returned unchanged).  ``device`` defaults to the
+    current CUDA card and raises when there is none; pass
+    ``device="cpu"`` for the plain versions.  ``dtype`` sets the stored
+    value dtype (f32 or bf16), ``index_dtype`` the stored index dtype
+    (``"auto"``: int16 when the column span fits).  ``x_tiles`` is
+    accepted for parity (``"auto"`` is 1).  ``tune`` other than
+    ``"off"``, ``reorder`` other than ``"off"`` and the ELLPACK-R / CMRS
+    formats are not ported yet and raise ``NotImplementedError``.
+    """
+    if isinstance(a, SparseDevice):
+        if format not in ("auto", a.fmt):
+            raise ValueError(
+                f"matrix already converted to {a.fmt!r}; asked for {format!r}")
+        if device is not None and resolve_device(device) != a.device:
+            raise ValueError(f"operand lives on {a.device}, not {device}")
+        return a
+    if isinstance(a, np.ndarray):
+        a = _dense_to_csr_cached(a)
+    if not isinstance(a, F.CSRMatrix):
+        raise TypeError(f"cannot dispatch on {type(a)}")
+
+    if validate not in ("off", "check", "repair"):
+        raise ValueError(f"validate must be 'off', 'check' or 'repair'; "
+                         f"got {validate!r}")
+    if tune not in ("off", "auto", "force"):
+        raise ValueError(f"tune must be 'off', 'auto' or 'force'; "
+                         f"got {tune!r}")
+    if reorder not in ("off", "auto", "rcm"):
+        raise ValueError(f"reorder must be 'off', 'auto' or 'rcm'; "
+                         f"got {reorder!r}")
+    if tune != "off":
+        raise not_ported(f"tune={tune!r}", "tune")
+    if reorder != "off":
+        raise not_ported(f"reorder={reorder!r}", "reorder")
+    dev = resolve_device(device)
+    if validate != "off":
+        a, _report = F.validate_csr(a, repair=(validate == "repair"))
+
+    # The reference budgets x against a TPU's VMEM; on a GPU x is read
+    # through L2 whatever its size, so "auto" is one tile.
+    x_tiles = 1 if x_tiles == "auto" else int(x_tiles)
+    if x_tiles < 1:
+        raise ValueError(f"x_tiles must be >= 1; got {x_tiles}")
+
+    vdt = value_dtype(dtype)
+    key = (id(a), format, b_r, diag_align, sigma, chunk_l,
+           None if vdt is None else str(vdt),
+           "auto" if index_dtype == "auto" else np.dtype(index_dtype).name,
+           x_tiles, str(dev))
+    hit = _DEVICE_CACHE.get(key)
+    if hit is not None and hit[0]() is a:
+        return hit[1]
+
+    # The kernels need diag_align % chunk_l == 0; raise it once here so
+    # the selection pricing sees the same padding the converters produce.
+    da = max(diag_align, chunk_l)
+    fmt = format
+    if fmt == "auto":
+        fmt = select_format(a, b_r=b_r, diag_align=da, sigma=sigma,
+                            value_dtype=vdt, index_dtype=index_dtype,
+                            x_tiles=x_tiles)
+
+    inv_perm = None
+    if fmt == "csr":
+        d = to_device_csr(a, dtype=vdt, device=dev)
+    elif fmt == "sell":
+        s = F.csr_to_sell(a, c=b_r, sigma=sigma, diag_align=da,
+                          permuted_cols=False, index_dtype=index_dtype)
+        d = to_device_sell(s, chunk_l=chunk_l, dtype=vdt, device=dev)
+    elif fmt == "pjds":
+        p = F.csr_to_pjds(a, b_r=b_r, diag_align=da, permuted_cols=False,
+                          index_dtype=index_dtype)
+        d = to_device_pjds(p, chunk_l=chunk_l, dtype=vdt, device=dev)
+        inv_perm = host_tensor(p.inv_perm[: a.n_rows], dev)
+    elif fmt in ("ellpack_r", "cmrs"):
+        raise not_ported(f"the {fmt!r} format", fmt)
+    else:
+        raise ValueError(f"unknown format {fmt!r}")
+
+    sd = SparseDevice(fmt=fmt, shape=a.shape, dev=d, inv_perm=inv_perm,
+                      x_tiles=x_tiles)
+    _cache_put(key, a, sd)
+    return sd

@@ -1,0 +1,62 @@
+"""K1: pJDS sparse matrix-vector multiplication, hand-written for Hopper.
+
+Replaces ``repro/kernels/pjds_spmv.py::pjds_matvec_kernel_call`` (the
+Pallas TPU kernel, paper Listing 2).  The CUDA source is
+``csrc/pjds_spmv.cu``: one CTA per pJDS row block, one thread per row
+lane, each thread walking its block's jagged diagonals
+``[block_start[b], block_start[b+1])`` with coalesced loads of
+``val[j, :]`` / ``col[j, :]``.  The per-block extents are computed once
+at conversion (``ops.to_device_pjds``) instead of per call, as the TPU
+kernel's scalar-prefetched ``block_extents`` were.
+
+What bounds it on an H100: bytes -- the stored elements times (value +
+index width), plus x read once and y written once; the 2 flops per
+element are far below the card's compute rate.
+
+``x_tiles`` has no counterpart: x is read whole through L2, so an
+explicit tiling request computes the same y (``ops.pjds_matvec``
+accepts and ignores it).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from ._backend import check_blocked, kind_codes, stream_of
+
+__all__ = ["pjds_matvec_kernel_call"]
+
+
+def _fn():
+    fn = _build.load("pjds_spmv").pjds_spmv
+    if not fn.argtypes:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, p, i, p, p, p, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def pjds_matvec_kernel_call(val: torch.Tensor, col_idx: torch.Tensor,
+                            block_start: torch.Tensor, x: torch.Tensor, *,
+                            n_blocks: int, max_col: int) -> torch.Tensor:
+    """y = A_pjds @ x in the permuted basis, through K1.
+
+    val/col_idx: (total_jds, b_r) f32|bf16 / int32|int16; block_start:
+    (n_blocks + 1,) int32 diagonal offsets; x: (> max_col,) f32|bf16 on
+    the same card.  Returns y: (n_blocks * b_r,) float32.  Raises on any
+    operand the kernel does not take, and on a refused launch."""
+    x = check_blocked(val, col_idx, block_start, x, n_blocks, max_col)
+    b_r = val.shape[1]
+    y = torch.empty(n_blocks * b_r, dtype=torch.float32, device=x.device)
+    vk, ik = kind_codes(val, col_idx)
+    rc = _fn()(val.data_ptr(), vk, col_idx.data_ptr(), ik,
+               block_start.data_ptr(), x.data_ptr(), y.data_ptr(),
+               n_blocks, b_r, stream_of(x))
+    _build.check("pjds_spmv", rc, "pjds_spmv launch")
+    pjds_matvec_kernel_call.launches += 1
+    return y
+
+
+pjds_matvec_kernel_call.launches = 0

@@ -1,0 +1,196 @@
+"""The port's operator protocol against the reference's: ``operator(m,
+device="cpu") @ x`` equals ``repro``'s ``operator(m) @ x`` for pJDS,
+SELL and CSR; ``convert.py`` carries a reference ``as_device`` container
+across to the same y; the entry points refuse to run on the CPU
+unasked and raise ``NotImplementedError`` for what is not ported.
+
+Tolerance: y within 1e-5 * max|y| -- the same stored values, f32
+accumulation on both sides, a different summation order.
+"""
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import convert
+from repro_torch.core import formats as TF
+from repro_torch.core import matrices as TM
+from repro_torch.core.operator import DeviceOperator
+from repro_torch.kernels import ops as TO
+
+
+def _jax():
+    """The reference modules, imported on use so the card test of this
+    file runs where JAX is not installed."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.core import formats as F
+    from repro.core import matrices as M
+    from repro.core.operator import operator as joperator
+    from repro.kernels import ops as jops
+    return jnp, F, M, joperator, jops
+
+
+def _close(y, y_ref, tol=1e-5):
+    y, y_ref = np.asarray(y, np.float64), np.asarray(y_ref, np.float64)
+    scale = max(np.abs(y_ref).max(), 1e-30)
+    assert y.shape == y_ref.shape
+    assert np.abs(y - y_ref).max() <= tol * scale
+
+
+def _zipf_dense(n=160, seed=0):
+    rng = np.random.default_rng(seed)
+    rl = np.clip(rng.zipf(1.8, size=n), 1, n // 4)
+    a = np.zeros((n, n), np.float32)
+    for i in range(n):
+        a[i, rng.integers(0, n, size=rl[i])] = rng.standard_normal(rl[i])
+    return a
+
+
+_MATS = {
+    "samg": lambda: TM.samg(scale=1e-4),
+    "poisson": lambda: TM.poisson_2d(24, 24),
+    "zipf160": lambda: TF.csr_from_dense(_zipf_dense()),
+}
+
+
+def _jax_matrix(F, tm):
+    return F.CSRMatrix(tm.indptr, tm.indices, tm.data, tm.shape)
+
+
+@pytest.mark.parametrize("policy", [
+    pytest.param({}, id="f32+auto"),
+    pytest.param({"dtype": "bfloat16", "index_dtype": "int16"},
+                 id="bf16+int16"),
+    pytest.param({"index_dtype": "int32", "b_r": 64, "chunk_l": 8},
+                 id="f32+int32-b64")])
+@pytest.mark.parametrize("fmt", ["pjds", "sell", "csr"])
+@pytest.mark.parametrize("name", sorted(_MATS))
+def test_operator_matches_reference(name, fmt, policy):
+    jnp, F, _, joperator, _ = _jax()
+    tm = _MATS[name]()
+    x = np.random.default_rng(7).standard_normal(tm.n_cols).astype(
+        np.float32)
+    jpol = dict(policy)
+    if jpol.get("dtype") == "bfloat16":
+        jpol["dtype"] = jnp.bfloat16
+    y_j = np.asarray(joperator(_jax_matrix(F, tm), fmt, **jpol)
+                     @ jnp.asarray(x))
+    op = repro_torch.operator(tm, fmt, device="cpu", **policy)
+    assert isinstance(op, DeviceOperator) and op.fmt == fmt
+    y_t = op @ torch.from_numpy(x)
+    assert y_t.dtype == torch.float32
+    _close(y_t.numpy(), y_j)
+    _close((op @ x).numpy(), y_j)           # numpy x: host width rule
+
+
+def test_dense_input_and_conversion_cache():
+    a = _zipf_dense()
+    op1 = repro_torch.operator(a, "sell", device="cpu")
+    op2 = repro_torch.operator(a.copy(), "sell", device="cpu")
+    assert op1.dev is op2.dev                # content-hashed, converted once
+    _close((op1 @ _zipf_dense()[0]).numpy(),
+           a.astype(np.float64) @ _zipf_dense()[0], tol=1e-4)
+
+
+def test_explicit_x_tiles_changes_nothing():
+    tm = _MATS["samg"]()
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        tm.n_cols).astype(np.float32))
+    for fmt in ("pjds", "sell"):
+        y1 = repro_torch.operator(tm, fmt, x_tiles=1, device="cpu") @ x
+        y4 = repro_torch.operator(tm, fmt, x_tiles=4, device="cpu") @ x
+        assert torch.equal(y1, y4)
+    assert TO.as_device(tm, "sell", device="cpu").x_tiles == 1   # "auto"
+
+
+@pytest.mark.parametrize("fmt", ["pjds", "sell", "csr"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_convert_carries_jax_containers_across(fmt, bf16):
+    jnp, F, M, _, jops = _jax()
+    m = M.samg(scale=2e-4, seed=3)
+    sd = jops.as_device(m, fmt, b_r=32, chunk_l=8,
+                        dtype=jnp.bfloat16 if bf16 else None)
+    inner = sd.dev
+    names = [f for f in ("val", "col_idx", "row_block", "inv_perm", "data",
+                         "indices", "row_ids") if hasattr(inner, f)]
+    arrays = {f: np.asarray(getattr(inner, f)) for f in names}
+    statics = {f: getattr(inner, f) for f in ("n_blocks", "b_r", "chunk_l",
+                                              "sigma", "n_rows")
+               if hasattr(inner, f)}
+    port = convert.sparse_device(
+        fmt, sd.shape, arrays, statics,
+        inv_perm=None if sd.inv_perm is None else np.asarray(sd.inv_perm),
+        x_tiles=sd.x_tiles, device="cpu")
+    x = np.random.default_rng(2).standard_normal(m.n_cols).astype(np.float32)
+    y_j = np.asarray(sd.matvec(jnp.asarray(x), backend="ref"))
+    _close(port.matvec(torch.from_numpy(x)).numpy(), y_j)
+    if fmt != "csr":
+        # the port's own build of the same matrix stores the same bits
+        own = TO.as_device(TF.CSRMatrix(m.indptr, m.indices, m.data,
+                                        m.shape), fmt, b_r=32, chunk_l=8,
+                           dtype=torch.bfloat16 if bf16 else None,
+                           device="cpu").dev
+        for f in ("val", "col_idx", "row_block", "block_start"):
+            assert torch.equal(getattr(own, f), getattr(port.dev, f)), f
+
+
+def test_entry_points_refuse_the_cpu_unasked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tm = _MATS["samg"]()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        repro_torch.operator(tm, "sell")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TO.as_device(tm, "pjds")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        repro_torch.solve(tm, np.ones(tm.n_rows), tune="off",
+                          fallback="off")
+
+
+@pytest.mark.parametrize("call,item", [
+    (lambda tm: repro_torch.operator(tm, "ellpack_r", device="cpu"), "K4"),
+    (lambda tm: repro_torch.operator(tm, "cmrs", device="cpu"), "K6"),
+    (lambda tm: repro_torch.operator(tm, "sell", tune="auto",
+                                     device="cpu"), "autotuner"),
+    (lambda tm: repro_torch.operator(tm, "sell", reorder="rcm",
+                                     device="cpu"), "RCM"),
+    (lambda tm: repro_torch.operator(tm, "sell", transpose="device",
+                                     device="cpu"), "transpose"),
+    (lambda tm: repro_torch.operator(tm, "sell", device="cpu").T, "rmatvec"),
+    (lambda tm: repro_torch.operator(tm, "pjds", device="cpu").rmatvec(
+        torch.zeros(tm.n_rows)), "rmatvec"),
+    (lambda tm: repro_torch.operator(tm, "sell", device="cpu")
+     @ torch.zeros(tm.n_cols, 3), "K5"),
+    (lambda tm: repro_torch.operator(tm, "sell", device="cpu")
+     @ torch.zeros(tm.n_cols, requires_grad=True), "autograd"),
+])
+def test_unported_options_raise_naming_their_roadmap_item(call, item):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
+        call(_MATS["samg"]())
+    assert item in str(e.value)
+
+
+def test_bad_inputs_raise():
+    tm = _MATS["samg"]()
+    op = repro_torch.operator(tm, "sell", device="cpu")
+    with pytest.raises(ValueError, match="entries"):
+        op @ torch.zeros(tm.n_cols - 1)
+    with pytest.raises(ValueError):
+        repro_torch.operator(tm, "bogus", device="cpu")
+    with pytest.raises(ValueError):
+        TO.as_device(TO.as_device(tm, "sell", device="cpu"), "pjds")
+    with pytest.raises(TypeError):
+        repro_torch.operator([[1.0]], device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["pjds", "sell"])
+def test_operator_on_card_matches_cpu(fmt):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    tm = TM.samg(scale=3e-3)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        tm.n_cols).astype(np.float32))
+    y_cpu = repro_torch.operator(tm, fmt, device="cpu") @ x
+    op = repro_torch.operator(tm, fmt)
+    assert op.device.type == "cuda"
+    _close((op @ x.cuda()).cpu().numpy(), y_cpu.numpy())
