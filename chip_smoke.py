@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Drive the repro_torch port's main path on one CUDA card, at full size.
 
-Builds the three hand-written kernels (K1 pJDS spMV, K2 SELL-C-sigma
-spMV, K3 fused spMV + dots) from ``src/repro_torch/kernels/csrc``, runs
-the paper's pipeline on the sAMG analogue at its published 3.4 M rows
--- ``operator(m, format=...) @ x`` and ``repro_torch.solve`` -- and holds
-every kernel against its plain PyTorch version and every product
-against a float64 scipy reference.  Each phase prints one JSON line;
-any failed check raises, and the script then exits non-zero without its
-final line.
+Builds the six hand-written kernels (K1 pJDS spMV, K2 SELL-C-sigma
+spMV, K3 fused spMV + dots, K4 ELLPACK-R spMV, K5 multi-RHS pJDS, K6
+CMRS spMV) from ``src/repro_torch/kernels/csrc``, runs the paper's
+pipeline on the sAMG analogue at its published 3.4 M rows --
+``operator(m) @ x`` with the format the dispatch picks or a named one,
+``operator(m, format) @ X`` for a block of right-hand sides, and
+``repro_torch.solve`` with CG and block CG -- and the paper's
+ELLPACK-R-vs-pJDS comparison, and holds every kernel against its plain
+PyTorch version and every product against a float64 scipy reference.
+Each main-path phase sets every launch count to 0 before it and reads
+the counts after it.  Each phase prints one JSON line; any failed check
+raises, and the script then exits non-zero without its final line.
 
     python3 chip_smoke.py
 
@@ -71,10 +75,16 @@ def main() -> int:
 
     import repro_torch
     from repro_torch.core import matrices as TM
+    from repro_torch.core import formats as TF
+    from repro_torch.core import solvers as S
     from repro_torch.kernels import _build
+    from repro_torch.kernels import ops as TO
     from repro_torch.kernels import ref as R
+    from repro_torch.kernels.cmrs_spmv import cmrs_matvec_kernel_call
+    from repro_torch.kernels.ellr_spmv import ell_matvec_kernel_call
     from repro_torch.kernels.fused_iter import (fused_matvec_dots,
                                                 fused_spmv_dots_kernel_call)
+    from repro_torch.kernels.pjds_spmm import pjds_matmat_kernel_call
     from repro_torch.kernels.pjds_spmv import pjds_matvec_kernel_call
     from repro_torch.kernels.sell_spmv import (sell_matvec_kernel_call,
                                                slab_fits, window_blocks)
@@ -83,9 +93,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     kernels = {"pjds_spmv": pjds_matvec_kernel_call,
                "sell_spmv": sell_matvec_kernel_call,
-               "fused_iter": fused_spmv_dots_kernel_call}
-    plains = (R.pjds_matvec_ref, R.sell_matvec_ref, R.fused_matvec_dots_ref,
-              R.csr_matvec_ref)
+               "fused_iter": fused_spmv_dots_kernel_call,
+               "ellr_spmv": ell_matvec_kernel_call,
+               "pjds_spmm": pjds_matmat_kernel_call,
+               "cmrs_spmv": cmrs_matvec_kernel_call}
+    plains = R._COUNTED
 
     def reset_counts():
         for k in kernels.values():
@@ -129,6 +141,10 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, compiled=built,
          dir=str(_build.build_dir().relative_to(ROOT)), ptxas=ptxas)
 
+    def plain_free(plain_calls, what):
+        require(not any(plain_calls.values()),
+                f"{what}: plain version ran on the main path: {plain_calls}")
+
     # ---- 2. setup: the card and the sAMG matrix at full size ------------
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -165,8 +181,7 @@ def main() -> int:
         y = op @ x
         launched, plain_calls = counts()
         require(launched[name] >= 1, f"{name} was not launched")
-        require(not any(plain_calls.values()),
-                f"plain version ran on the main path: {plain_calls}")
+        plain_free(plain_calls, f"matvec:{name}")
         d = op.dev.dev
         if name == "pjds_spmv":
             y_k = pjds_matvec_kernel_call(d.val, d.col_idx, d.block_start,
@@ -189,6 +204,49 @@ def main() -> int:
         errs[name] = (e_abs, e_rel)
         main_launches[name] = launched[name]
         emit(f"matvec:{name}", launches=launched[name],
+             max_abs_err_vs_plain=e_abs, max_rel_err_vs_plain=e_rel,
+             max_abs_err_vs_scipy_f64=s_abs, max_rel_err_vs_scipy_f64=s_rel)
+
+    # ---- 3b. the format the dispatch picks: K6 on sAMG; K4 named ------
+    t0 = time.perf_counter()
+    op_c = repro_torch.operator(m)                 # format="auto"
+    t_cmrs = time.perf_counter() - t0
+    require(op_c.fmt == "cmrs", f"auto picked {op_c.fmt} on sAMG, not cmrs")
+    t0 = time.perf_counter()
+    op_e = repro_torch.operator(m, format="ellpack_r")
+    t_ell = time.perf_counter() - t0
+    d_c, d_e = op_c.dev.dev, op_e.dev.dev
+    for phase, name, op in (("matvec:auto:samg", "cmrs_spmv", op_c),
+                            ("matvec:ellpack_r:samg", "ellr_spmv", op_e)):
+        reset_counts()
+        y = op @ x
+        launched, plain_calls = counts()
+        require(launched[name] >= 1, f"{phase}: {name} was not launched")
+        plain_free(plain_calls, phase)
+        d = op.dev.dev
+        if name == "cmrs_spmv":
+            y_k = cmrs_matvec_kernel_call(d.val, d.col_idx, d.row_in_strip,
+                                          d.strip_start, x,
+                                          n_strips=d.n_strips,
+                                          max_col=d.max_col)
+            y_r = R.cmrs_matvec_ref(d.val, d.col_idx, d.row_in_strip,
+                                    d.strip_map, x, d.n_strips)
+        else:
+            y_k = ell_matvec_kernel_call(d.val, d.col_idx, d.rowlen, x,
+                                         max_col=d.max_col)
+            y_r = R.ell_matvec_ref(d.val, d.col_idx, d.rowlen, x)
+        e_abs, e_rel = rel_err(y_k, y_r)
+        s_abs, s_rel = rel_err(y, y64_t)
+        require(e_rel <= Y_TOL, f"{name} vs plain: {e_rel}")
+        require(s_rel <= SCIPY_TOL, f"{phase} vs scipy f64: {s_rel}")
+        require(tuple(y.shape) == (n,) and bool(torch.isfinite(y).all()),
+                f"{phase}: bad output")
+        errs[name] = (e_abs, e_rel)
+        if name == "cmrs_spmv":
+            main_launches[name] = launched[name]
+        emit(phase, format=op.fmt, launches=launched, plain_calls=plain_calls,
+             build_s=t_cmrs if name == "cmrs_spmv" else t_ell,
+             stored_elements=op.dev.storage_elements(),
              max_abs_err_vs_plain=e_abs, max_rel_err_vs_plain=e_rel,
              max_abs_err_vs_scipy_f64=s_abs, max_rel_err_vs_scipy_f64=s_rel)
 
@@ -233,13 +291,31 @@ def main() -> int:
     require(res.diagnostics["true_residual"] <= 1e-6, "certified residual")
     require(sci_res <= 1e-5, f"scipy residual {sci_res}")
     require(launched["fused_iter"] >= res.iters + 1, "K3 launches")
-    require(not any(plain_calls.values()), f"plain calls {plain_calls}")
+    plain_free(plain_calls, "solve:samg:fused")
     main_launches["fused_iter"] = launched["fused_iter"]
 
-    # ---- 6. long fused loop: 2-D Poisson 512 x 512 ----------------------
+    # ---- 6. 2-D Poisson 512 x 512: the dispatch picks ELLPACK-R (K4), and
+    #         a long fused-CG loop ------------------------------------------
     mp = TM.poisson_2d(512, 512)
     bp = np.random.default_rng(SEED).standard_normal(mp.n_rows).astype(
         np.float32)
+    op_pe = repro_torch.operator(mp)               # format="auto"
+    require(op_pe.fmt == "ellpack_r",
+            f"auto picked {op_pe.fmt} on Poisson 512^2, not ellpack_r")
+    xpo = torch.from_numpy(bp).to(dev)
+    reset_counts()
+    ype = op_pe @ xpo
+    launched, plain_calls = counts()
+    require(launched["ellr_spmv"] >= 1, "poisson512: K4 was not launched")
+    plain_free(plain_calls, "matvec:auto:poisson512")
+    ap64 = sp.csr_matrix((mp.data, mp.indices, mp.indptr), shape=mp.shape)
+    s_abs, s_rel = rel_err(ype, torch.from_numpy(ap64 @ bp.astype(
+        np.float64)))
+    require(s_rel <= SCIPY_TOL, f"poisson512 K4 vs scipy f64: {s_rel}")
+    main_launches["ellr_spmv"] = launched["ellr_spmv"]
+    emit("matvec:auto:poisson512", format=op_pe.fmt, launches=launched,
+         plain_calls=plain_calls, max_abs_err_vs_scipy_f64=s_abs,
+         max_rel_err_vs_scipy_f64=s_rel)
     reset_counts()
     t0 = time.perf_counter()
     resp = repro_torch.solve(mp, bp, tol=1e-5, maxiter=5000, tune="off",
@@ -259,7 +335,7 @@ def main() -> int:
          plain_calls=plain_calls, seconds=t_p, ms_per_iter=ms_iter,
          k3_ms_at_this_size=k3_ms, k3_share_of_iteration=k3_ms / ms_iter)
     require(resp.status == "converged", f"poisson solve: {resp.status}")
-    require(not any(plain_calls.values()), f"plain calls {plain_calls}")
+    plain_free(plain_calls, "solve:poisson512:fused")
 
     # ---- 7. composed CG over K1 -----------------------------------------
     reset_counts()
@@ -278,7 +354,106 @@ def main() -> int:
     require(resc.status == "converged", f"composed solve: {resc.status}")
     require(sci_c <= 1e-5, f"composed scipy residual {sci_c}")
     require(launched["pjds_spmv"] >= resc.iters + 1, "K1 launches")
-    require(not any(plain_calls.values()), f"plain calls {plain_calls}")
+    plain_free(plain_calls, "solve:samg:composed")
+
+    # ---- 7b. a block of right-hand sides: K5 through matmat, block CG ---
+    k_rhs = 8
+    X = torch.from_numpy(rng.standard_normal((n, k_rhs)).astype(
+        np.float32)).to(dev)
+    Y64 = torch.from_numpy(a64 @ X.double().cpu().numpy())
+    for fmt, op in (("sell", op_s), ("pjds", op_p)):
+        reset_counts()
+        Y = op @ X
+        launched, plain_calls = counts()
+        require(launched["pjds_spmm"] >= 1, f"matmat {fmt}: K5 not launched")
+        plain_free(plain_calls, f"matmat:samg:{fmt}")
+        s_abs, s_rel = rel_err(Y, Y64)
+        require(tuple(Y.shape) == (n, k_rhs)
+                and bool(torch.isfinite(Y).all()), f"matmat {fmt}: bad Y")
+        require(s_rel <= SCIPY_TOL, f"matmat {fmt} vs scipy f64: {s_rel}")
+        emit(f"matmat:samg:{fmt}", k=k_rhs, launches=launched,
+             plain_calls=plain_calls, max_abs_err_vs_scipy_f64=s_abs,
+             max_rel_err_vs_scipy_f64=s_rel)
+    # K5 as the operator launches it (row map: rows stored in the
+    # original order) and in the permuted basis, each against its plain
+    # version on the same inputs
+    unperm_s, rows_s = op_s.dev.stored_rows(), op_s.dev.row_map()
+    Y_k = pjds_matmat_kernel_call(d_s.val, d_s.col_idx, d_s.block_start, X,
+                                  n_blocks=d_s.n_blocks, max_col=d_s.max_col)
+    Y_r = R.pjds_matmat_ref(d_s.val, d_s.col_idx, d_s.row_block, X,
+                            d_s.n_blocks)
+    e_perm = rel_err(Y_k, Y_r)
+    Y_k = pjds_matmat_kernel_call(d_s.val, d_s.col_idx, d_s.block_start, X,
+                                  n_blocks=d_s.n_blocks, max_col=d_s.max_col,
+                                  out_row=rows_s, n_out=n)
+    errs["pjds_spmm"] = rel_err(Y_k, Y_r.index_select(0, unperm_s))
+    require(max(e_perm[1], errs["pjds_spmm"][1]) <= Y_TOL,
+            f"pjds_spmm vs plain: {e_perm}, row map {errs['pjds_spmm']}")
+    emit("matmat:samg:k5_vs_plain", k=k_rhs,
+         max_abs_err_vs_plain=errs["pjds_spmm"][0],
+         max_rel_err_vs_plain=errs["pjds_spmm"][1],
+         permuted_basis_max_rel_err_vs_plain=e_perm[1])
+    del Y_k, Y_r
+
+    B_np = rng.standard_normal((n, 4)).astype(np.float32)
+    # The first solve pays the process's one-time set-up of cuBLAS and
+    # cuSOLVER (the Gram products and the k x k solves); the second is
+    # the one counted and timed.
+    t0 = time.perf_counter()
+    repro_torch.solve(m, B_np, method="block_cg", format="sell", tune="off",
+                      fallback="off")
+    t_cold = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    resb = repro_torch.solve(m, B_np, method="block_cg", format="sell",
+                             tune="off", fallback="off")
+    launched, plain_calls = counts()
+    t_b = time.perf_counter() - t0
+    rb64 = B_np - a64 @ resb.x.double().cpu().numpy()
+    col_res = (np.linalg.norm(rb64, axis=0)
+               / np.linalg.norm(B_np, axis=0)).tolist()
+    emit("solve:samg:block_cg", status=resb.status, k=4, iters=resb.iters,
+         residual_per_column=[float(v) for v in resb.residual],
+         true_residual=resb.diagnostics["true_residual"],
+         scipy_f64_residual_per_column=col_res,
+         host_syncs=resb.info["host_syncs"], launches=launched,
+         plain_calls=plain_calls, seconds=t_b, first_solve_seconds=t_cold,
+         ms_per_iter=1e3 * resb.info["phase_s"]["solve"]
+         / max(resb.iters, 1))
+    require(resb.status == "converged", f"block CG: {resb.status}")
+    require(max(col_res) <= 1e-5, f"block CG scipy residuals {col_res}")
+    require(launched["pjds_spmm"] >= resb.iters + 1, "K5 launches")
+    plain_free(plain_calls, "solve:samg:block_cg")
+    main_launches["pjds_spmm"] = launched["pjds_spmm"]
+
+    # ---- 7c. the paper's comparison: pJDS (K1) against ELLPACK-R (K4) ---
+    for label, chunk_l in (("default chunk_l=16", 16),
+                           ("paper chunk_l=1 diag_align=1", 1)):
+        e_h = TF.csr_to_ell(m, row_align=128, diag_align=chunk_l)
+        p_h = TF.csr_to_pjds(m, b_r=128, diag_align=chunk_l,
+                             permuted_cols=False)
+        de = TO.to_device_ell(e_h, device=dev)
+        dpp = TO.to_device_pjds(p_h, chunk_l=chunk_l, device=dev)
+        y4 = ell_matvec_kernel_call(de.val, de.col_idx, de.rowlen, x,
+                                    max_col=de.max_col)
+        y1 = pjds_matvec_kernel_call(dpp.val, dpp.col_idx, dpp.block_start,
+                                     x, n_blocks=dpp.n_blocks,
+                                     max_col=dpp.max_col)
+        inv = torch.from_numpy(p_h.inv_perm[:n].astype(np.int64)).to(dev)
+        require(rel_err(y1[inv], y4[:n])[1] <= Y_TOL, "K1 and K4 disagree")
+        t4 = time_ms(lambda: ell_matvec_kernel_call(
+            de.val, de.col_idx, de.rowlen, x, max_col=de.max_col))
+        t1 = time_ms(lambda: pjds_matvec_kernel_call(
+            dpp.val, dpp.col_idx, dpp.block_start, x, n_blocks=dpp.n_blocks,
+            max_col=dpp.max_col))
+        ell_b, pj_b = TF.format_nbytes(e_h), TF.format_nbytes(p_h)
+        ell_e, pj_e = TF.storage_elements(e_h), TF.storage_elements(p_h)
+        emit("paper:samg", build=label, index_dtype=str(de.col_idx.dtype),
+             ell_nbytes=ell_b, pjds_nbytes=pj_b, ell_elements=ell_e,
+             pjds_elements=pj_e, data_reduction_elements=1.0 - pj_e / ell_e,
+             data_reduction_bytes=1.0 - pj_b / ell_b, k4_ms=list(t4),
+             k1_ms=list(t1), k1_speed_share_of_k4=t4[0] / t1[0])
+        del de, dpp, e_h, p_h, y1, y4
 
     # ---- 8. small builds: bf16 + int16, and the device-memory path ------
     ms = TM.samg(scale=0.009)
@@ -321,18 +496,49 @@ def main() -> int:
         d3 = float(((dk.double() - dr.double()).abs()
                     / dr.double().abs().clamp(min=1e-30)).max())
         slab = slab_fits(window_blocks(s.sigma, s.b_r, s.n_blocks), s.b_r)
+        more = {}
+        if sigma is None:              # K4, K5 and K6 at this policy
+            e = repro_torch.operator(ms, format="ellpack_r", **kw).dev.dev
+            c = repro_torch.operator(ms, format="cmrs", **kw).dev.dev
+            more["ellr_rel_err"] = rel_err(
+                ell_matvec_kernel_call(e.val, e.col_idx, e.rowlen, xs,
+                                       max_col=e.max_col),
+                R.ell_matvec_ref(e.val, e.col_idx, e.rowlen, xs))[1]
+            more["cmrs_rel_err"] = rel_err(
+                cmrs_matvec_kernel_call(c.val, c.col_idx, c.row_in_strip,
+                                        c.strip_start, xs,
+                                        n_strips=c.n_strips,
+                                        max_col=c.max_col),
+                R.cmrs_matvec_ref(c.val, c.col_idx, c.row_in_strip,
+                                  c.strip_map, xs, c.n_strips))[1]
+            for k in (1, 3, 8):
+                xk = torch.stack([xs * (j + 1) for j in range(k)], dim=1)
+                more[f"pjds_spmm_k{k}_rel_err"] = rel_err(
+                    pjds_matmat_kernel_call(p.val, p.col_idx, p.block_start,
+                                            xk, n_blocks=p.n_blocks,
+                                            max_col=p.max_col),
+                    R.pjds_matmat_ref(p.val, p.col_idx, p.row_block, xk,
+                                      p.n_blocks))[1]
         emit(f"small:{label}", n_rows=ms.n_rows, value_dtype=str(s.val.dtype),
              index_dtype=str(s.col_idx.dtype), sigma=s.sigma,
              sell_path="shared-memory slab" if slab else "device memory",
              pjds_rel_err=e1, sell_rel_err=e2, fused_y_rel_err=e3,
-             fused_dots_rel_err=d3)
-        require(max(e1, e2, e3) <= Y_TOL and d3 <= DOT_TOL,
+             fused_dots_rel_err=d3, **more)
+        require(max(e1, e2, e3, *more.values()) <= Y_TOL and d3 <= DOT_TOL,
                 f"small build {label} disagrees with the plain version")
         require(str(s.col_idx.dtype) == ("torch." + kw["index_dtype"]),
                 "index dtype not kept")
         require(slab == (sigma is None), "wrong unpermute path exercised")
 
     # ---- 9. timings at full size (CUDA events, median of 30) -------------
+    # Bytes each call must move: every input read once, every output
+    # written once.  pJDS and SELL (K1, K2, K3, K5) count their stored
+    # elements, padding included; ELLPACK-R (K4) counts nnz, since it
+    # reads no slot past rowlen, and CMRS (K6) counts nnz as well, plus
+    # its int8 row stream: its strips pad only to whole tile rows, so
+    # the function needs nnz slots (the stored-slot bytes are printed
+    # beside, as ``stored_bytes``).  K5 is timed as the operator
+    # launches it, with its row map.
     vb = d_s.val.element_size()
     ib = d_s.col_idx.element_size()
     stored = d_s.val.numel()
@@ -340,23 +546,43 @@ def main() -> int:
     w_b = window_blocks(d_s.sigma, d_s.b_r, n_blocks)
     n_part = -(-n_blocks // w_b)
     base = stored * (vb + ib) + n * 4 + n_pad * 4 + (n_blocks + 1) * 4
+    c_stored = d_c.val.numel()
+    c_slot = d_c.val.element_size() + d_c.col_idx.element_size() + 1
+    c_rest = (d_c.n_strips + 1) * 4 + n * 4 + d_c.n_rows_pad * 4
+    e_pad = d_e.n_rows_pad
     bytes_ = {"pjds_spmv": float(d_p.val.numel() * (vb + ib) + n * 4
                                  + n_pad * 4 + (n_blocks + 1) * 4),
               "sell_spmv": float(base + n_pad * 4),
               "fused_iter": float(base + n_pad * 4 + 2 * n_pad * 4
-                                  + 2 * n_part * 5 * 4 + 5 * 4)}
+                                  + 2 * n_part * 5 * 4 + 5 * 4),
+              "ellr_spmv": float(m.nnz * (vb + ib) + e_pad * 4 + n * 4
+                                 + e_pad * 4),
+              "pjds_spmm": float(stored * (vb + ib) + (n_blocks + 1) * 4
+                                 + n_pad * 4 + 2 * n * k_rhs * 4),
+              "cmrs_spmv": float(m.nnz * c_slot + c_rest)}
+    stored_bytes = {"cmrs_spmv": float(c_stored * c_slot + c_rest)}
     flops = {"pjds_spmv": 2.0 * d_p.val.numel(),
              "sell_spmv": 2.0 * stored,
-             "fused_iter": 2.0 * stored + 2.0 * 5 * n_pad}
+             "fused_iter": 2.0 * stored + 2.0 * 5 * n_pad,
+             "ellr_spmv": 2.0 * m.nnz,
+             "pjds_spmm": 2.0 * stored * k_rhs,
+             "cmrs_spmv": 2.0 * m.nnz}
     a_csr = torch.sparse_csr_tensor(
         torch.from_numpy(m.indptr.astype(np.int64)),
         torch.from_numpy(m.indices.astype(np.int64)),
         torch.from_numpy(m.data.astype(np.float32)), size=m.shape).to(dev)
-    try:      # a yardstick only: the port never calls cuSPARSE
-        lib_ms = time_ms(lambda: torch.mv(a_csr, x))[0]
-    except RuntimeError as e:
-        emit("library", error=f"{type(e).__name__}: {e}")
-        lib_ms = None
+
+    def library_ms(fn, what):
+        try:      # a yardstick only: the port never calls cuSPARSE
+            return time_ms(fn)[0]
+        except RuntimeError as e:
+            emit("library", call=what, error=f"{type(e).__name__}: {e}")
+            return None
+
+    lib_mv = library_ms(lambda: torch.mv(a_csr, x), "torch.mv(csr, x)")
+    lib_mm = library_ms(lambda: a_csr @ X, "csr @ X")
+    library = {"pjds_spmv": lib_mv, "sell_spmv": lib_mv, "fused_iter": lib_mv,
+               "ellr_spmv": lib_mv, "pjds_spmm": lib_mm, "cmrs_spmv": lib_mv}
     runs = {
         "pjds_spmv": (
             lambda: pjds_matvec_kernel_call(d_p.val, d_p.col_idx,
@@ -380,33 +606,103 @@ def main() -> int:
             lambda: R.fused_matvec_dots_ref(d_s.val, d_s.col_idx,
                                             d_s.row_block, d_s.inv_perm, xp,
                                             w1, w2, n_blocks)),
+        "ellr_spmv": (
+            lambda: ell_matvec_kernel_call(d_e.val, d_e.col_idx, d_e.rowlen,
+                                           x, max_col=d_e.max_col),
+            lambda: R.ell_matvec_ref(d_e.val, d_e.col_idx, d_e.rowlen, x)),
+        "pjds_spmm": (
+            lambda: pjds_matmat_kernel_call(d_s.val, d_s.col_idx,
+                                            d_s.block_start, X,
+                                            n_blocks=n_blocks,
+                                            max_col=d_s.max_col,
+                                            out_row=rows_s, n_out=n),
+            lambda: R.pjds_matmat_ref(d_s.val, d_s.col_idx, d_s.row_block,
+                                      X, n_blocks).index_select(0, unperm_s)),
+        "cmrs_spmv": (
+            lambda: cmrs_matvec_kernel_call(d_c.val, d_c.col_idx,
+                                            d_c.row_in_strip, d_c.strip_start,
+                                            x, n_strips=d_c.n_strips,
+                                            max_col=d_c.max_col),
+            lambda: R.cmrs_matvec_ref(d_c.val, d_c.col_idx, d_c.row_in_strip,
+                                      d_c.strip_map, x, d_c.n_strips)),
     }
-    sources = {"pjds_spmv": ("src/repro/kernels/pjds_spmv.py:150",
-                             "pjds_matvec_kernel_call"),
-               "sell_spmv": ("src/repro/kernels/sell_spmv.py:180",
-                             "sell_matvec_kernel_call"),
-               "fused_iter": ("src/repro/kernels/fused_iter.py:199",
-                              "fused_spmv_dots_kernel_call")}
+    sources = {"pjds_spmv": "src/repro/kernels/pjds_spmv.py:150",
+               "sell_spmv": "src/repro/kernels/sell_spmv.py:180",
+               "fused_iter": "src/repro/kernels/fused_iter.py:199",
+               "ellr_spmv": "src/repro/kernels/ellr_spmv.py:96",
+               "pjds_spmm": "src/repro/kernels/pjds_spmm.py:108",
+               "cmrs_spmv": "src/repro/kernels/cmrs_spmv.py:126"}
     record = []
     for name, (kern, plain) in runs.items():
         k_ms, k_q25, k_q75 = time_ms(kern)
         p_ms = time_ms(plain, reps=20, warm=2)[0]
-        bound_ms = 1e3 * max(bytes_[name] / HBM_BYTES_PER_S,
-                             flops[name] / F32_FLOPS)
+        t_bytes = bytes_[name] / HBM_BYTES_PER_S
+        t_ops = flops[name] / F32_FLOPS
         rec = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-               "replaces": sources[name][0],
+               "replaces": sources[name],
                "launches": main_launches[name],
                "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
                "ms": k_ms, "ms_q25_q75": [k_q25, k_q75], "samples": 30,
-               "plain_ms": p_ms, "bound_ms": bound_ms,
-               "bound_by": "bytes"
-               if bytes_[name] / HBM_BYTES_PER_S >= flops[name] / F32_FLOPS
-               else "operations",
-               "library_ms": lib_ms, "bytes": bytes_[name],
+               "plain_ms": p_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": library[name], "bytes": bytes_[name],
                "gbps": bytes_[name] / (k_ms * 1e-3) / 1e9}
+        if name in stored_bytes:
+            rec["stored_bytes"] = stored_bytes[name]
         record.append(rec)
         emit(f"time:{name}", **rec)
+
+    # The dispatch's decision under test: CMRS (K6) against SELL (K2) on
+    # sAMG, interleaved in one call (K2, K6, K6, K2).
+    pair = [time_ms(runs[nm][0]) for nm in ("sell_spmv", "cmrs_spmv",
+                                            "cmrs_spmv", "sell_spmv")]
+    k2_ms = float(np.median([pair[0][0], pair[3][0]]))
+    k6_ms = float(np.median([pair[1][0], pair[2][0]]))
+    emit("time:cmrs_vs_sell:samg", picked="cmrs", k2_sell_ms=k2_ms,
+         k6_cmrs_ms=k6_ms, k6_over_k2=k6_ms / k2_ms,
+         samples=[list(t) for t in pair],
+         sell_stored_elements=stored, cmrs_stored_elements=c_stored)
+
+    # The operator layer around the kernels: each product through the
+    # operator (dispatch, unpermute, slicing) beside its kernel alone, and
+    # the pieces of one block-CG iteration at k = 4 beside K5 there.  The
+    # (n, k) unpermute that K5's row map replaces is timed alone, with
+    # K5 in the permuted basis that it would follow.
+    kern_ms = {r["name"]: r["ms"] for r in record}
+    X4 = X[:, :4].contiguous()
+    g4 = X4.T @ X4
+    def k5(xk, rows=None):
+        return lambda: pjds_matmat_kernel_call(
+            d_s.val, d_s.col_idx, d_s.block_start, xk, n_blocks=n_blocks,
+            max_col=d_s.max_col, out_row=rows, n_out=n)
+
+    Y_p = k5(X)()
+    unperm64 = unperm_s.long()
+    emit("time:operator",
+         operator_ms={"pjds_spmv": time_ms(lambda: op_p @ x)[0],
+                      "sell_spmv": time_ms(lambda: op_s @ x)[0],
+                      "ellr_spmv": time_ms(lambda: op_e @ x)[0],
+                      "cmrs_spmv": time_ms(lambda: op_c @ x)[0],
+                      "pjds_spmm": time_ms(lambda: op_s @ X)[0]},
+         kernel_ms={nm: kern_ms[nm] for nm in ("pjds_spmv", "sell_spmv",
+                                                "ellr_spmv", "cmrs_spmv",
+                                                "pjds_spmm")},
+         k5_row_map_k8={
+             "k5_row_map_ms": time_ms(k5(X, rows_s))[0],
+             "k5_permuted_basis_ms": time_ms(k5(X))[0],
+             "index_select_2d_ms": time_ms(
+                 lambda: Y_p.index_select(0, unperm_s))[0],
+             "index_select_2d_int64_ms": time_ms(
+                 lambda: Y_p.index_select(0, unperm64))[0],
+             "advanced_index_2d_ms": time_ms(lambda: Y_p[unperm64])[0]},
+         block_cg_k4={
+             "operator_matmat_ms": time_ms(lambda: op_s @ X4)[0],
+             "k5_ms": time_ms(k5(X4, rows_s))[0],
+             "gram_ms": time_ms(lambda: X4.T @ X4)[0],
+             "block_update_ms": time_ms(lambda: X4 @ g4)[0],
+             "ridge_solve_ms": time_ms(lambda: S._ridge_solve(g4, g4))[0]})
+    del Y_p
     emit("memory", max_allocated_gib=torch.cuda.max_memory_allocated()
          / 2 ** 30)
 

@@ -9,14 +9,11 @@ from __future__ import annotations
 __all__ = ["ROADMAP_ITEMS", "not_ported"]
 
 ROADMAP_ITEMS = {
-    "ellpack_r": "1.1 (K4: ELLPACK-R kernel)",
-    "matmat": "1.2 (K5: multi-RHS pJDS kernel, matmat and 2-D x)",
-    "cmrs": "1.3 (K6: CMRS kernel)",
     "bicgstab": "1.4 (BiCGStab, fused BiCGStab, preconditioned CG)",
     "precond": "1.4 (BiCGStab, fused BiCGStab, preconditioned CG)",
     "fallback": "1.5 (the degradation ladder)",
     "refine": "1.6 (mixed-precision refinement)",
-    "block_cg": "1.7 (block CG, Lanczos, block Lanczos)",
+    "block_cg": "1.7 (Lanczos, block Lanczos, power iteration)",
     "transpose": "1.8 (rmatvec, .T and transpose='device')",
     "autograd": "1.9 (the autograd Function)",
     "reorder": "1.10 (RCM preprocessing and Matrix-Market I/O)",

@@ -1,22 +1,27 @@
 """``repro_torch.solve`` -- the front door to a linear solve.
 
-Port of ``repro/api.py`` for this slice.  For a host matrix it builds
-the operator (on CUDA unless ``device="cpu"``), picks the strategy --
-the fused spMV+dots CG over K3 whenever the operand is a single-device
-SELL matrix with a resident RHS and no preconditioner, composed CG
-otherwise -- runs it, and certifies the true residual: a result with
-``status == "converged"`` has ``||b - A x|| / ||b|| <= tol``.
+Port of ``repro/api.py`` for CG and block CG.  For a host matrix it
+builds the operator (on CUDA unless ``device="cpu"``), picks the
+strategy -- the fused spMV+dots CG over K3 whenever the operand is a
+single-device SELL matrix with a resident RHS and no preconditioner,
+composed CG otherwise, and for ``method="block_cg"`` (``b`` of shape
+(n, k)) block CG over the operator's ``matmat`` -- runs it, and
+certifies the true residual: a result with ``status == "converged"``
+has ``||b - A x|| / ||b|| <= tol`` (for block CG, in every column).
 
-The keywords keep the reference's names and defaults.  Values this
-slice does not run raise ``NotImplementedError`` naming their ROADMAP
+The keywords keep the reference's names and defaults.  Values the port
+does not run yet raise ``NotImplementedError`` naming their ROADMAP
 item, never a quiet fallback: ``tune`` other than ``"off"`` (so the
-default ``"auto"`` raises too), ``fallback`` other than ``"off"`` (the
-degradation ladder; its kernel->ref rung must never hide a kernel
-failure), refinement and sub-f32 ``dtype``, ``method`` other than
-``"cg"`` and any ``precond``.  So the slice's calls are::
+default ``"auto"`` raises too; block CG does not tune, as in the
+reference), ``fallback`` other than ``"off"`` (the degradation ladder;
+its kernel->ref rung must never hide a kernel failure), refinement and
+sub-f32 ``dtype`` for CG, ``method="bicgstab"`` and any ``precond``.
+So the calls are::
 
     res = repro_torch.solve(m, b, tune="off", fallback="off")
     res = repro_torch.solve(m, b, format="pjds", tune="off", fallback="off")
+    res = repro_torch.solve(m, B, method="block_cg", format="sell",
+                            tune="off", fallback="off")
 """
 from __future__ import annotations
 
@@ -88,7 +93,8 @@ def _pad_to(v: torch.Tensor, n_pad: int) -> torch.Tensor:
         torch.nn.functional.pad(v, (0, n_pad - v.shape[0]))
 
 
-def _one_solve(op, b, *, strategy, maxiter, tol, x0=None) -> SolveResult:
+def _one_solve(op, b, *, method, strategy, maxiter, tol,
+               x0=None) -> SolveResult:
     if strategy == "fused":
         mvd = _fused_dots_of(op)
         n, n_pad = op.shape[0], op.dev.dev.n_rows_pad
@@ -97,14 +103,21 @@ def _one_solve(op, b, *, strategy, maxiter, tol, x0=None) -> SolveResult:
                          tol=tol)
         res.x = res.x[:n]
         return res
+    if method == "block_cg":
+        return S.block_cg(op, b, x0=x0, maxiter=maxiter, tol=tol)
     return S.cg(op, b, x0=x0, maxiter=maxiter, tol=tol)
 
 
 def _true_rel_residual(op, b, x) -> float:
-    """Certified relative true residual ||b - A x|| / ||b||."""
+    """Certified relative true residual ||b - A x|| / ||b|| (the largest
+    over the columns of a block RHS)."""
     r = b - S._matvec_of(op)(x)
-    nb = torch.clamp(torch.linalg.vector_norm(b), min=1e-30)
-    return float(torch.linalg.vector_norm(r) / nb)
+    if b.dim() == 1:
+        nb = torch.clamp(torch.linalg.vector_norm(b), min=1e-30)
+        return float(torch.linalg.vector_norm(r) / nb)
+    num = torch.linalg.vector_norm(r, dim=0)
+    den = torch.clamp(torch.linalg.vector_norm(b, dim=0), min=1e-30)
+    return float(torch.max(num / den))
 
 
 def _certify(res: SolveResult, op, b, tol: float) -> SolveResult:
@@ -126,14 +139,15 @@ def _certify(res: SolveResult, op, b, tol: float) -> SolveResult:
     return res
 
 
-def _certified_solve(op, b, *, strategy, maxiter, tol, x0) -> SolveResult:
+def _certified_solve(op, b, *, method, strategy, maxiter, tol,
+                     x0) -> SolveResult:
     """The reference ladder's primary rung: solve, certify, and
     warm-restart (at most twice) while a certification miss from
     recurrence drift still improves."""
     rn_prev, restarts, iters_acc = float("inf"), 0, None
     while True:
-        res = _one_solve(op, b, strategy=strategy, maxiter=maxiter, tol=tol,
-                         x0=x0)
+        res = _one_solve(op, b, method=method, strategy=strategy,
+                         maxiter=maxiter, tol=tol, x0=x0)
         res = _certify(res, op, b, tol)
         iters_acc = res.iters if iters_acc is None else iters_acc + res.iters
         res.iters = iters_acc
@@ -164,25 +178,28 @@ def solve(a, b, *, method: str = "cg", precond=None, tol: float = 1e-6,
     ``dtype`` / ``index_dtype`` / ``backend`` and further ``as_device``
     keywords), an existing ``DeviceOperator`` (used as-is), or a bare
     matvec closure (composed strategy).  ``b``: a numpy array or
-    tensor (moved to the operator's device; float64 becomes float32).
-    With ``format="auto"`` a host matrix is built as SELL, the fused
-    strategy's format, as in the reference.
+    tensor (moved to the operator's device; float64 becomes float32),
+    1-D for ``"cg"``, (n, k) for ``"block_cg"``.  With ``format="auto"``
+    a host matrix is built as SELL for CG, the fused strategy's format,
+    and by ``select_format`` for block CG, as in the reference.
     """
     if method not in _METHODS:
         raise ValueError(f"method must be one of {_METHODS}; got {method!r}")
     if fallback not in ("auto", True, "off", False, None):
         raise ValueError(f"fallback must be 'auto' or 'off'; got "
                          f"{fallback!r}")
-    if method != "cg":
-        raise not_ported(f"method={method!r}", method if method == "block_cg"
-                         else "bicgstab")
+    if refine is True and method == "block_cg":
+        raise ValueError("refine is not available for block_cg "
+                         "(no block refinement path)")
+    if method == "bicgstab":
+        raise not_ported(f"method={method!r}", "bicgstab")
     if precond is not None:
         raise not_ported("precond", "precond")
-    if tune not in ("off", False, None):
+    if tune not in ("off", False, None) and method != "block_cg":
         raise not_ported(f"tune={tune!r}", "tune")
     if fallback not in ("off", False, None):
         raise not_ported(f"fallback={fallback!r}", "fallback")
-    if refine is True or _is_sub_f32(dtype):
+    if refine is True or (_is_sub_f32(dtype) and method != "block_cg"):
         raise not_ported("refinement and sub-f32 dtype", "refine")
     maxiter = _DEFAULT_MAXITER[method] if maxiter is None else maxiter
     phase_s: dict = {"tune": 0.0}
@@ -192,7 +209,7 @@ def solve(a, b, *, method: str = "cg", precond=None, tol: float = 1e-6,
         from repro_torch.core.operator import operator
         build_kwargs = dict(convert_kwargs)
         build_kwargs.setdefault("format", format)
-        if build_kwargs["format"] == "auto":
+        if build_kwargs["format"] == "auto" and method == "cg":
             build_kwargs["format"] = "sell"       # fused-eligible build
         op = operator(a, dtype=dtype, index_dtype=index_dtype,
                       backend=backend, device=device, **build_kwargs)
@@ -210,7 +227,10 @@ def solve(a, b, *, method: str = "cg", precond=None, tol: float = 1e-6,
     phase_s["build"] = time.perf_counter() - t0
 
     b = _as_vector(b, dev)
-    if b.dim() != 1:
+    if method == "block_cg" and b.dim() != 2:
+        raise ValueError(f"block_cg expects b of shape (n, k); got "
+                         f"{tuple(b.shape)}")
+    if method != "block_cg" and b.dim() != 1:
         raise ValueError(f"{method} expects a 1-D b; got shape "
                          f"{tuple(b.shape)}")
     x0 = None if x0 is None else _as_vector(x0, dev)
@@ -218,8 +238,8 @@ def solve(a, b, *, method: str = "cg", precond=None, tol: float = 1e-6,
         else "composed"
 
     t0 = time.perf_counter()
-    res = _certified_solve(op, b, strategy=strategy, maxiter=maxiter,
-                           tol=tol, x0=x0)
+    res = _certified_solve(op, b, method=method, strategy=strategy,
+                           maxiter=maxiter, tol=tol, x0=x0)
     phase_s["solve"] = time.perf_counter() - t0
     res.info["phase_s"] = phase_s
     return res

@@ -1,14 +1,16 @@
 """Carry device state across from the JAX package.
 
-The reference's device containers (``PJDSDevice`` / ``SELLDevice`` /
-``CSRDevice`` and the ``SparseDevice`` around them) hand over as numpy
-arrays plus their static fields; :func:`sparse_device` rebuilds the
-port's containers from exactly those arrays, so both packages then
-compute the same ``y`` from the same stored bits.  Fields that are
-Pallas grid plumbing (``chunk_map``, ``max_chunks``,
-``max_win_chunks``) are ignored; the port derives its per-block
-diagonal offsets from ``row_block``.  A bf16 value stream keeps its bit
+The reference's device containers (``ELLDevice`` / ``PJDSDevice`` /
+``SELLDevice`` / ``CMRSDevice`` / ``CSRDevice`` and the ``SparseDevice``
+around them) hand over as numpy arrays plus their static fields;
+:func:`sparse_device` rebuilds the port's containers from exactly those
+arrays, so both packages then compute the same ``y`` from the same
+stored bits.  Fields that are Pallas grid plumbing (``chunk_map``,
+``max_chunks``, ``max_win_chunks``, ``tile_chunks``, ``tile_r``) are
+ignored; the port derives its per-block (per-strip) offsets from
+``row_block`` (``strip_map``).  A bf16 value stream keeps its bit
 patterns (numpy's bfloat16 comes across through a 16-bit view).
+CMRS's ``chunk_l`` is TPU tile plumbing as well, and is ignored.
 """
 from __future__ import annotations
 
@@ -20,8 +22,8 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels._backend import resolve_device
 
-__all__ = ["tensor_from_numpy", "blocked_device", "csr_device",
-           "sparse_device"]
+__all__ = ["tensor_from_numpy", "blocked_device", "ell_device",
+           "cmrs_device", "csr_device", "sparse_device"]
 
 
 def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
@@ -68,6 +70,43 @@ def blocked_device(arrays: Mapping[str, np.ndarray], statics: Mapping,
     return ops.PJDSDevice(**common)
 
 
+def ell_device(arrays: Mapping[str, np.ndarray], device=None
+               ) -> ops.ELLDevice:
+    """``ELLDevice`` from the reference container's ``val``, ``col_idx``
+    and ``rowlen``."""
+    dev = resolve_device(device)
+    val = np.asarray(arrays["val"])
+    col = np.asarray(arrays["col_idx"])
+    rowlen = np.asarray(arrays["rowlen"]).astype(np.int32)
+    ops.check_rowlen(rowlen, val.shape[0], val.shape[1])
+    return ops.ELLDevice(val=tensor_from_numpy(val, dev),
+                         col_idx=tensor_from_numpy(col, dev),
+                         rowlen=tensor_from_numpy(rowlen, dev),
+                         max_col=int(col.max(initial=0)))
+
+
+def cmrs_device(arrays: Mapping[str, np.ndarray], statics: Mapping,
+                device=None) -> ops.CMRSDevice:
+    """``CMRSDevice`` from the reference container's ``val``,
+    ``col_idx``, ``row_in_strip``, ``strip_map`` and statics
+    ``n_strips``, ``b_r``."""
+    dev = resolve_device(device)
+    strip_map = np.asarray(arrays["strip_map"])
+    col = np.asarray(arrays["col_idx"])
+    ris = np.asarray(arrays["row_in_strip"])
+    n_strips, b_r = int(statics["n_strips"]), int(statics["b_r"])
+    ops.check_row_in_strip(ris, b_r)
+    return ops.CMRSDevice(
+        val=tensor_from_numpy(np.asarray(arrays["val"]), dev),
+        col_idx=tensor_from_numpy(col, dev),
+        row_in_strip=tensor_from_numpy(ris.astype(np.int8), dev),
+        strip_map=tensor_from_numpy(strip_map.astype(np.int32), dev),
+        strip_start=tensor_from_numpy(_block_start(strip_map, n_strips),
+                                      dev),
+        n_strips=n_strips, b_r=b_r,
+        max_col=int(col.max(initial=0)))
+
+
 def csr_device(arrays: Mapping[str, np.ndarray], statics: Mapping,
                device=None) -> ops.CSRDevice:
     """``CSRDevice`` from the reference container's ``data``,
@@ -91,14 +130,18 @@ def sparse_device(fmt: str, shape: Tuple[int, int],
         inner = csr_device(arrays, statics, device)
     elif fmt in ("pjds", "sell"):
         inner = blocked_device(arrays, statics, device)
+    elif fmt == "ellpack_r":
+        inner = ell_device(arrays, device)
+    elif fmt == "cmrs":
+        inner = cmrs_device(arrays, statics, device)
     else:
-        raise ValueError(f"format {fmt!r} has no container in this slice")
+        raise ValueError(f"unknown format {fmt!r}")
     inv = None
     if fmt == "pjds":
         if inv_perm is None:
             raise ValueError("a pJDS operand needs its inv_perm")
         inv = tensor_from_numpy(
             np.asarray(inv_perm)[: shape[0]].astype(np.int32),
-            inner.row_ids.device if fmt == "csr" else inner.val.device)
+            inner.val.device)
     return ops.SparseDevice(fmt=fmt, shape=tuple(shape), dev=inner,
                             inv_perm=inv, x_tiles=int(x_tiles))

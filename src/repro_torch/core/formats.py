@@ -1,12 +1,15 @@
-"""Host-side (numpy) storage formats: CSR, pJDS and SELL-C-sigma.
+"""Host-side (numpy) storage formats: CSR, ELLPACK-R, pJDS, SELL-C-sigma
+and CMRS.
 
 A copy of the reference package's ``repro.core.formats`` restricted to
 what the port's main path uses, so that both packages build
 bit-identical host arrays from the same CSR matrix.  The one change is
-in :func:`_pjds_with_perm`: the per-row fill loop is vectorised (one
-scatter over all stored entries), which turns a ~15 s loop at the
-paper's 3.4 M-row sAMG size into well under a second; the arrays it
-builds are identical (``tests/test_torch_formats.py`` holds them equal).
+in the fills of :func:`_pjds_with_perm`, :func:`csr_to_ell` and
+:func:`csr_to_cmrs` (and the padding audit): the reference's per-row or
+per-strip Python loops are vectorised into one scatter over all stored
+entries, which turns loops of many seconds at the paper's 3.4 M-row
+sAMG size into well under a second each; the arrays they build are
+identical (``tests/test_torch_formats.py`` holds them equal).
 
 Layout of the blocked arrays: ``val``/``col_idx`` have shape
 ``(total_jds, b_r)`` -- jagged diagonals major, rows minor -- which is
@@ -24,15 +27,21 @@ import numpy as np
 
 __all__ = [
     "CSRMatrix",
+    "ELLMatrix",
     "PJDSMatrix",
     "SELLMatrix",
+    "CMRSMatrix",
     "csr_from_dense",
     "csr_from_coo",
     "validate_csr",
     "CSRValidationError",
     "ValidationReport",
+    "csr_to_ell",
+    "ell_to_dense",
     "csr_to_pjds",
     "csr_to_sell",
+    "csr_to_cmrs",
+    "cmrs_to_dense",
     "windowed_sort_perm",
     "windowed_block_lengths",
     "estimate_storage_elements",
@@ -40,6 +49,9 @@ __all__ = [
     "min_index_dtype",
     "resolve_index_dtype",
     "assert_padding_invariant",
+    "storage_elements",
+    "format_nbytes",
+    "data_reduction_vs_ellpack",
 ]
 
 _DEFAULT_BR = 128          # rows per pJDS block (one CTA of row lanes)
@@ -245,6 +257,67 @@ def _pad_to(x: int, mult: int) -> int:
 
 
 # --------------------------------------------------------------------------
+# ELLPACK / ELLPACK-R
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class ELLMatrix:
+    """ELLPACK(-R), jagged-diagonal-major: ``val[j, i]`` = j-th nonzero of
+    row i (the paper's ``val[j*N + i]``).  Padded entries have val 0 and
+    column ``PAD_COL`` so gathers stay in range.  ``rowlen`` turns plain
+    ELLPACK into ELLPACK-R (paper Listing 1)."""
+
+    val: np.ndarray       # (max_nzr_pad, n_rows_pad)
+    col_idx: np.ndarray   # (max_nzr_pad, n_rows_pad) int16/int32
+    rowlen: np.ndarray    # (n_rows_pad,) int32
+    shape: Tuple[int, int]
+    n_rows_pad: int
+
+    @property
+    def max_nzr(self) -> int:
+        return self.val.shape[0]
+
+
+def _entry_rows(m: CSRMatrix) -> np.ndarray:
+    """Row of every stored entry, (nnz,) int64."""
+    return np.repeat(np.arange(m.n_rows, dtype=np.int64), np.diff(m.indptr))
+
+
+def csr_to_ell(
+    m: CSRMatrix,
+    row_align: int = _DEFAULT_BR,
+    diag_align: int = _DEFAULT_DIAG_ALIGN,
+    index_dtype="auto",
+) -> ELLMatrix:
+    rl = m.row_lengths()
+    max_nzr = _pad_to(max(int(rl.max(initial=0)), 1), diag_align)
+    n_pad = _pad_to(m.n_rows, row_align)
+    idt = resolve_index_dtype(index_dtype, m.shape[1])
+    val = np.zeros((max_nzr, n_pad), dtype=m.data.dtype)
+    col = np.full((max_nzr, n_pad), PAD_COL, dtype=idt)
+    # Vectorised fill: entry e of row i lands at depth e - indptr[i].
+    rows = _entry_rows(m)
+    depth = np.arange(m.nnz, dtype=np.int64) - m.indptr[rows]
+    val[depth, rows] = m.data[: m.nnz]
+    col[depth, rows] = m.indices[: m.nnz]
+    rowlen = np.zeros(n_pad, dtype=np.int32)
+    rowlen[: m.n_rows] = rl
+    e = ELLMatrix(val, col, rowlen, m.shape, n_pad)
+    if PAD_AUDIT:
+        assert_padding_invariant(e)
+    return e
+
+
+def ell_to_dense(e: ELLMatrix) -> np.ndarray:
+    a = np.zeros((e.shape[0], e.shape[1]), dtype=e.val.dtype)
+    j = np.arange(e.max_nzr)[:, None]
+    keep = j < e.rowlen[None, :]
+    rows = np.broadcast_to(np.arange(e.n_rows_pad)[None, :], keep.shape)
+    np.add.at(a, (rows[keep], e.col_idx[keep].astype(np.int64)),
+              e.val[keep])
+    return a
+
+
+# --------------------------------------------------------------------------
 # pJDS -- the paper's contribution
 # --------------------------------------------------------------------------
 @dataclasses.dataclass
@@ -415,6 +488,114 @@ def _pjds_with_perm(
 
 
 # --------------------------------------------------------------------------
+# CMRS -- Compressed Multi-Row Storage (arXiv:1203.2946), blocked
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class CMRSMatrix:
+    """CMRS on the blocked tiling: rows stay in ORIGINAL order and are
+    grouped into *strips* of ``b_r`` consecutive rows.  Each strip's
+    nonzeros are packed densely, row-major, into ``(strip_su, b_r)``
+    tiles: entry ``k`` of a strip lands at row ``k // b_r``, lane
+    ``k % b_r`` relative to the strip's first tile row, and
+    ``row_in_strip`` (int8, values in ``[0, b_r)``) routes each slot back
+    to its row inside the strip.  So a row's slots are contiguous, and a
+    row longer than ``b_r`` spans several tile rows.
+
+    ``strip_su[s] = ceil(strip_nnz / b_r)`` padded to ``diag_align``
+    (min 1); ``strip_start`` is its exclusive prefix sum.  Padding slots
+    carry ``val == 0``, ``col == PAD_COL`` and ``row_in_strip == 0``;
+    ``strip_nnz`` keeps the true per-strip count."""
+
+    val: np.ndarray            # (total_su, b_r)
+    col_idx: np.ndarray        # (total_su, b_r) int16/int32
+    row_in_strip: np.ndarray   # (total_su, b_r) int8
+    strip_start: np.ndarray    # (n_strips + 1,) int32, tile-row offsets
+    strip_len: np.ndarray      # (n_strips,) int32 == diff(strip_start)
+    strip_nnz: np.ndarray      # (n_strips,) int64, true nonzeros per strip
+    shape: Tuple[int, int]
+    b_r: int
+    n_rows_pad: int
+
+    @property
+    def n_strips(self) -> int:
+        return len(self.strip_len)
+
+    @property
+    def total_su(self) -> int:
+        return int(self.strip_start[-1])
+
+
+def _cmrs_strip_len(strip_nnz: np.ndarray, b_r: int,
+                    diag_align: int) -> np.ndarray:
+    """``_pad_to(max(ceil(nnz / b_r), 1), diag_align)`` per strip."""
+    su = np.maximum(-(-np.asarray(strip_nnz, np.int64) // b_r), 1)
+    return -(-su // diag_align) * diag_align
+
+
+def csr_to_cmrs(
+    m: CSRMatrix,
+    b_r: int = _DEFAULT_BR,
+    diag_align: int = _DEFAULT_DIAG_ALIGN,
+    index_dtype="auto",
+) -> CMRSMatrix:
+    """Pack ``m`` into CMRS strips of ``b_r`` rows (original order)."""
+    n = m.n_rows
+    n_pad = _pad_to(max(n, 1), b_r)
+    n_strips = n_pad // b_r
+    rl = m.row_lengths()
+    idt = resolve_index_dtype(index_dtype, m.n_cols)
+
+    rl_pad = np.zeros(n_pad, dtype=np.int64)
+    rl_pad[:n] = rl
+    strip_nnz = rl_pad.reshape(n_strips, b_r).sum(axis=1)
+    strip_len = _cmrs_strip_len(strip_nnz, b_r, diag_align).astype(np.int32)
+    strip_start = np.zeros(n_strips + 1, dtype=np.int32)
+    np.cumsum(strip_len, out=strip_start[1:])
+
+    total = int(strip_start[-1])
+    val = np.zeros((total, b_r), dtype=m.data.dtype)
+    col = np.full((total, b_r), PAD_COL, dtype=idt)
+    ris = np.zeros((total, b_r), dtype=np.int8)
+    # Vectorised fill: entry e of row i is entry k = e - indptr[s * b_r]
+    # of strip s = i // b_r, stored at (strip_start[s] + k // b_r,
+    # k % b_r) -- the slots the reference's per-strip loop writes.
+    rows = _entry_rows(m)
+    s = rows // b_r
+    k = np.arange(m.nnz, dtype=np.int64) - m.indptr[s * b_r]
+    dst_j = strip_start[s].astype(np.int64) + k // b_r
+    dst_r = k % b_r
+    val[dst_j, dst_r] = m.data[: m.nnz]
+    col[dst_j, dst_r] = m.indices[: m.nnz].astype(idt)
+    ris[dst_j, dst_r] = (rows - s * b_r).astype(np.int8)
+
+    cm = CMRSMatrix(
+        val=val, col_idx=col, row_in_strip=ris,
+        strip_start=strip_start, strip_len=strip_len, strip_nnz=strip_nnz,
+        shape=m.shape, b_r=b_r, n_rows_pad=n_pad)
+    if PAD_AUDIT:
+        assert_padding_invariant(cm)
+    return cm
+
+
+def _cmrs_padding(c: CMRSMatrix) -> np.ndarray:
+    """Boolean (total_su, b_r): which slots are padding."""
+    strip = np.repeat(np.arange(c.n_strips), c.strip_len)
+    flat = (np.arange(c.total_su) - c.strip_start[strip])[:, None] * c.b_r \
+        + np.arange(c.b_r)[None, :]
+    return flat >= c.strip_nnz[strip][:, None]
+
+
+def cmrs_to_dense(c: CMRSMatrix) -> np.ndarray:
+    a = np.zeros(c.shape, dtype=c.val.dtype)
+    keep = ~_cmrs_padding(c)
+    strip = np.repeat(np.arange(c.n_strips, dtype=np.int64), c.strip_len)
+    rows = strip[:, None] * c.b_r + c.row_in_strip.astype(np.int64)
+    np.add.at(a, (rows[keep], c.col_idx[keep].astype(np.int64)),
+              c.val[keep])
+    return a
+
+
+# --------------------------------------------------------------------------
 # Padding-sentinel audit
 # --------------------------------------------------------------------------
 def _check_pad(name: str, val_pad: np.ndarray, col_pad: np.ndarray) -> None:
@@ -434,6 +615,19 @@ def assert_padding_invariant(fmt) -> None:
     ``col_idx == PAD_COL``.  Raises AssertionError on violation."""
     if isinstance(fmt, SELLMatrix):
         fmt = fmt.pjds
+    if isinstance(fmt, ELLMatrix):
+        j = np.arange(fmt.val.shape[0])[:, None]
+        pad = j >= fmt.rowlen[None, :]
+        _check_pad("ELLMatrix", fmt.val[pad], fmt.col_idx[pad])
+        return
+    if isinstance(fmt, CMRSMatrix):
+        pad = _cmrs_padding(fmt)
+        _check_pad("CMRSMatrix", fmt.val[pad], fmt.col_idx[pad])
+        if np.any(fmt.row_in_strip[pad] != 0):
+            raise AssertionError(
+                "CMRSMatrix: padded entries carry row_in_strip != 0 -- the "
+                "segment reduction would scatter into arbitrary rows")
+        return
     if isinstance(fmt, PJDSMatrix):
         # per stored diagonal j of block b: lane r is padding iff
         # j - block_start[b] >= rowlen[b * b_r + r]
@@ -447,6 +641,55 @@ def assert_padding_invariant(fmt) -> None:
     if isinstance(fmt, CSRMatrix):
         return              # CSR stores no padding
     raise TypeError(type(fmt))
+
+
+# --------------------------------------------------------------------------
+# Memory accounting (paper Table 1, "data reduction" column)
+# --------------------------------------------------------------------------
+def storage_elements(fmt) -> int:
+    """Number of stored value elements (incl. padding zeros) -- the
+    paper's measure for the ELLPACK-vs-pJDS comparison."""
+    if isinstance(fmt, CSRMatrix):
+        return fmt.nnz
+    if isinstance(fmt, SELLMatrix):
+        return int(fmt.pjds.val.size)
+    if isinstance(fmt, (ELLMatrix, PJDSMatrix, CMRSMatrix)):
+        return int(fmt.val.size)
+    raise TypeError(type(fmt))
+
+
+def format_nbytes(fmt, value_bytes: int | None = None,
+                  index_bytes: int | None = None) -> int:
+    """Total footprint: values + column indices + per-format metadata.
+    ``value_bytes`` / ``index_bytes`` default to the widths actually
+    stored; pass explicit widths to price another storage precision."""
+    if isinstance(fmt, SELLMatrix):
+        return format_nbytes(fmt.pjds, value_bytes, index_bytes)
+    if value_bytes is None:
+        value_bytes = (fmt.data if isinstance(fmt, CSRMatrix)
+                       else fmt.val).dtype.itemsize
+    if index_bytes is None:
+        index_bytes = (fmt.indices if isinstance(fmt, CSRMatrix)
+                       else fmt.col_idx).dtype.itemsize
+    e = storage_elements(fmt)
+    base = e * (value_bytes + index_bytes)
+    if isinstance(fmt, CSRMatrix):
+        return base + (fmt.n_rows + 1) * 8
+    if isinstance(fmt, ELLMatrix):
+        return base + fmt.n_rows_pad * 4          # rowlen (ELLPACK-R)
+    if isinstance(fmt, PJDSMatrix):
+        return base + (fmt.n_blocks + 1) * 4 + fmt.n_rows_pad * 4  # col_start + perm
+    if isinstance(fmt, CMRSMatrix):
+        # + the int8 row-in-strip stream and the strip offsets
+        return base + e * 1 + (fmt.n_strips + 1) * 4
+    raise TypeError(type(fmt))
+
+
+def data_reduction_vs_ellpack(m: CSRMatrix, b_r: int = _DEFAULT_BR) -> float:
+    """Paper Table 1: fraction of ELLPACK storage saved by pJDS."""
+    ell = csr_to_ell(m, row_align=b_r)
+    pj = csr_to_pjds(m, b_r=b_r, permuted_cols=(m.shape[0] == m.shape[1]))
+    return 1.0 - storage_elements(pj) / storage_elements(ell)
 
 
 # --------------------------------------------------------------------------
@@ -486,8 +729,7 @@ def estimate_storage_elements(
 ) -> int:
     """Stored value elements (incl. padding) a format WOULD use, from row
     lengths alone.  Agrees with the size of the built matrix's ``val``.
-    Prices every format the reference's dispatch weighs, including the
-    two (ELLPACK-R, CMRS) whose kernels this package has not ported."""
+    Prices every format the reference's dispatch weighs."""
     rl = np.asarray(rowlen, dtype=np.int64)
     if fmt == "csr":
         return int(rl.sum())

@@ -3,7 +3,8 @@
 Port of ``repro/core/operator.py`` for this slice: callers see
 ``y = A x`` in the ORIGINAL basis while the storage format, the row
 permutation and the padding stay inside.  ``op @ x`` dispatches a 1-D
-``x`` to ``matvec``.  Transposes, ``matmat``, the distributed operator
+``x`` to ``matvec`` and a 2-D ``X`` (``shape[1]`` rows, one column per
+right-hand side) to ``matmat``.  Transposes, the distributed operator
 and gradients are not ported yet: they raise ``NotImplementedError``
 naming their ROADMAP item, so nothing degrades silently (in particular a
 tensor that requires grad is refused rather than detached).
@@ -41,7 +42,8 @@ class SparseOperator:
         raise NotImplementedError
 
     def matmat(self, x: torch.Tensor) -> torch.Tensor:
-        raise not_ported("matmat", "matmat")
+        """Y = A X: X (shape[1], k) -> Y (shape[0], k)."""
+        raise NotImplementedError
 
     def rmatvec(self, y: torch.Tensor) -> torch.Tensor:
         raise not_ported("rmatvec", "transpose")
@@ -70,8 +72,8 @@ class SparseOperator:
 class DeviceOperator(SparseOperator):
     """Single-device :class:`SparseOperator` over a dispatch-layer
     ``SparseDevice`` (format chosen once, conversion cached).
-    ``backend="auto"`` resolves per call from the tensor's device: K1/K2
-    on a CUDA card, the plain versions on the CPU."""
+    ``backend="auto"`` resolves per call from the tensor's device: the
+    kernels on a CUDA card, the plain versions on the CPU."""
 
     def __init__(self, dev: ops.SparseDevice, backend: str = "auto"):
         self.dev = dev
@@ -99,9 +101,17 @@ class DeviceOperator(SparseOperator):
         return self.dev.values
 
     def matvec(self, x, backend: Optional[str] = None):
-        if torch.is_grad_enabled() and x.requires_grad:
-            raise not_ported("gradients through the operator", "autograd")
+        _refuse_grad(x)
         return self.dev.matvec(x, backend or self.backend)
+
+    def matmat(self, x, backend: Optional[str] = None):
+        _refuse_grad(x)
+        return self.dev.matmat(x, backend or self.backend)
+
+
+def _refuse_grad(x: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise not_ported("gradients through the operator", "autograd")
 
 
 def operator(

@@ -1,15 +1,15 @@
-"""Krylov solvers: composed CG over any operator, and the fused CG whose
-iteration is one K3 pass.
+"""Krylov solvers: composed CG over any operator, the fused CG whose
+iteration is one K3 pass, and block CG over ``matmat`` (K5).
 
 Port of the CG part of ``repro/core/solvers.py``.  PyTorch has no
 ``lax.while_loop``, so each loop runs on the host over device-resident
 carriers: the vector work (spMV, axpys) stays on the device, and the
 few scalars the exit test needs are read back once per iteration (the
 fused loop: the five dots of its K3 pass in ONE transfer; the composed
-loop: two).  Every scalar recurrence -- alpha, beta, the look-ahead
-residual clamped at 0, the failure flags -- is evaluated in float32 on
-the host exactly as the reference evaluates it in float32 on the device,
-so the exit contract matches the reference's:
+loop: two; block CG: one).  Every scalar recurrence -- alpha, beta, the
+look-ahead residual clamped at 0, the failure flags -- is evaluated in
+float32 on the host exactly as the reference evaluates it in float32 on
+the device, so the exit contract matches the reference's:
 
 * the same iteration count ``k`` at exit;
 * ``tol <= 0`` runs to ``maxiter`` (fixed-length probes);
@@ -27,7 +27,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-__all__ = ["SolveResult", "STATUS_NAMES", "cg", "fused_cg"]
+__all__ = ["SolveResult", "STATUS_NAMES", "cg", "fused_cg", "block_cg"]
 
 F32 = np.float32
 
@@ -49,6 +49,8 @@ _DIVERGE_REL2 = F32(1e12)
 _STAG_WINDOW = 500
 _STAG_RTOL = 0.01
 _TINY = F32(1e-30)
+# Smallest normal float32: the host reads flush anything smaller to 0.
+_F32_TINY_NORMAL = np.finfo(np.float32).tiny
 
 
 @dataclasses.dataclass
@@ -56,15 +58,16 @@ class SolveResult:
     """The result of a linear solve.
 
     ``x`` stays a device tensor; ``iters``, ``residual`` (the relative
-    residual ||r||/||b|| the solver ended on), ``converged`` and
-    ``status_code`` are host values already (the host loop read them).
+    residual ||r||/||b|| the solver ended on -- for block CG a float32
+    array, one entry per column), ``converged`` and ``status_code`` are
+    host values already (the host loop read them).
     ``diagnostics`` carries the certified true residual and restart
     counts; ``info`` the strategy, the host-sync count and, from
     ``repro_torch.solve``, per-phase wall clock."""
 
     x: torch.Tensor
     iters: int
-    residual: float
+    residual: float | np.ndarray
     converged: bool
     method: str = ""
     info: dict = dataclasses.field(default_factory=dict)
@@ -79,10 +82,11 @@ class SolveResult:
 
 def _result(method: str, x, iters, residual, tol: float, *,
             flag=0, diagnostics=None, **info) -> SolveResult:
-    res = F32(residual)
-    ok = bool(res <= F32(tol))
+    res = np.asarray(residual, dtype=F32)
+    ok = bool(np.all(res <= F32(tol)))
     code = STATUS_CONVERGED if ok else (flag if flag != 0 else STATUS_MAXITER)
-    return SolveResult(x=x, iters=int(iters), residual=float(res),
+    return SolveResult(x=x, iters=int(iters),
+                       residual=float(res) if res.ndim == 0 else res,
                        converged=ok, method=method, info=dict(info),
                        status_code=int(code),
                        diagnostics=dict(diagnostics or {}))
@@ -95,7 +99,11 @@ def _matvec_of(a) -> Callable:
 
 
 class _HostReads:
-    """Device -> host scalar reads of one solve, counted."""
+    """Device -> host scalar reads of one solve, counted.  Every scalar
+    the host recurrences see enters here, and float32 subnormals are
+    flushed to 0 on the way in: XLA does so on the CPU (and the TPU
+    does), so a probe run past convergence reaches the reference's exact
+    0 instead of stopping at a denormal."""
 
     def __init__(self):
         self.n = 0
@@ -107,15 +115,18 @@ class _HostReads:
 
     def read(self, t: torch.Tensor) -> list:
         self.n += 1
-        return [F32(v) for v in t.float().cpu().numpy()]
+        a = t.float().cpu().numpy()
+        a = np.where(np.abs(a) < _F32_TINY_NORMAL, F32(0), a)
+        return [F32(v) for v in a]
 
 
 def _not_done(res2, tol) -> bool:
-    """Loop-exit test on the squared relative residual: ``tol <= 0``
-    means run to maxiter; a non-finite ``res2`` exits (as a detected
-    failure, flagged by :func:`_health`)."""
+    """Loop-exit test on the squared relative residual (or, for block
+    CG, any of the per-column ones): ``tol <= 0`` means run to maxiter;
+    a non-finite ``res2`` exits (as a detected failure, flagged by
+    :func:`_health`)."""
     t = F32(tol)
-    return bool(t <= 0 or (np.isfinite(res2) and res2 > t * t))
+    return bool(t <= 0 or np.any(np.isfinite(res2) & (res2 > t * t)))
 
 
 def _health(flag, rel2, best, since, *, breakdown, check):
@@ -295,3 +306,85 @@ def _fused_cg(matvec_dots, b, x, maxiter, tol):
         p.mul_(float(rs / np.maximum(rr, _TINY))).add_(r)
         k += 1
     return x, k, np.sqrt(rs / b2), flag, reads.n
+
+
+# --------------------------------------------------------------------------
+# Block CG (K5 through the operator's matmat)
+# --------------------------------------------------------------------------
+def _ridge(a: torch.Tensor) -> torch.Tensor:
+    """Tiny trace-relative ridge for the k-by-k Gram systems."""
+    k = a.shape[0]
+    scale = torch.finfo(a.dtype).eps * (torch.trace(a) / k) + 1e-30
+    return scale * torch.eye(k, dtype=a.dtype, device=a.device)
+
+
+def _ridge_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve the k-by-k system with a tiny trace-relative ridge so the
+    block recurrences survive a column converging early (the Gram
+    matrices go singular exactly when a residual column hits zero).
+    ``solve_ex`` checks nothing, so it never waits for the device."""
+    return torch.linalg.solve_ex(a + _ridge(a), b)[0]
+
+
+def block_cg(a, b: torch.Tensor, *, x0: torch.Tensor | None = None,
+             maxiter: int = 500, tol: float = 1e-6) -> SolveResult:
+    """Block conjugate gradients (O'Leary 1980) for SPD A, k RHS at once.
+
+    ``b``: (n, k).  ``a``: a SparseOperator (its ``matmat`` streams the
+    matrix once for all k systems -- K5 for SELL / pJDS on the card) or
+    a closure taking (n, k).  Stops when EVERY column's relative
+    residual is below ``tol``; ``result.residual`` is the per-column
+    float32 array and ``result.converged`` requires all columns.
+
+    The k-by-k algebra (the two ridge-regularised Gram solves, the
+    breakdown predicate) runs in float32 on the operand's device, as the
+    reference runs it; the host reads the new Gram matrix's diagonal and
+    the breakdown flag once per iteration for the exit and health
+    tests."""
+    matvec = _matvec_of(a)
+    x0 = torch.zeros_like(b) if x0 is None else x0.clone()
+    with np.errstate(all="ignore"):
+        x, k, res, flag, syncs = _block_cg(matvec, b, x0, maxiter, tol)
+    return _result("block_cg", x, k, res, tol, flag=flag,
+                   strategy="composed", host_syncs=syncs)
+
+
+def _block_cg(matvec, b, x, maxiter, tol):
+    reads = _HostReads()
+    n_rhs = b.shape[1]
+    r = b - matvec(x)
+    p = r.clone()
+    rtr = r.T @ r                                          # (k, k)
+    b2_dev = torch.clamp(torch.sum(b * b, dim=0), min=1e-30)   # (k,)
+    got = reads.read(torch.cat([torch.diagonal(rtr), b2_dev]))
+    rdiag, b2 = np.array(got[:n_rhs], F32), np.array(got[n_rhs:], F32)
+    check = F32(tol) > 0
+    flag, best, since = _health_init(np.max(rdiag / b2), tol)
+    it = 0
+    while flag == 0 and _not_done(rdiag / b2, tol) and it < maxiter:
+        ap = matvec(p)
+        ptap = p.T @ ap
+        alpha = _ridge_solve(ptap, rtr)                    # (k, k)
+        # A direction with p_j.Ap_j <= 0 (indefinite A) or a Gram solve
+        # gone non-finite is a block breakdown: zero the step so x/r hold
+        # the last healthy iterate.  Columns already under tol are
+        # exempt -- their directions legitimately shrink to 0.
+        live = torch.diagonal(rtr) / b2_dev > tol * tol
+        bad = (torch.any(live & (torch.diagonal(ptap) <= 0))
+               | ~torch.all(torch.isfinite(alpha)))
+        if check:
+            alpha = torch.where(bad, torch.zeros_like(alpha), alpha)
+        x.add_(p @ alpha)
+        r = r - ap @ alpha
+        rtr_new = r.T @ r
+        beta = _ridge_solve(rtr, rtr_new)
+        p = r + p @ beta
+        got = reads.read(torch.cat([torch.diagonal(rtr_new),
+                                    bad.float().reshape(1)]))
+        rdiag = np.array(got[:n_rhs], F32)
+        flag, best, since = _health(flag, np.max(rdiag / b2), best, since,
+                                    breakdown=bool(check and got[n_rhs]),
+                                    check=check)
+        rtr = rtr_new
+        it += 1
+    return x, it, np.sqrt(rdiag / b2), flag, reads.n

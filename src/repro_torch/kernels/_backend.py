@@ -106,16 +106,7 @@ def value_dtype(dtype) -> torch.dtype | None:
     return dt
 
 
-def check_blocked(val: torch.Tensor, col_idx: torch.Tensor,
-                  block_start: torch.Tensor, x: torch.Tensor, n_blocks: int,
-                  max_col: int, vectors=()) -> torch.Tensor:
-    """Validate a blocked (pJDS / SELL) operand and its RHS before their
-    pointers reach a kernel; returns x as contiguous float32 (a bf16 RHS
-    widens exactly).  ``vectors`` are further (name, tensor, length)
-    operands that must be contiguous int32/float32 on the same card."""
-    if x.device.type != "cuda":
-        raise ValueError(f"the CUDA kernels need a CUDA tensor; x is on "
-                         f"{x.device}")
+def _check_streams(val: torch.Tensor, col_idx: torch.Tensor) -> None:
     if val.dim() != 2 or val.shape != col_idx.shape:
         raise ValueError(f"val {tuple(val.shape)} and col_idx "
                          f"{tuple(col_idx.shape)} must be equal 2-D shapes")
@@ -125,6 +116,44 @@ def check_blocked(val: torch.Tensor, col_idx: torch.Tensor,
     if col_idx.dtype not in INDEX_DTYPES:
         raise TypeError(f"column indices must be int32 or int16; got "
                         f"{col_idx.dtype}")
+
+
+def _check_x(x: torch.Tensor, max_col: int, x_dim: int) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels need a CUDA tensor; x is on "
+                         f"{x.device}")
+    if x.dim() != x_dim:
+        raise ValueError(f"x must be {x_dim}-D; got shape {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16; got {x.dtype}")
+    if x.shape[0] <= max_col:
+        raise ValueError(f"x has {x.shape[0]} rows; the operand reads "
+                         f"column {max_col}")
+
+
+def _check_placement(x: torch.Tensor, tensors) -> torch.Tensor:
+    for name, t in tensors:
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    # a bf16 RHS widens exactly; a strided one is copied, never read
+    # with the wrong strides
+    return x.float().contiguous()
+
+
+def check_blocked(val: torch.Tensor, col_idx: torch.Tensor,
+                  block_start: torch.Tensor, x: torch.Tensor, n_blocks: int,
+                  max_col: int, vectors=(), x_dim: int = 1) -> torch.Tensor:
+    """Validate a blocked (pJDS / SELL / CMRS) operand and its RHS before
+    their pointers reach a kernel; returns x as contiguous float32.
+    ``block_start`` is the (n_blocks + 1,) int32 offset array (CMRS: the
+    strip offsets); ``vectors`` are further (name, tensor, length)
+    operands that must be contiguous int32/float32 on the same card;
+    ``x_dim`` is 2 for a block of right-hand sides (rows = columns of
+    the matrix)."""
+    _check_x(x, max_col, x_dim)
+    _check_streams(val, col_idx)
     b_r = val.shape[1]
     if b_r % 32 or not 32 <= b_r <= 1024:
         raise ValueError(f"the kernels take b_r in 32..1024, a multiple of "
@@ -133,13 +162,6 @@ def check_blocked(val: torch.Tensor, col_idx: torch.Tensor,
             n_blocks + 1,):
         raise ValueError(f"block_start must be int32 of shape "
                          f"({n_blocks + 1},)")
-    if x.dim() != 1:
-        raise ValueError(f"x must be 1-D; got shape {tuple(x.shape)}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x must be float32 or bfloat16; got {x.dtype}")
-    if x.numel() <= max_col:
-        raise ValueError(f"x has {x.numel()} entries; the operand reads "
-                         f"column {max_col}")
     tensors = [("val", val), ("col_idx", col_idx),
                ("block_start", block_start)]
     for name, t, n in vectors:
@@ -147,12 +169,22 @@ def check_blocked(val: torch.Tensor, col_idx: torch.Tensor,
             raise ValueError(f"{name} must be int32/float32 of shape ({n},);"
                              f" got {t.dtype} {tuple(t.shape)}")
         tensors.append((name, t))
-    for name, t in tensors:
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    return x.float().contiguous()
+    return _check_placement(x, tensors)
+
+
+def check_ell(val: torch.Tensor, col_idx: torch.Tensor,
+              rowlen: torch.Tensor, x: torch.Tensor,
+              max_col: int) -> torch.Tensor:
+    """Validate an ELLPACK-R operand -- val/col_idx (max_nzr, n_pad),
+    rowlen (n_pad,) int32 -- and its 1-D RHS; returns x as contiguous
+    float32.  ``rowlen <= max_nzr`` is checked once at conversion
+    (``ops.to_device_ell``)."""
+    _check_x(x, max_col, 1)
+    _check_streams(val, col_idx)
+    if rowlen.dtype != torch.int32 or rowlen.shape != (val.shape[1],):
+        raise ValueError(f"rowlen must be int32 of shape ({val.shape[1]},)")
+    return _check_placement(x, [("val", val), ("col_idx", col_idx),
+                                ("rowlen", rowlen)])
 
 
 def kind_codes(val: torch.Tensor, col_idx: torch.Tensor) -> tuple:

@@ -1,26 +1,27 @@
-"""Device containers, the per-format matvecs and the dispatch layer.
+"""Device containers, the per-format products and the dispatch layer.
 
-Port of ``repro/kernels/ops.py`` for the formats of this slice:
+Port of ``repro/kernels/ops.py``:
 
-* **Containers** -- ``to_device_pjds`` / ``to_device_sell`` /
-  ``to_device_csr`` move a host format (``core.formats``) onto a device
-  as plain dataclasses of tensors, with the kernel metadata computed
-  once: the per-block diagonal offsets ``block_start`` that K1-K3 loop
-  over, the block id per diagonal (``row_block``) the plain versions
+* **Containers** -- ``to_device_{ell,pjds,sell,cmrs,csr}`` move a host
+  format (``core.formats``) onto a device as plain dataclasses of
+  tensors, with the kernel metadata computed once: the per-block (per
+  strip) offsets ``block_start`` / ``strip_start`` that the kernels loop
+  over, the block (strip) id per stored row that the plain versions
   segment-sum by, and the largest stored column (checked against x).
-* **Matvecs** -- ``pjds_matvec`` / ``sell_matvec`` launch K1 / K2 for a
-  CUDA tensor and take the plain version for a CPU tensor; ``csr_matvec``
-  is plain torch everywhere, as in the reference (it has no kernel).
+* **Products** -- ``ell_matvec`` (K4), ``pjds_matvec`` (K1),
+  ``sell_matvec`` (K2), ``cmrs_matvec`` (K6) and ``pjds_matmat`` (K5)
+  launch their kernel for a CUDA tensor and take the plain version for a
+  CPU tensor; ``csr_matvec`` is plain torch everywhere, as in the
+  reference (it has no kernel).
 * **Dispatch** -- ``select_format`` prices the candidate formats with
   ``core.perf_model`` exactly as the reference does (same decision under
   the same spec; the port's default spec is the H100), and ``as_device``
   converts once, caches, and wraps the result in a :class:`SparseDevice`
-  whose ``matvec`` works in the ORIGINAL basis.
+  whose ``matvec`` / ``matmat`` work in the ORIGINAL basis.
 
 Storage widths follow the reference: host float64 values are stored as
 f32 (or bf16 with ``dtype=``), column indices as int32, or int16 when
-the span fits (``index_dtype="auto"``).  Formats whose kernels are not
-ported yet (ELLPACK-R, CMRS) raise ``NotImplementedError`` when chosen.
+the span fits (``index_dtype="auto"``).
 """
 from __future__ import annotations
 
@@ -38,24 +39,51 @@ from repro_torch.core import formats as F
 from repro_torch.core import perf_model as PM
 from . import ref as R
 from ._backend import host_tensor, resolve_backend, resolve_device, value_dtype
+from .cmrs_spmv import cmrs_matvec_kernel_call
+from .ellr_spmv import ell_matvec_kernel_call
+from .pjds_spmm import pjds_matmat_kernel_call
 from .pjds_spmv import pjds_matvec_kernel_call
 from .sell_spmv import sell_matvec_kernel_call, window_blocks
 
 __all__ = [
+    "ELLDevice",
     "PJDSDevice",
     "SELLDevice",
+    "CMRSDevice",
     "CSRDevice",
     "SparseDevice",
+    "to_device_ell",
     "to_device_pjds",
     "to_device_sell",
+    "to_device_cmrs",
     "to_device_csr",
+    "ell_matvec",
     "pjds_matvec",
+    "pjds_matmat",
     "sell_matvec",
+    "cmrs_matvec",
     "csr_matvec",
     "select_format",
     "as_device",
     "clear_device_cache",
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class ELLDevice:
+    """Device-resident ELLPACK-R operand, rows in ORIGINAL order:
+    ``val`` / ``col_idx`` (max_nzr, n_rows_pad) jagged-diagonal-major,
+    ``rowlen`` (n_rows_pad,) int32 (every entry <= max_nzr, checked at
+    conversion), ``max_col`` the largest stored column index."""
+
+    val: torch.Tensor
+    col_idx: torch.Tensor
+    rowlen: torch.Tensor
+    max_col: int
+
+    @property
+    def n_rows_pad(self) -> int:
+        return self.val.shape[1]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +132,29 @@ class SELLDevice:
 
 
 @dataclasses.dataclass(frozen=True)
+class CMRSDevice:
+    """Device-resident CMRS operand (``formats.CMRSMatrix``): strips of
+    ``b_r`` original-order rows, nonzeros packed densely with an int8
+    ``row_in_strip`` routing stream, all (total_su, b_r);
+    ``strip_start`` (n_strips + 1,) int32 bounds each strip's tile rows
+    for K6; ``strip_map`` (total_su,) int32 is the strip of each tile row
+    for the plain version."""
+
+    val: torch.Tensor
+    col_idx: torch.Tensor
+    row_in_strip: torch.Tensor
+    strip_map: torch.Tensor
+    strip_start: torch.Tensor
+    n_strips: int
+    b_r: int
+    max_col: int
+
+    @property
+    def n_rows_pad(self) -> int:
+        return self.n_strips * self.b_r
+
+
+@dataclasses.dataclass(frozen=True)
 class CSRDevice:
     """Device-resident CSR as flat nnz streams (gather + index_add_; the
     reference has no kernel for it either)."""
@@ -128,6 +179,50 @@ def _blocked_parts(p: F.PJDSMatrix, chunk_l: int, dtype, device) -> dict:
         block_start=host_tensor(p.block_start, device),
         n_blocks=p.n_blocks, b_r=p.b_r, chunk_l=chunk_l,
         max_col=int(p.col_idx.max(initial=0)))
+
+
+def check_rowlen(rowlen: np.ndarray, max_nzr: int, n_rows_pad: int) -> None:
+    """K4 walks row i to ``rowlen[i]``: every entry must be <= max_nzr."""
+    if rowlen.shape != (n_rows_pad,) or int(rowlen.max(initial=0)) > max_nzr:
+        raise ValueError("rowlen must hold n_rows_pad lengths <= max_nzr")
+
+
+def check_row_in_strip(ris: np.ndarray, b_r: int) -> None:
+    """K6 accumulates by row id in a b_r-entry shared-memory array: every
+    id must lie in [0, b_r)."""
+    if ris.size and (int(ris.min()) < 0 or int(ris.max()) >= b_r):
+        raise ValueError("row_in_strip values must lie in [0, b_r)")
+
+
+def to_device_ell(e: F.ELLMatrix, dtype=None, device=None) -> ELLDevice:
+    """The reference's ``to_device_ell`` minus its TPU tile plumbing
+    (``tile_chunks`` / ``chunk_l`` / ``tile_r``): K4 walks each row to
+    its own ``rowlen``."""
+    check_rowlen(e.rowlen, e.max_nzr, e.n_rows_pad)
+    dev = resolve_device(device)
+    return ELLDevice(val=host_tensor(e.val, dev, value_dtype(dtype)),
+                     col_idx=host_tensor(e.col_idx, dev),
+                     rowlen=host_tensor(e.rowlen.astype(np.int32), dev),
+                     max_col=int(e.col_idx.max(initial=0)))
+
+
+def to_device_cmrs(c: F.CMRSMatrix, dtype=None,
+                   device=None) -> CMRSDevice:
+    """The reference's ``to_device_cmrs`` minus its TPU tile plumbing
+    (``chunk_l``): K6 walks each strip one tile row at a time, whatever
+    the strip's length."""
+    check_row_in_strip(c.row_in_strip, c.b_r)
+    dev = resolve_device(device)
+    strip_map = np.repeat(np.arange(c.n_strips, dtype=np.int32),
+                          c.strip_len)
+    return CMRSDevice(
+        val=host_tensor(c.val, dev, value_dtype(dtype)),
+        col_idx=host_tensor(c.col_idx, dev),
+        row_in_strip=host_tensor(c.row_in_strip, dev),
+        strip_map=host_tensor(strip_map, dev),
+        strip_start=host_tensor(c.strip_start, dev),
+        n_strips=c.n_strips, b_r=c.b_r,
+        max_col=int(c.col_idx.max(initial=0)))
 
 
 def to_device_pjds(p: F.PJDSMatrix, chunk_l: int = 8, dtype=None,
@@ -174,6 +269,55 @@ def pjds_matvec(a: PJDSDevice, x: torch.Tensor, backend: str = "auto",
                                        n_blocks=a.n_blocks,
                                        max_col=a.max_col)
     return R.pjds_matvec_ref(a.val, a.col_idx, a.row_block, x, a.n_blocks)
+
+
+def pjds_matmat(a: PJDSDevice, x: torch.Tensor,
+                backend: str = "auto") -> torch.Tensor:
+    """Y = A X in the permuted basis; X (>= n_cols, k) -> (n_rows_pad, k).
+    K5 for a CUDA tensor, the plain version for a CPU tensor.  Takes a
+    ``SELLDevice`` too: its storage is the pJDS layout."""
+    if resolve_backend(x, backend) == "kernel":
+        return pjds_matmat_kernel_call(a.val, a.col_idx, a.block_start, x,
+                                       n_blocks=a.n_blocks,
+                                       max_col=a.max_col)
+    return R.pjds_matmat_ref(a.val, a.col_idx, a.row_block, x, a.n_blocks)
+
+
+def _by_column(kernel, x: torch.Tensor, n_out: int) -> torch.Tensor:
+    """A single-vector kernel applied to x (n,) or, one column at a time,
+    to a block X (n, k).  The reference has no multi-RHS kernel for
+    ELLPACK-R and CMRS and takes their plain versions with a 2-D x; on
+    the card the port runs K4 / K6 once per column instead, so no plain
+    version sits on the card's path."""
+    if x.dim() == 1:
+        return kernel(x)
+    if x.shape[1] == 0:
+        return torch.zeros((n_out, 0), dtype=torch.float32, device=x.device)
+    return torch.stack([kernel(x[:, j].contiguous())
+                        for j in range(x.shape[1])], dim=1)
+
+
+def ell_matvec(a: ELLDevice, x: torch.Tensor,
+               backend: str = "auto") -> torch.Tensor:
+    """y = A x, ORIGINAL row order, n_rows_pad entries; x (n,) or a block
+    (n, k).  K4 for a CUDA tensor, the plain version for a CPU tensor."""
+    if resolve_backend(x, backend) == "kernel":
+        return _by_column(lambda v: ell_matvec_kernel_call(
+            a.val, a.col_idx, a.rowlen, v, max_col=a.max_col), x,
+            a.n_rows_pad)
+    return R.ell_matvec_ref(a.val, a.col_idx, a.rowlen, x)
+
+
+def cmrs_matvec(a: CMRSDevice, x: torch.Tensor,
+                backend: str = "auto") -> torch.Tensor:
+    """y = A x, ORIGINAL row order, n_rows_pad entries; x (n,) or a block
+    (n, k).  K6 for a CUDA tensor, the plain version for a CPU tensor."""
+    if resolve_backend(x, backend) == "kernel":
+        return _by_column(lambda v: cmrs_matvec_kernel_call(
+            a.val, a.col_idx, a.row_in_strip, a.strip_start, v,
+            n_strips=a.n_strips, max_col=a.max_col), x, a.n_rows_pad)
+    return R.cmrs_matvec_ref(a.val, a.col_idx, a.row_in_strip, a.strip_map,
+                             x, a.n_strips)
 
 
 def sell_matvec(a: SELLDevice, x: torch.Tensor, backend: str = "auto",
@@ -229,8 +373,9 @@ def select_format(
     RHS/LHS at the >= f32 vector width, plus the out-of-kernel
     permutation cost), then take the first minimum in the order
     ellpack_r < sell < pjds < cmrs.  CSR wins only for degenerate inputs.
-    The decision can name a format whose kernel this package has not
-    ported (``as_device`` then raises)."""
+    Values are priced at the host array's width (8 bytes for a float64
+    matrix, though the device stores f32), as in the reference, so the
+    decision stays the reference's."""
     n = m.n_rows
     if m.nnz == 0 or n < _CSR_MIN_ROWS_FACTOR * b_r:
         return "csr"
@@ -285,10 +430,13 @@ class SparseDevice:
 
     fmt: str
     shape: Tuple[int, int]
-    dev: Union[PJDSDevice, SELLDevice, CSRDevice]
+    dev: Union[ELLDevice, PJDSDevice, SELLDevice, CMRSDevice, CSRDevice]
     # pJDS only: the first n_rows entries of the inverse global row sort
     inv_perm: Optional[torch.Tensor]
     x_tiles: int = 1
+    # SELL / pJDS on the card: K5's row map, built at the first matmat
+    _out_row: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def n_rows(self) -> int:
@@ -302,12 +450,30 @@ class SparseDevice:
     def values(self) -> torch.Tensor:
         return self.dev.data if self.fmt == "csr" else self.dev.val
 
-    def matvec(self, x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
-        """y = A x, original basis, length shape[0]."""
-        if x.dim() == 2:
-            raise not_ported("matmat (a 2-D x)", "matmat")
-        if x.dim() != 1:
-            raise ValueError(f"x must be 1-D; got shape {tuple(x.shape)}")
+    def storage_elements(self) -> int:
+        """Stored value elements, padding included (the paper's measure)."""
+        return self.values.numel()
+
+    def stored_rows(self) -> torch.Tensor:
+        """SELL / pJDS: the stored row of each original row."""
+        return (self.dev.inv_perm[: self.n_rows] if self.fmt == "sell"
+                else self.inv_perm)
+
+    def row_map(self) -> torch.Tensor:
+        """SELL / pJDS: K5's row map, the original row of each stored row
+        (-1 for padding), the inverse of :meth:`stored_rows`; built once."""
+        if self._out_row is None:
+            inv = self.stored_rows()
+            rows = torch.full((self.dev.n_rows_pad,), -1, dtype=torch.int32,
+                              device=inv.device)
+            rows[inv.long()] = torch.arange(self.n_rows, dtype=torch.int32,
+                                            device=inv.device)
+            if int((rows >= 0).sum()) != self.n_rows:
+                raise ValueError("the row permutation is not a bijection")
+            self._out_row = rows
+        return self._out_row
+
+    def _check_x(self, x: torch.Tensor) -> None:
         if x.shape[0] < self.shape[1]:
             raise ValueError(
                 f"x has {x.shape[0]} entries; matrix has {self.shape[1]} "
@@ -315,13 +481,56 @@ class SparseDevice:
         if x.device != self.device:
             raise ValueError(f"x is on {x.device}; the operand on "
                              f"{self.device}")
+
+    def matvec(self, x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+        """y = A x, original basis, length shape[0]; a 2-D x goes to
+        :meth:`matmat`."""
+        if x.dim() == 2:
+            return self.matmat(x, backend)
+        if x.dim() != 1:
+            raise ValueError(f"x must be 1-D; got shape {tuple(x.shape)}")
+        self._check_x(x)
         if self.fmt == "csr":
             return csr_matvec(self.dev, x, backend)
+        if self.fmt == "ellpack_r":
+            return ell_matvec(self.dev, x, backend)[: self.n_rows]
         if self.fmt == "sell":
             return sell_matvec(self.dev, x, backend)[: self.n_rows]
         if self.fmt == "pjds":
             y_p = pjds_matvec(self.dev, x, backend)
             return y_p.index_select(0, self.inv_perm)
+        if self.fmt == "cmrs":
+            return cmrs_matvec(self.dev, x, backend)[: self.n_rows]
+        raise ValueError(f"unknown format {self.fmt!r}")
+
+    def matmat(self, x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+        """Y = A X for a block of right-hand sides, original basis:
+        X (shape[1], k) -> (shape[0], k).
+
+        SELL and pJDS run their pJDS layout through K5, which stores
+        each row straight at its original position (the row map of
+        :meth:`row_map`); the plain version unpermutes afterwards (SELL
+        by its window-local ``inv_perm``, pJDS by the global one).
+        ELLPACK-R and CMRS run K4 / K6 once per column on the card
+        (``_by_column``); CSR is plain everywhere."""
+        if x.dim() != 2:
+            raise ValueError(f"X must be 2-D; got shape {tuple(x.shape)}")
+        self._check_x(x)
+        d = self.dev
+        if self.fmt == "csr":
+            return csr_matvec(d, x, backend)
+        if self.fmt in ("sell", "pjds"):
+            if resolve_backend(x, backend) == "kernel":
+                return pjds_matmat_kernel_call(
+                    d.val, d.col_idx, d.block_start, x, n_blocks=d.n_blocks,
+                    max_col=d.max_col, out_row=self.row_map(),
+                    n_out=self.n_rows)
+            return pjds_matmat(d, x, backend).index_select(
+                0, self.stored_rows())
+        if self.fmt == "ellpack_r":
+            return ell_matvec(d, x, backend)[: self.n_rows]
+        if self.fmt == "cmrs":
+            return cmrs_matvec(d, x, backend)[: self.n_rows]
         raise ValueError(f"unknown format {self.fmt!r}")
 
 
@@ -388,8 +597,8 @@ def as_device(
     value dtype (f32 or bf16), ``index_dtype`` the stored index dtype
     (``"auto"``: int16 when the column span fits).  ``x_tiles`` is
     accepted for parity (``"auto"`` is 1).  ``tune`` other than
-    ``"off"``, ``reorder`` other than ``"off"`` and the ELLPACK-R / CMRS
-    formats are not ported yet and raise ``NotImplementedError``.
+    ``"off"`` and ``reorder`` other than ``"off"`` are not ported yet and
+    raise ``NotImplementedError``.
     """
     if isinstance(a, SparseDevice):
         if format not in ("auto", a.fmt):
@@ -456,8 +665,14 @@ def as_device(
                           index_dtype=index_dtype)
         d = to_device_pjds(p, chunk_l=chunk_l, dtype=vdt, device=dev)
         inv_perm = host_tensor(p.inv_perm[: a.n_rows], dev)
-    elif fmt in ("ellpack_r", "cmrs"):
-        raise not_ported(f"the {fmt!r} format", fmt)
+    elif fmt == "ellpack_r":
+        e = F.csr_to_ell(a, row_align=b_r, diag_align=da,
+                         index_dtype=index_dtype)
+        d = to_device_ell(e, dtype=vdt, device=dev)
+    elif fmt == "cmrs":
+        c = F.csr_to_cmrs(a, b_r=b_r, diag_align=da,
+                          index_dtype=index_dtype)
+        d = to_device_cmrs(c, dtype=vdt, device=dev)
     else:
         raise ValueError(f"unknown format {fmt!r}")
 

@@ -4,10 +4,11 @@ dispatch decisions under the same spec, and a package that imports
 neither JAX nor ``repro``.
 
 Tolerances: none -- every comparison here is exact (host numpy code,
-the port's copy runs the same arithmetic; the vectorised pJDS fill
-writes the same values into the same slots).
+the port's copy runs the same arithmetic; the vectorised pJDS, ELLPACK-R
+and CMRS fills write the same values into the same slots).
 """
 import ast
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -109,6 +110,65 @@ def test_sell_arrays_bit_identical(name, sigma_mult):
     _assert_pjds_equal(s.pjds, t.pjds)
 
 
+@pytest.mark.parametrize("name", sorted(_MATRICES))
+@pytest.mark.parametrize("b_r,diag_align", [(32, 8), (128, 16)])
+@pytest.mark.parametrize("index_dtype", ["auto", np.int32])
+def test_ell_arrays_bit_identical(name, b_r, diag_align, index_dtype):
+    m = _MATRICES[name]()
+    e = F.csr_to_ell(m, row_align=b_r, diag_align=diag_align,
+                     index_dtype=index_dtype)
+    t = TF.csr_to_ell(_as_port(m), row_align=b_r, diag_align=diag_align,
+                      index_dtype=index_dtype)
+    for f in ("val", "col_idx", "rowlen"):
+        x, y = getattr(e, f), getattr(t, f)
+        assert x.dtype == y.dtype, f
+        np.testing.assert_array_equal(x, y, err_msg=f)
+    assert (e.shape, e.n_rows_pad, e.max_nzr) == \
+        (t.shape, t.n_rows_pad, t.max_nzr)
+    np.testing.assert_array_equal(TF.ell_to_dense(t), F.ell_to_dense(e))
+
+
+@pytest.mark.parametrize("name", sorted(_MATRICES))
+@pytest.mark.parametrize("b_r,diag_align", [(32, 8), (128, 16)])
+@pytest.mark.parametrize("index_dtype", ["auto", np.int32])
+def test_cmrs_arrays_bit_identical(name, b_r, diag_align, index_dtype):
+    m = _MATRICES[name]()
+    c = F.csr_to_cmrs(m, b_r=b_r, diag_align=diag_align,
+                      index_dtype=index_dtype)
+    t = TF.csr_to_cmrs(_as_port(m), b_r=b_r, diag_align=diag_align,
+                       index_dtype=index_dtype)
+    for f in ("val", "col_idx", "row_in_strip", "strip_start", "strip_len",
+              "strip_nnz"):
+        x, y = getattr(c, f), getattr(t, f)
+        assert x.dtype == y.dtype, f
+        np.testing.assert_array_equal(x, y, err_msg=f)
+    assert (c.shape, c.b_r, c.n_rows_pad, c.total_su) == \
+        (t.shape, t.b_r, t.n_rows_pad, t.total_su)
+    np.testing.assert_array_equal(TF.cmrs_to_dense(t), F.cmrs_to_dense(c))
+
+
+@pytest.mark.parametrize("name", sorted(_MATRICES))
+def test_footprints_and_data_reduction_match(name):
+    m = _MATRICES[name]()
+    tm = _as_port(m)
+    builds = {
+        "csr": (m, tm),
+        "ellpack_r": (F.csr_to_ell(m, row_align=32),
+                      TF.csr_to_ell(tm, row_align=32)),
+        "pjds": (F.csr_to_pjds(m, b_r=32), TF.csr_to_pjds(tm, b_r=32)),
+        "sell": (F.csr_to_sell(m, c=32, permuted_cols=False),
+                 TF.csr_to_sell(tm, c=32, permuted_cols=False)),
+        "cmrs": (F.csr_to_cmrs(m, b_r=32), TF.csr_to_cmrs(tm, b_r=32)),
+    }
+    for fmt, (ref, port) in builds.items():
+        assert TF.storage_elements(port) == F.storage_elements(ref), fmt
+        assert TF.format_nbytes(port) == F.format_nbytes(ref), fmt
+        assert TF.format_nbytes(port, 2, 2) == F.format_nbytes(ref, 2, 2)
+    for b_r in (32, 128):
+        assert TF.data_reduction_vs_ellpack(tm, b_r) == \
+            F.data_reduction_vs_ellpack(m, b_r)
+
+
 def test_padding_audit_catches_a_corrupt_slot():
     q = TF.csr_to_pjds(_as_port(M.samg(scale=1e-4)), b_r=32)
     TF.assert_padding_invariant(q)
@@ -116,6 +176,23 @@ def test_padding_audit_catches_a_corrupt_slot():
     q.val[tuple(pad)] = 1.0
     with pytest.raises(AssertionError):
         TF.assert_padding_invariant(q)
+
+
+@pytest.mark.parametrize("fmt", ["ellpack_r", "cmrs"])
+def test_padding_audit_catches_a_corrupt_slot_ell_cmrs(fmt):
+    tm = _as_port(M.samg(scale=1e-4))
+    q = TF.csr_to_ell(tm, row_align=32) if fmt == "ellpack_r" \
+        else TF.csr_to_cmrs(tm, b_r=32)
+    TF.assert_padding_invariant(q)
+    pad = tuple(np.argwhere(q.val == 0)[-1])
+    q.col_idx[pad] = 3
+    with pytest.raises(AssertionError):
+        TF.assert_padding_invariant(q)
+    if fmt == "cmrs":
+        q.col_idx[pad] = TF.PAD_COL
+        q.row_in_strip[pad] = 1
+        with pytest.raises(AssertionError, match="row_in_strip"):
+            TF.assert_padding_invariant(q)
 
 
 @pytest.mark.parametrize("span,expect", [(2 ** 15, np.int16),
@@ -153,6 +230,32 @@ def test_select_format_same_decision_under_tpu_spec(name, policy):
         assert TO.select_format(_as_port(m), b_r=b_r, spec=TPM.TPU_V5E,
                                 **policy) == \
             JO.select_format(m, b_r=b_r, spec=PM.TPU_V5E, **jpol)
+
+
+@pytest.mark.parametrize("name", sorted(_MATRICES) + ["uniform"])
+@pytest.mark.parametrize("policy", [dict(), dict(value_dtype="bfloat16"),
+                                    dict(index_dtype=np.int32)])
+def test_select_format_same_decision_under_h100_spec(name, policy):
+    # the reference priced with the port's H100 numbers decides the same
+    m = M.poisson_2d(40, 40) if name == "uniform" else _MATRICES[name]()
+    jspec = PM.TPUSpec(**dataclasses.asdict(TPM.H100))
+    jpol = dict(policy)
+    if jpol.get("value_dtype") == "bfloat16":
+        import jax.numpy as jnp
+        jpol["value_dtype"] = jnp.bfloat16
+    for b_r, da in ((32, 8), (128, 16)):
+        assert TO.select_format(_as_port(m), b_r=b_r, diag_align=da,
+                                **policy) == \
+            JO.select_format(m, b_r=b_r, diag_align=da, spec=jspec, **jpol)
+
+
+def test_auto_picks_cmrs_on_samg_and_ellpack_r_on_poisson():
+    # the paper's two operators under the port's default (H100) spec, at
+    # the diag_align 16 that as_device uses with chunk_l 16
+    for scale in (0.01, 0.03):
+        assert TO.select_format(TM.samg(scale=scale), diag_align=16) == "cmrs"
+    assert TO.select_format(TM.poisson_2d(64, 64), diag_align=16) == \
+        "ellpack_r"
 
 
 def test_perf_model_pricing_matches():

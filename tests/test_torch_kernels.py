@@ -1,4 +1,4 @@
-"""K1-K3: the port's plain versions against the JAX package's Pallas
+"""K1-K6: the port's plain versions against the JAX package's Pallas
 kernels (interpret mode) and jnp refs, the backend rules around them,
 and -- on a CUDA card -- the hand-written kernels against the plain
 versions.
@@ -24,6 +24,9 @@ from repro_torch.kernels import _backend as TB
 from repro_torch.kernels import fused_iter as TFI
 from repro_torch.kernels import ops as TO
 from repro_torch.kernels import ref as TR
+from repro_torch.kernels.cmrs_spmv import cmrs_matvec_kernel_call
+from repro_torch.kernels.ellr_spmv import ell_matvec_kernel_call
+from repro_torch.kernels.pjds_spmm import pjds_matmat_kernel_call
 from repro_torch.kernels.pjds_spmv import pjds_matvec_kernel_call
 from repro_torch.kernels.sell_spmv import (sell_matvec_kernel_call,
                                            slab_fits, window_blocks)
@@ -116,6 +119,136 @@ def test_sell_sigma_axis(sigma):
     _close(sd_t.matvec(torch.from_numpy(_X)).numpy(), y_kernel)
     _close(sd_t.matvec(torch.from_numpy(_X)).numpy(),
            _A.astype(np.float64) @ _X, tol=1e-4)
+
+
+@pytest.mark.parametrize("jdt,tdt,idt", _POLICIES)
+@pytest.mark.parametrize("chunk_l", [8, 16])
+def test_ell_plain_matches_jax_kernel(chunk_l, jdt, tdt, idt):
+    jnp, F, jops, _ = _jax()
+    kw = dict(b_r=B_R, diag_align=chunk_l, chunk_l=chunk_l, index_dtype=idt)
+    sd_j = jops.as_device(F.csr_from_dense(_A), "ellpack_r",
+                          dtype=_jdtype(jnp, jdt), **kw)
+    x = jnp.asarray(_X)
+    y_kernel = np.asarray(sd_j.matvec(x, backend="kernel"))   # interpret
+    y_ref = np.asarray(sd_j.matvec(x, backend="ref"))
+    sd_t = TO.as_device(_TM, "ellpack_r", dtype=tdt, device="cpu", **kw)
+    for f in ("val", "col_idx", "rowlen"):
+        _same_bits(getattr(sd_t.dev, f), getattr(sd_j.dev, f))
+    y_t = sd_t.matvec(torch.from_numpy(_X)).numpy()
+    _close(y_t, y_kernel)
+    _close(y_t, y_ref)
+
+
+@pytest.mark.parametrize("jdt,tdt,idt", _POLICIES)
+@pytest.mark.parametrize("chunk_l", [8, 16])
+@pytest.mark.parametrize("x_tiles", [1, 2])
+def test_cmrs_plain_matches_jax_kernel(x_tiles, chunk_l, jdt, tdt, idt):
+    jnp, F, jops, _ = _jax()
+    kw = dict(b_r=B_R, diag_align=chunk_l, chunk_l=chunk_l, index_dtype=idt,
+              x_tiles=x_tiles)
+    sd_j = jops.as_device(F.csr_from_dense(_A), "cmrs",
+                          dtype=_jdtype(jnp, jdt), **kw)
+    x = jnp.asarray(_X)
+    y_kernel = np.asarray(sd_j.matvec(x, backend="kernel"))   # interpret
+    y_ref = np.asarray(sd_j.matvec(x, backend="ref"))
+    sd_t = TO.as_device(_TM, "cmrs", dtype=tdt, device="cpu", **kw)
+    for f in ("val", "col_idx", "row_in_strip", "strip_map"):
+        _same_bits(getattr(sd_t.dev, f), getattr(sd_j.dev, f))
+    y_t = sd_t.matvec(torch.from_numpy(_X)).numpy()
+    _close(y_t, y_kernel)
+    _close(y_t, y_ref)
+
+
+_XK = {k: np.random.default_rng(10 + k).standard_normal((N, k)).astype(
+    np.float32) for k in (0, 1, 3, 8)}
+
+
+@pytest.mark.parametrize("jdt,tdt,idt", _POLICIES)
+@pytest.mark.parametrize("k", sorted(_XK))
+@pytest.mark.parametrize("fmt", ["pjds", "sell"])
+def test_pjds_matmat_plain_matches_jax_kernel(fmt, k, jdt, tdt, idt):
+    # K5's function in the permuted (storage) basis, and through the
+    # operand's matmat in the original basis
+    jnp, F, jops, _ = _jax()
+    kw = dict(b_r=B_R, diag_align=16, chunk_l=16, index_dtype=idt)
+    sd_j = jops.as_device(F.csr_from_dense(_A), fmt,
+                          dtype=_jdtype(jnp, jdt), **kw)
+    xk = jnp.asarray(_XK[k])
+    d = sd_j.dev
+    pj = jops.PJDSDevice(val=d.val, col_idx=d.col_idx,
+                         chunk_map=d.chunk_map, row_block=d.row_block,
+                         n_blocks=d.n_blocks, b_r=d.b_r, chunk_l=d.chunk_l,
+                         max_chunks=d.max_chunks)
+    yp_kernel = np.asarray(jops.pjds_matmat(pj, xk, backend="kernel"))
+    yp_ref = np.asarray(jops.pjds_matmat(pj, xk, backend="ref"))
+    sd_t = TO.as_device(_TM, fmt, dtype=tdt, device="cpu", **kw)
+    yp_t = TO.pjds_matmat(sd_t.dev, torch.from_numpy(_XK[k])).numpy()
+    assert yp_t.shape == (sd_t.dev.n_rows_pad, k)
+    if k == 0:
+        assert yp_kernel.shape == yp_t.shape
+        return
+    _close(yp_t, yp_kernel)
+    _close(yp_t, yp_ref)
+    y_j = np.asarray(sd_j.matmat(xk, backend="kernel"))
+    y_t = sd_t.matmat(torch.from_numpy(_XK[k])).numpy()
+    _close(y_t, y_j)
+
+
+@pytest.mark.parametrize("fmt", ["ellpack_r", "cmrs", "csr"])
+@pytest.mark.parametrize("k", [1, 3])
+def test_matmat_of_unblocked_formats_matches_reference(fmt, k):
+    # the reference has no multi-RHS kernel for these: plain 2-D refs
+    jnp, F, jops, _ = _jax()
+    kw = dict(b_r=B_R, diag_align=8, chunk_l=8)
+    y_j = np.asarray(jops.as_device(F.csr_from_dense(_A), fmt, **kw)
+                     .matmat(jnp.asarray(_XK[k])))
+    sd_t = TO.as_device(_TM, fmt, device="cpu", **kw)
+    y_t = sd_t.matmat(torch.from_numpy(_XK[k])).numpy()
+    assert y_t.shape == y_j.shape == (N, k)
+    _close(y_t, y_j)
+    assert sd_t.matmat(torch.from_numpy(_XK[0])).shape == (N, 0)
+
+
+def test_ell_masks_padding_where_the_pallas_kernel_leaks_nan():
+    # The Pallas K4 computes every padded slot below its row tile's
+    # longest row, so a NaN in x[0] (the padding column) leaks into
+    # short rows; its own plain version masks by rowlen and does not.
+    # The port's plain version and K4 follow the masked ref, which is
+    # what the reference runs on the CPU.
+    jnp, F, jops, _ = _jax()
+    x = _X.copy()
+    x[0] = np.nan
+    kw = dict(b_r=B_R, diag_align=8, chunk_l=8)
+    sd_j = jops.as_device(F.csr_from_dense(_A), "ellpack_r", **kw)
+    y_kernel = np.asarray(sd_j.matvec(jnp.asarray(x), backend="kernel"))
+    y_ref = np.asarray(sd_j.matvec(jnp.asarray(x), backend="ref"))
+    y_t = TO.as_device(_TM, "ellpack_r", device="cpu", **kw).matvec(
+        torch.from_numpy(x)).numpy()
+    reads_col0 = _A[:, 0] != 0
+    np.testing.assert_array_equal(np.isnan(y_t), np.isnan(y_ref))
+    np.testing.assert_array_equal(np.isnan(y_t), reads_col0)
+    assert np.isnan(y_kernel).sum() > reads_col0.sum()      # the leak
+
+
+def test_cmrs_nan_in_x0_poisons_like_the_reference():
+    # Padding slots route 0 * x[0] into row 0 of their strip, in the
+    # reference's plain version and in the port's.  (The Pallas K6 goes
+    # further: its one-hot routing matmul multiplies the NaN product by
+    # 0 for every other row of the strip, so the whole strip turns NaN.)
+    jnp, F, jops, _ = _jax()
+    x = _X.copy()
+    x[0] = np.nan
+    kw = dict(b_r=B_R, diag_align=8, chunk_l=8)
+    sd_j = jops.as_device(F.csr_from_dense(_A), "cmrs", **kw)
+    y_j = np.asarray(sd_j.matvec(jnp.asarray(x), backend="ref"))
+    y_t = TO.as_device(_TM, "cmrs", device="cpu", **kw).matvec(
+        torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(np.isnan(y_t), np.isnan(y_j))
+    strip_row0 = np.arange(N) % B_R == 0
+    assert np.isnan(y_t[strip_row0]).all()
+    assert np.isnan(y_t).sum() > (_A[:, 0] != 0).sum()
+    y_kernel = np.asarray(sd_j.matvec(jnp.asarray(x), backend="kernel"))
+    assert np.isnan(y_kernel).all()
 
 
 def _carriers(n_pad, seed):
@@ -254,16 +387,86 @@ def test_cpu_wrappers_take_the_plain_version_and_count_it():
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     d = TO.as_device(_TM, "pjds", b_r=B_R, device="cpu").dev
+    x = torch.from_numpy(_X)
     with pytest.raises(ValueError, match="CUDA"):
-        pjds_matvec_kernel_call(d.val, d.col_idx, d.block_start,
-                                torch.from_numpy(_X), n_blocks=d.n_blocks,
-                                max_col=d.max_col)
+        pjds_matvec_kernel_call(d.val, d.col_idx, d.block_start, x,
+                                n_blocks=d.n_blocks, max_col=d.max_col)
+    with pytest.raises(ValueError, match="CUDA"):
+        pjds_matmat_kernel_call(d.val, d.col_idx, d.block_start, x[:, None],
+                                n_blocks=d.n_blocks, max_col=d.max_col)
+    e = TO.as_device(_TM, "ellpack_r", b_r=B_R, device="cpu").dev
+    with pytest.raises(ValueError, match="CUDA"):
+        ell_matvec_kernel_call(e.val, e.col_idx, e.rowlen, x,
+                               max_col=e.max_col)
+    c = TO.as_device(_TM, "cmrs", b_r=B_R, device="cpu").dev
+    with pytest.raises(ValueError, match="CUDA"):
+        cmrs_matvec_kernel_call(c.val, c.col_idx, c.row_in_strip,
+                                c.strip_start, x, n_strips=c.n_strips,
+                                max_col=c.max_col)
+
+
+def test_cpu_wrappers_of_k4_k5_k6_take_the_plain_version():
+    x = torch.from_numpy(_X)
+    TR.reset_calls()
+    before = (ell_matvec_kernel_call.launches,
+              cmrs_matvec_kernel_call.launches,
+              pjds_matmat_kernel_call.launches)
+    TO.ell_matvec(TO.as_device(_TM, "ellpack_r", b_r=B_R, device="cpu").dev,
+                  x)
+    TO.cmrs_matvec(TO.as_device(_TM, "cmrs", b_r=B_R, device="cpu").dev, x)
+    TO.pjds_matmat(TO.as_device(_TM, "pjds", b_r=B_R, device="cpu").dev,
+                   x[:, None])
+    assert (TR.ell_matvec_ref.calls, TR.cmrs_matvec_ref.calls,
+            TR.pjds_matmat_ref.calls) == (1, 1, 1)
+    assert (ell_matvec_kernel_call.launches,
+            cmrs_matvec_kernel_call.launches,
+            pjds_matmat_kernel_call.launches) == before
 
 
 def test_to_device_rejects_unaligned_chunks():
     p = TF.csr_to_pjds(_TM, b_r=B_R, diag_align=8, permuted_cols=False)
     with pytest.raises(ValueError, match="chunk_l"):
         TO.to_device_pjds(p, chunk_l=16, device="cpu")
+
+
+def test_to_device_cmrs_takes_strips_of_any_length():
+    # K6 walks a strip one tile row at a time: no tile-multiple rule
+    c = TF.csr_to_cmrs(_TM, b_r=B_R, diag_align=1)
+    assert np.any(c.strip_len % 8)
+    d = TO.to_device_cmrs(c, device="cpu")
+    y = TO.cmrs_matvec(d, torch.from_numpy(_X)).numpy()[:N]
+    _close(y, _A.astype(np.float64) @ _X)
+
+
+@pytest.mark.parametrize("fmt", ["pjds", "sell"])
+def test_k5_row_map_inverts_the_unpermute(fmt):
+    # On the card K5 stores stored row p at original row out_row[p]; that
+    # scatter must give what the plain path's index_select gives.
+    sd = TO.as_device(_TM, fmt, b_r=B_R, device="cpu")
+    rows = sd.row_map()
+    unperm = sd.stored_rows()
+    assert rows.dtype == torch.int32 and rows.shape == (sd.dev.n_rows_pad,)
+    assert torch.equal(rows[unperm.long()], torch.arange(N, dtype=torch.int32))
+    assert int((rows < 0).sum()) == sd.dev.n_rows_pad - N
+    xk = torch.from_numpy(_XK[3])
+    y_p = TO.pjds_matmat(sd.dev, xk)
+    keep = rows >= 0
+    y = torch.empty((N, 3))
+    y[rows[keep].long()] = y_p[keep]
+    assert torch.equal(y, sd.matmat(xk))
+    assert sd.row_map() is rows                         # built once
+
+
+def test_to_device_rejects_operands_the_kernels_would_overrun():
+    # K4 trusts rowlen <= max_nzr and K6 row ids < b_r (shared memory)
+    e = TF.csr_to_ell(_TM, row_align=B_R)
+    e.rowlen[3] = e.max_nzr + 1
+    with pytest.raises(ValueError, match="rowlen"):
+        TO.to_device_ell(e, device="cpu")
+    c = TF.csr_to_cmrs(_TM, b_r=B_R)
+    c.row_in_strip[0, 0] = B_R
+    with pytest.raises(ValueError, match="row_in_strip"):
+        TO.to_device_cmrs(c, device="cpu")
 
 
 # ------------------------------------------------------------- on the card
@@ -331,3 +534,78 @@ def test_kernel_wrappers_validate_operands_on_card():
     with pytest.raises(TypeError):
         pjds_matvec_kernel_call(d.val, d.col_idx, d.block_start, x,
                                 n_blocks=d.n_blocks, max_col=d.max_col)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt,idt", [(None, "int32"),
+                                     (torch.bfloat16, "int16"),
+                                     (None, "int16")])
+@pytest.mark.parametrize("scale", [0.003, 0.009])   # both fit int16 indices
+def test_k4_k5_k6_match_plain_versions_on_card(scale, tdt, idt):
+    _need_cuda()
+    m = TM.samg(scale=scale)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal(m.n_rows).astype(
+        np.float32)).cuda()
+    e = TO.as_device(m, "ellpack_r", dtype=tdt, index_dtype=idt).dev
+    c = TO.as_device(m, "cmrs", dtype=tdt, index_dtype=idt).dev
+    p = TO.as_device(m, "pjds", dtype=tdt, index_dtype=idt).dev
+    assert str(c.col_idx.dtype) == f"torch.{idt}"
+    before = (ell_matvec_kernel_call.launches,
+              cmrs_matvec_kernel_call.launches,
+              pjds_matmat_kernel_call.launches)
+    _close(TO.ell_matvec(e, x).cpu(),
+           TR.ell_matvec_ref(e.val, e.col_idx, e.rowlen, x).cpu())
+    y6 = TO.cmrs_matvec(c, x)
+    _close(y6.cpu(), TR.cmrs_matvec_ref(c.val, c.col_idx, c.row_in_strip,
+                                        c.strip_map, x, c.n_strips).cpu())
+    assert torch.equal(y6, TO.cmrs_matvec(c, x))          # deterministic
+    for k in (1, 3, 8, 12):
+        xk = torch.from_numpy(rng.standard_normal((m.n_rows, k)).astype(
+            np.float32)).cuda()
+        _close(TO.pjds_matmat(p, xk).cpu(),
+               TR.pjds_matmat_ref(p.val, p.col_idx, p.row_block, xk,
+                                  p.n_blocks).cpu())
+    assert TO.pjds_matmat(p, x[:, None][:, :0]).shape == (p.n_rows_pad, 0)
+    assert (ell_matvec_kernel_call.launches,
+            cmrs_matvec_kernel_call.launches,
+            pjds_matmat_kernel_call.launches) == (before[0] + 1,
+                                                  before[1] + 2,
+                                                  before[2] + 4)
+
+
+@pytest.mark.cuda
+def test_k5_reads_strided_and_misaligned_x_correctly_on_card():
+    _need_cuda()
+    m = TM.samg(scale=3e-3)
+    p = TO.as_device(m, "pjds").dev
+    n = m.n_rows
+    big = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        4 * n + 1).astype(np.float32)).cuda()
+    strided = big[: 4 * n].view(n, 4)[:, ::2]          # (n, 2), stride 4
+    offset = big[1:].view(n, 4)                        # 4-byte offset
+    for xk in (strided, offset):
+        _close(TO.pjds_matmat(p, xk).cpu(),
+               TR.pjds_matmat_ref(p.val, p.col_idx, p.row_block, xk,
+                                  p.n_blocks).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["pjds", "sell"])
+def test_k5_row_map_matches_plain_unpermute_on_card(fmt):
+    _need_cuda()
+    m = TM.samg(scale=3e-3)
+    sd = TO.as_device(m, fmt)
+    d, rows, unperm = sd.dev, sd.row_map(), sd.stored_rows()
+    rng = np.random.default_rng(5)
+    for k in (1, 3, 8, 12):
+        xk = torch.from_numpy(rng.standard_normal((m.n_rows, k)).astype(
+            np.float32)).cuda()
+        y = pjds_matmat_kernel_call(d.val, d.col_idx, d.block_start, xk,
+                                    n_blocks=d.n_blocks, max_col=d.max_col,
+                                    out_row=rows, n_out=m.n_rows)
+        y_r = TR.pjds_matmat_ref(d.val, d.col_idx, d.row_block, xk,
+                                 d.n_blocks).index_select(0, unperm)
+        assert y.shape == (m.n_rows, k)
+        _close(y.cpu(), y_r.cpu())
+        assert torch.equal(y, sd.matmat(xk))

@@ -1,12 +1,15 @@
 """The port's operator protocol against the reference's: ``operator(m,
-device="cpu") @ x`` equals ``repro``'s ``operator(m) @ x`` for pJDS,
-SELL and CSR; ``convert.py`` carries a reference ``as_device`` container
+device="cpu") @ x`` (and ``@ X`` for a block of right-hand sides)
+equals ``repro``'s ``operator(m) @ x`` for every format, ``"auto"``
+included; ``convert.py`` carries a reference ``as_device`` container
 across to the same y; the entry points refuse to run on the CPU
 unasked and raise ``NotImplementedError`` for what is not ported.
 
 Tolerance: y within 1e-5 * max|y| -- the same stored values, f32
 accumulation on both sides, a different summation order.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +18,7 @@ import repro_torch
 from repro_torch import convert
 from repro_torch.core import formats as TF
 from repro_torch.core import matrices as TM
+from repro_torch.core import perf_model as TPM
 from repro_torch.core.operator import DeviceOperator
 from repro_torch.kernels import ops as TO
 
@@ -63,7 +67,7 @@ def _jax_matrix(F, tm):
                  id="bf16+int16"),
     pytest.param({"index_dtype": "int32", "b_r": 64, "chunk_l": 8},
                  id="f32+int32-b64")])
-@pytest.mark.parametrize("fmt", ["pjds", "sell", "csr"])
+@pytest.mark.parametrize("fmt", ["pjds", "sell", "csr", "ellpack_r", "cmrs"])
 @pytest.mark.parametrize("name", sorted(_MATS))
 def test_operator_matches_reference(name, fmt, policy):
     jnp, F, _, joperator, _ = _jax()
@@ -81,6 +85,85 @@ def test_operator_matches_reference(name, fmt, policy):
     assert y_t.dtype == torch.float32
     _close(y_t.numpy(), y_j)
     _close((op @ x).numpy(), y_j)           # numpy x: host width rule
+
+
+_K = {k: np.random.default_rng(20 + k).standard_normal((700, k)).astype(
+    np.float32) for k in (1, 3, 8)}
+
+
+@pytest.mark.parametrize("k", sorted(_K))
+@pytest.mark.parametrize("fmt", ["pjds", "sell", "csr", "ellpack_r", "cmrs",
+                                 "auto"])
+@pytest.mark.parametrize("name", sorted(_MATS))
+def test_operator_matmat_matches_reference(name, fmt, k):
+    jnp, F, _, joperator, _ = _jax()
+    tm = _MATS[name]()
+    x = _K[k][: tm.n_cols]
+    jop = joperator(_jax_matrix(F, tm), fmt)
+    op = repro_torch.operator(tm, fmt, device="cpu")
+    assert op.fmt == jop.dev.fmt
+    y_j = np.asarray(jop @ jnp.asarray(x))
+    y_t = op @ torch.from_numpy(x)
+    assert tuple(y_t.shape) == (tm.n_rows, k)
+    _close(y_t.numpy(), y_j)
+    _close(op.matvec(torch.from_numpy(x)).numpy(), y_j)   # 2-D -> matmat
+
+
+def _ref_spec(spec):
+    # the reference priced with the same numbers as the port's spec
+    from repro.core import perf_model as PM
+    return PM.TPUSpec(**dataclasses.asdict(spec))
+
+
+_AUTO_MATS = {
+    "samg_0.01": lambda: TM.samg(scale=0.01),       # cmrs under the H100
+    "poisson_64": lambda: TM.poisson_2d(64, 64),    # ellpack_r
+    **_MATS,
+}
+
+
+@pytest.mark.parametrize("spec", [TPM.H100, TPM.TPU_V5E],
+                         ids=["h100", "tpu_v5e"])
+@pytest.mark.parametrize("mat", sorted(_AUTO_MATS))
+def test_auto_format_and_product_match_reference(mat, spec):
+    # operator(m) @ x with no format: the same pick as the reference's
+    # select_format under the same spec, and the same y and Y
+    jnp, F, _, joperator, jops = _jax()
+    tm = _AUTO_MATS[mat]()
+    jm = _jax_matrix(F, tm)
+    pick = TO.select_format(tm, diag_align=16, spec=spec)
+    assert pick == jops.select_format(jm, diag_align=16,
+                                      spec=_ref_spec(spec))
+    op = repro_torch.operator(tm, pick, device="cpu")
+    jop = joperator(jm, pick)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(tm.n_cols).astype(np.float32)
+    xk = rng.standard_normal((tm.n_cols, 3)).astype(np.float32)
+    _close((op @ torch.from_numpy(x)).numpy(), np.asarray(jop @ jnp.asarray(x)))
+    _close((op @ torch.from_numpy(xk)).numpy(),
+           np.asarray(jop @ jnp.asarray(xk)))
+    if spec is TPM.H100:                     # the port's default spec
+        assert repro_torch.operator(tm, device="cpu").fmt == pick
+
+
+def test_auto_runs_on_samg_and_poisson_without_raising():
+    # the paper's two operators: CMRS and ELLPACK-R under the H100 spec
+    for tm, fmt in ((TM.samg(scale=0.01), "cmrs"),
+                    (TM.poisson_2d(512, 512), "ellpack_r")):
+        op = repro_torch.operator(tm, device="cpu")
+        assert op.fmt == fmt
+        x = np.random.default_rng(6).standard_normal(tm.n_cols).astype(
+            np.float32)
+        y = (op @ torch.from_numpy(x)).numpy()
+        a64 = _dense_matvec_f64(tm, x)
+        _close(y, a64)
+
+
+def _dense_matvec_f64(tm, x):
+    rows = np.repeat(np.arange(tm.n_rows), np.diff(tm.indptr))
+    y = np.zeros(tm.n_rows)
+    np.add.at(y, rows, tm.data * x[tm.indices].astype(np.float64))
+    return y
 
 
 def test_dense_input_and_conversion_cache():
@@ -103,7 +186,7 @@ def test_explicit_x_tiles_changes_nothing():
     assert TO.as_device(tm, "sell", device="cpu").x_tiles == 1   # "auto"
 
 
-@pytest.mark.parametrize("fmt", ["pjds", "sell", "csr"])
+@pytest.mark.parametrize("fmt", ["pjds", "sell", "csr", "ellpack_r", "cmrs"])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_convert_carries_jax_containers_across(fmt, bf16):
     jnp, F, M, _, jops = _jax()
@@ -112,10 +195,11 @@ def test_convert_carries_jax_containers_across(fmt, bf16):
                         dtype=jnp.bfloat16 if bf16 else None)
     inner = sd.dev
     names = [f for f in ("val", "col_idx", "row_block", "inv_perm", "data",
-                         "indices", "row_ids") if hasattr(inner, f)]
+                         "indices", "row_ids", "rowlen", "row_in_strip",
+                         "strip_map") if hasattr(inner, f)]
     arrays = {f: np.asarray(getattr(inner, f)) for f in names}
     statics = {f: getattr(inner, f) for f in ("n_blocks", "b_r", "chunk_l",
-                                              "sigma", "n_rows")
+                                              "sigma", "n_rows", "n_strips")
                if hasattr(inner, f)}
     port = convert.sparse_device(
         fmt, sd.shape, arrays, statics,
@@ -130,7 +214,11 @@ def test_convert_carries_jax_containers_across(fmt, bf16):
                                         m.shape), fmt, b_r=32, chunk_l=8,
                            dtype=torch.bfloat16 if bf16 else None,
                            device="cpu").dev
-        for f in ("val", "col_idx", "row_block", "block_start"):
+        fields = {"ellpack_r": ("val", "col_idx", "rowlen"),
+                  "cmrs": ("val", "col_idx", "row_in_strip", "strip_map",
+                           "strip_start")}.get(
+            fmt, ("val", "col_idx", "row_block", "block_start"))
+        for f in fields:
             assert torch.equal(getattr(own, f), getattr(port.dev, f)), f
 
 
@@ -147,8 +235,6 @@ def test_entry_points_refuse_the_cpu_unasked(monkeypatch):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda tm: repro_torch.operator(tm, "ellpack_r", device="cpu"), "K4"),
-    (lambda tm: repro_torch.operator(tm, "cmrs", device="cpu"), "K6"),
     (lambda tm: repro_torch.operator(tm, "sell", tune="auto",
                                      device="cpu"), "autotuner"),
     (lambda tm: repro_torch.operator(tm, "sell", reorder="rcm",
@@ -159,9 +245,9 @@ def test_entry_points_refuse_the_cpu_unasked(monkeypatch):
     (lambda tm: repro_torch.operator(tm, "pjds", device="cpu").rmatvec(
         torch.zeros(tm.n_rows)), "rmatvec"),
     (lambda tm: repro_torch.operator(tm, "sell", device="cpu")
-     @ torch.zeros(tm.n_cols, 3), "K5"),
-    (lambda tm: repro_torch.operator(tm, "sell", device="cpu")
      @ torch.zeros(tm.n_cols, requires_grad=True), "autograd"),
+    (lambda tm: repro_torch.operator(tm, "cmrs", device="cpu")
+     @ torch.zeros(tm.n_cols, 2, requires_grad=True), "autograd"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(call, item):
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
@@ -183,14 +269,21 @@ def test_bad_inputs_raise():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fmt", ["pjds", "sell"])
+@pytest.mark.parametrize("fmt", ["pjds", "sell", "ellpack_r", "cmrs", "auto"])
 def test_operator_on_card_matches_cpu(fmt):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from repro_torch.kernels import ref as TR
     tm = TM.samg(scale=3e-3)
-    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
-        tm.n_cols).astype(np.float32))
-    y_cpu = repro_torch.operator(tm, fmt, device="cpu") @ x
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal(tm.n_cols).astype(np.float32))
+    xk = torch.from_numpy(rng.standard_normal((tm.n_cols, 5)).astype(
+        np.float32))
+    op_cpu = repro_torch.operator(tm, fmt, device="cpu")
+    y_cpu, yk_cpu = op_cpu @ x, op_cpu @ xk
     op = repro_torch.operator(tm, fmt)
-    assert op.device.type == "cuda"
+    assert op.device.type == "cuda" and op.fmt == op_cpu.fmt
+    TR.reset_calls()
     _close((op @ x.cuda()).cpu().numpy(), y_cpu.numpy())
+    _close((op @ xk.cuda()).cpu().numpy(), yk_cpu.numpy())
+    assert not any(f.calls for f in TR._COUNTED)      # kernels only

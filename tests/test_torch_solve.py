@@ -1,9 +1,9 @@
 """``repro_torch.solve`` against ``repro.solve``: the fused CG over K3's
-function and the composed CG over K1's, with the same arguments, end
-in the same status and strategy, within 2 iterations, with x within
-1e-4 relative; the exit contract (maxiter, tol <= 0, NaN) matches; the
-host loop reads the device once per fused iteration; unported options
-raise.
+function, the composed CG over K1's and block CG over K5's, with the
+same arguments, end in the same status and strategy, within 2
+iterations, with x within 1e-4 relative; the exit contract (maxiter,
+tol <= 0, NaN) matches; the host loop reads the device once per fused
+or block iteration; unported options raise.
 
 Tolerances: iterations +-2 and x relative 1e-4 -- both run the same f32
 recurrences, but dot products sum in a different order, which moves the
@@ -92,10 +92,18 @@ def test_tol_le_zero_runs_to_maxiter(fmt, tol):
     rj, rt = _both(tm, _rhs(tm.n_rows), format=fmt, tol=tol, maxiter=40)
     assert int(rj.iters) == rt.iters == 40
     # Only a residual of exactly 0 reads "converged" at tol <= 0.  XLA on
-    # the CPU flushes denormals to zero and torch does not, so past
-    # convergence the reference can reach 0 where the port stops at a
-    # denormal (ROADMAP.md, faults found against the reference).
-    assert {rj.status, rt.status} <= {"maxiter", "converged"}
+    # the CPU flushes float32 denormals to zero; the port's host reads do
+    # the same, so past convergence both reach the same status, and the
+    # composed loop the same recurrence residual (0.0 here).  The fused
+    # drive reports the certified TRUE residual, which past convergence
+    # sits at the float32 round-off floor of ||b - A x||; its digits
+    # depend on the summation order (ROADMAP.md, faults found against
+    # the reference), so that case is held to the floor only.
+    assert rt.status == rj.status
+    if fmt == "pjds":
+        assert rt.residual == float(rj.residual)
+    else:
+        assert max(rt.residual, float(rj.residual)) <= 1e-6
     assert np.isfinite(rt.x.numpy()).all()
 
 
@@ -164,7 +172,6 @@ def test_composed_cg_accepts_x0():
     (dict(), "autotuner"),                                   # tune="auto"
     (dict(tune="off"), "degradation ladder"),                # fallback="auto"
     (dict(tune="off", fallback="off", method="bicgstab"), "BiCGStab"),
-    (dict(tune="off", fallback="off", method="block_cg"), "block CG"),
     (dict(tune="off", fallback="off", precond="jacobi"), "preconditioned"),
     (dict(tune="off", fallback="off", refine=True), "refinement"),
     (dict(tune="off", fallback="off", dtype=torch.bfloat16), "refinement"),
@@ -176,6 +183,78 @@ def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
         repro_torch.solve(tm, np.ones(tm.n_rows), device="cpu", **kw)
     assert item in str(e.value)
+
+
+def _rhs_block(n, k, seed=0):
+    return np.random.default_rng(seed).standard_normal((n, k)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("fmt", ["sell", "pjds", "csr", "cmrs", "auto"])
+@pytest.mark.parametrize("name", sorted(_CASES))
+def test_block_cg_matches_reference(name, fmt):
+    # same iterations and status, per-column recurrence residuals within
+    # 10 % of each other (f32 Gram matrices summed in another order drift
+    # apart over tens of iterations: 2.9 % measured on poisson17x19),
+    # x within 1e-4
+    mk, tol = _CASES[name]
+    tm = mk()
+    rj, rt = _both(tm, _rhs_block(tm.n_rows, 4), method="block_cg",
+                   format=fmt, tol=tol)
+    assert rj.status == rt.status == "converged"
+    assert rt.info["strategy"] == rj.info["strategy"] == "composed"
+    assert abs(int(rj.iters) - rt.iters) <= 2
+    res_j = np.asarray(rj.residual, np.float64)
+    assert rt.residual.shape == res_j.shape == (4,)
+    np.testing.assert_allclose(rt.residual, res_j, rtol=0.1)
+    assert rt.diagnostics["true_residual"] <= tol
+    _x_close(rj, rt)
+    # one read to start, one per iteration
+    assert rt.info["host_syncs"] == rt.iters + 1
+
+
+def test_block_cg_exit_contract_matches_reference():
+    tm = TM.poisson_2d(24, 24)
+    b = _rhs_block(tm.n_rows, 3)
+    rj, rt = _both(tm, b, method="block_cg", format="sell", tol=1e-5,
+                   maxiter=7)
+    assert rj.status == rt.status == "maxiter"
+    assert int(rj.iters) == rt.iters == 7
+    _x_close(rj, rt)
+    rj, rt = _both(tm, b, method="block_cg", format="pjds", tol=0.0,
+                   maxiter=12)
+    assert int(rj.iters) == rt.iters == 12
+    assert rj.status == rt.status
+    b[5, 1] = np.nan
+    rj, rt = _both(tm, b, method="block_cg", format="sell", tol=1e-5)
+    assert rj.status == rt.status == "non_finite"
+
+
+def test_block_cg_runs_k5_plain_version_once_per_iteration_on_cpu():
+    tm = TM.samg(scale=1e-4)
+    TR.reset_calls()
+    res = repro_torch.solve(tm, _rhs_block(tm.n_rows, 2), method="block_cg",
+                            format="sell", tune="off", fallback="off",
+                            device="cpu")
+    # start + one per iteration + certification
+    assert res.status == "converged"
+    assert TR.pjds_matmat_ref.calls == res.iters + 2
+    assert TR.sell_matvec_ref.calls == TR.fused_matvec_dots_ref.calls == 0
+
+
+def test_block_cg_argument_rules():
+    tm = TM.poisson_2d(8, 8)
+    with pytest.raises(ValueError, match="shape"):
+        repro_torch.solve(tm, np.ones(tm.n_rows), method="block_cg",
+                          tune="off", fallback="off", device="cpu")
+    with pytest.raises(ValueError, match="refine"):
+        repro_torch.solve(tm, np.ones((tm.n_rows, 2)), method="block_cg",
+                          refine=True, tune="off", fallback="off",
+                          device="cpu")
+    # block CG does not tune (as in the reference): tune="auto" runs
+    res = repro_torch.solve(tm, _rhs_block(tm.n_rows, 2), method="block_cg",
+                            fallback="off", device="cpu", tol=1e-5)
+    assert res.status == "converged" and res.method == "block_cg"
 
 
 def test_bad_arguments_raise_value_error():
@@ -223,5 +302,26 @@ def test_solve_on_card_matches_cpu(fmt, kernel):
     assert abs(r_gpu.iters - r_cpu.iters) <= 2
     assert counter.launches >= r_gpu.iters + 1
     assert TR.fused_matvec_dots_ref.calls == TR.pjds_matvec_ref.calls == 0
+    xg, xc = r_gpu.x.cpu().numpy(), r_cpu.x.numpy()
+    assert np.abs(xg - xc).max() <= 1e-4 * np.abs(xc).max()
+
+
+@pytest.mark.cuda
+def test_block_cg_on_card_matches_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from repro_torch.kernels.pjds_spmm import pjds_matmat_kernel_call
+    tm = TM.poisson_2d(40, 40)
+    b = _rhs_block(tm.n_rows, 4)
+    kw = dict(method="block_cg", format="sell", tune="off", fallback="off",
+              tol=1e-5)
+    r_cpu = repro_torch.solve(tm, b, device="cpu", **kw)
+    pjds_matmat_kernel_call.launches = 0
+    TR.reset_calls()
+    r_gpu = repro_torch.solve(tm, b, **kw)
+    assert r_gpu.status == r_cpu.status == "converged"
+    assert abs(r_gpu.iters - r_cpu.iters) <= 2
+    assert pjds_matmat_kernel_call.launches >= r_gpu.iters + 1
+    assert not any(f.calls for f in TR._COUNTED)
     xg, xc = r_gpu.x.cpu().numpy(), r_cpu.x.numpy()
     assert np.abs(xg - xc).max() <= 1e-4 * np.abs(xc).max()
