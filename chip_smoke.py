@@ -10,6 +10,10 @@ pipeline on the sAMG analogue at its published 3.4 M rows --
 ``repro_torch.solve`` with CG and block CG -- and the paper's
 ELLPACK-R-vs-pJDS comparison, and holds every kernel against its plain
 PyTorch version and every product against a float64 scipy reference.
+K2 and K6 walk only the slots their derived lengths cover; the script
+checks that they repeat bit for bit and that walking every stored slot
+gives the same bits, and times both walks (phase ``time:padding_skip``).
+Each kernel's bound counts the nnz slots the function needs.
 Each main-path phase sets every launch count to 0 before it and reads
 the counts after it.  Each phase prints one JSON line; any failed check
 raises, and the script then exits non-zero without its final line.
@@ -40,6 +44,7 @@ F32_FLOPS = 67e12                # H100 SXM, f32 outside the tensor cores
 Y_TOL = 1e-5                     # max |kernel - plain| <= Y_TOL * max|y|
 DOT_TOL = 1e-4                   # relative, per dot
 SCIPY_TOL = 1e-5                 # max |kernel - f64| <= SCIPY_TOL * max|y|
+BURST = 10                       # back-to-back calls per timing sample
 
 
 def emit(phase: str, **fields) -> None:
@@ -115,9 +120,41 @@ def main() -> int:
         err = float((y - y_ref).abs().max())
         return err, err / scale
 
-    def time_ms(fn, reps=30, warm=5):
-        """(median, 25th, 75th percentile) ms of ``fn`` by CUDA events,
-        one launch per sample, after ``warm`` launches."""
+    def k2_with(d, lengths, v):
+        """K2 on SELL operand ``d`` walking ``lengths`` (per warp)."""
+        return sell_matvec_kernel_call(d.val, d.col_idx, d.block_start,
+                                       d.inv_perm, lengths, v,
+                                       n_blocks=d.n_blocks, sigma=d.sigma,
+                                       max_col=d.max_col)
+
+    def k6_with(d, lengths, v):
+        """K6 on CMRS operand ``d`` walking ``lengths`` (per strip)."""
+        return cmrs_matvec_kernel_call(d.val, d.col_idx, d.row_in_strip,
+                                       d.strip_start, lengths, v,
+                                       n_strips=d.n_strips,
+                                       max_col=d.max_col)
+
+    def same_bits(y, d, v, what):
+        """K2 / K6 on ``d`` repeat ``y`` bit for bit, and walking every
+        stored slot changes no bit of it."""
+        if what.endswith("sell_spmv"):
+            kern, derived = k2_with, d.warp_len
+            full = TO.stored_warp_len(d.block_start, d.b_r)
+        else:
+            kern, derived = k6_with, d.strip_nnz
+            full = TO.stored_strip_nnz(d.strip_start, d.b_r)
+        require(torch.equal(y, kern(d, derived, v)),
+                f"{what}: not bit-repeatable")
+        require(torch.equal(y, kern(d, full, v)),
+                f"{what}: full-length walk differs from the derived one")
+
+    def time_ms(fn, reps=30, warm=5, burst=BURST):
+        """(median, 25th, 75th percentile) ms per call of ``fn`` by CUDA
+        events, after ``warm`` calls.  Each of ``reps`` samples times
+        ``burst`` calls back to back, so the card stays busy and the
+        host's launch overhead hides behind the call before, as in a
+        solver loop; ``burst=1`` times one call from an idle card, the
+        host's launch overhead included."""
         for _ in range(warm):
             fn()
         torch.cuda.synchronize()
@@ -126,10 +163,11 @@ def main() -> int:
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
-            fn()
+            for _ in range(burst):
+                fn()
             e1.record()
             e1.synchronize()
-            out.append(e0.elapsed_time(e1))
+            out.append(e0.elapsed_time(e1) / burst)
         return tuple(float(v) for v in np.percentile(out, [50, 25, 75]))
 
     # ---- 1. kernel build ------------------------------------------------
@@ -190,11 +228,10 @@ def main() -> int:
             y_r = R.pjds_matvec_ref(d.val, d.col_idx, d.row_block, x,
                                     d.n_blocks)
         else:
-            y_k = sell_matvec_kernel_call(d.val, d.col_idx, d.block_start,
-                                          d.inv_perm, x, n_blocks=d.n_blocks,
-                                          sigma=d.sigma, max_col=d.max_col)
+            y_k = k2_with(d, d.warp_len, x)
             y_r = R.sell_matvec_ref(d.val, d.col_idx, d.row_block,
                                     d.inv_perm, x, d.n_blocks)
+            same_bits(y_k, d, x, name)
         e_abs, e_rel = rel_err(y_k, y_r)
         s_abs, s_rel = rel_err(y, y64_t)
         require(e_rel <= Y_TOL, f"{name} vs plain: {e_rel}")
@@ -225,12 +262,10 @@ def main() -> int:
         plain_free(plain_calls, phase)
         d = op.dev.dev
         if name == "cmrs_spmv":
-            y_k = cmrs_matvec_kernel_call(d.val, d.col_idx, d.row_in_strip,
-                                          d.strip_start, x,
-                                          n_strips=d.n_strips,
-                                          max_col=d.max_col)
+            y_k = k6_with(d, d.strip_nnz, x)
             y_r = R.cmrs_matvec_ref(d.val, d.col_idx, d.row_in_strip,
                                     d.strip_map, x, d.n_strips)
+            same_bits(y_k, d, x, name)
         else:
             y_k = ell_matvec_kernel_call(d.val, d.col_idx, d.rowlen, x,
                                          max_col=d.max_col)
@@ -475,11 +510,10 @@ def main() -> int:
             max_col=p.max_col),
             R.pjds_matvec_ref(p.val, p.col_idx, p.row_block, xs,
                               p.n_blocks))[1]
-        e2 = rel_err(sell_matvec_kernel_call(
-            s.val, s.col_idx, s.block_start, s.inv_perm, xs,
-            n_blocks=s.n_blocks, sigma=s.sigma, max_col=s.max_col),
-            R.sell_matvec_ref(s.val, s.col_idx, s.row_block, s.inv_perm, xs,
-                              s.n_blocks))[1]
+        y2 = k2_with(s, s.warp_len, xs)
+        e2 = rel_err(y2, R.sell_matvec_ref(s.val, s.col_idx, s.row_block,
+                                           s.inv_perm, xs, s.n_blocks))[1]
+        same_bits(y2, s, xs, f"small:{label} sell_spmv")
         npd = s.n_rows_pad
         v = [torch.zeros(npd, device=dev) for _ in range(3)]
         for t in v:
@@ -504,13 +538,11 @@ def main() -> int:
                 ell_matvec_kernel_call(e.val, e.col_idx, e.rowlen, xs,
                                        max_col=e.max_col),
                 R.ell_matvec_ref(e.val, e.col_idx, e.rowlen, xs))[1]
+            y6 = k6_with(c, c.strip_nnz, xs)
             more["cmrs_rel_err"] = rel_err(
-                cmrs_matvec_kernel_call(c.val, c.col_idx, c.row_in_strip,
-                                        c.strip_start, xs,
-                                        n_strips=c.n_strips,
-                                        max_col=c.max_col),
-                R.cmrs_matvec_ref(c.val, c.col_idx, c.row_in_strip,
-                                  c.strip_map, xs, c.n_strips))[1]
+                y6, R.cmrs_matvec_ref(c.val, c.col_idx, c.row_in_strip,
+                                      c.strip_map, xs, c.n_strips))[1]
+            same_bits(y6, c, xs, f"small:{label} cmrs_spmv")
             for k in (1, 3, 8):
                 xk = torch.stack([xs * (j + 1) for j in range(k)], dim=1)
                 more[f"pjds_spmm_k{k}_rel_err"] = rel_err(
@@ -530,42 +562,47 @@ def main() -> int:
                 "index dtype not kept")
         require(slab == (sigma is None), "wrong unpermute path exercised")
 
-    # ---- 9. timings at full size (CUDA events, median of 30) -------------
+    # ---- 9. timings at full size (CUDA events, 30 samples of BURST calls) -
     # Bytes each call must move: every input read once, every output
-    # written once.  pJDS and SELL (K1, K2, K3, K5) count their stored
-    # elements, padding included; ELLPACK-R (K4) counts nnz, since it
-    # reads no slot past rowlen, and CMRS (K6) counts nnz as well, plus
-    # its int8 row stream: its strips pad only to whole tile rows, so
-    # the function needs nnz slots (the stored-slot bytes are printed
-    # beside, as ``stored_bytes``).  K5 is timed as the operator
-    # launches it, with its row map.
+    # written once, and of the matrix the nnz slots the function needs --
+    # value + index width, plus CMRS's int8 row stream -- whatever padding
+    # the layout stores.  The stored-slot bytes are printed beside as
+    # ``stored_bytes``; ``slots_read`` is what K2's and K6's length-aware
+    # walks touch (K2: 32 lanes x warp_len per warp; K6: strip_nnz rounded
+    # up to the 4 slots a lane loads at once).  K5 is timed as the
+    # operator launches it, with its row map.
     vb = d_s.val.element_size()
     ib = d_s.col_idx.element_size()
+    slot = vb + ib
     stored = d_s.val.numel()
     n_blocks = d_s.n_blocks
     w_b = window_blocks(d_s.sigma, d_s.b_r, n_blocks)
     n_part = -(-n_blocks // w_b)
-    base = stored * (vb + ib) + n * 4 + n_pad * 4 + (n_blocks + 1) * 4
-    c_stored = d_c.val.numel()
     c_slot = d_c.val.element_size() + d_c.col_idx.element_size() + 1
-    c_rest = (d_c.n_strips + 1) * 4 + n * 4 + d_c.n_rows_pad * 4
     e_pad = d_e.n_rows_pad
-    bytes_ = {"pjds_spmv": float(d_p.val.numel() * (vb + ib) + n * 4
-                                 + n_pad * 4 + (n_blocks + 1) * 4),
-              "sell_spmv": float(base + n_pad * 4),
-              "fused_iter": float(base + n_pad * 4 + 2 * n_pad * 4
-                                  + 2 * n_part * 5 * 4 + 5 * 4),
-              "ellr_spmv": float(m.nnz * (vb + ib) + e_pad * 4 + n * 4
-                                 + e_pad * 4),
-              "pjds_spmm": float(stored * (vb + ib) + (n_blocks + 1) * 4
-                                 + n_pad * 4 + 2 * n * k_rhs * 4),
-              "cmrs_spmv": float(m.nnz * c_slot + c_rest)}
-    stored_bytes = {"cmrs_spmv": float(c_stored * c_slot + c_rest)}
-    flops = {"pjds_spmv": 2.0 * d_p.val.numel(),
-             "sell_spmv": 2.0 * stored,
-             "fused_iter": 2.0 * stored + 2.0 * 5 * n_pad,
-             "ellr_spmv": 2.0 * m.nnz,
-             "pjds_spmm": 2.0 * stored * k_rhs,
+    vec = {"pjds_spmv": n * 4 + n_pad * 4 + (n_blocks + 1) * 4,
+           "sell_spmv": n * 4 + 2 * n_pad * 4 + (n_blocks + 1) * 4
+           + d_s.warp_len.numel() * 4,
+           "fused_iter": n * 4 + 4 * n_pad * 4 + (n_blocks + 1) * 4
+           + 2 * n_part * 5 * 4 + 5 * 4,
+           "ellr_spmv": n * 4 + 2 * e_pad * 4,
+           "pjds_spmm": (n_blocks + 1) * 4 + n_pad * 4 + 2 * n * k_rhs * 4,
+           "cmrs_spmv": n * 4 + d_c.n_rows_pad * 4
+           + (2 * d_c.n_strips + 1) * 4}
+    stored_slots = {"pjds_spmv": d_p.val.numel() * slot,
+                    "sell_spmv": stored * slot, "fused_iter": stored * slot,
+                    "ellr_spmv": d_e.val.numel() * slot,
+                    "pjds_spmm": stored * slot,
+                    "cmrs_spmv": d_c.val.numel() * c_slot}
+    bytes_ = {nm: float(m.nnz * (c_slot if nm == "cmrs_spmv" else slot)
+                        + vec[nm]) for nm in vec}
+    stored_bytes = {nm: float(stored_slots[nm] + vec[nm]) for nm in vec}
+    slots_read = {
+        "sell_spmv": 32 * int(d_s.warp_len.long().sum()),
+        "cmrs_spmv": 4 * int(((d_c.strip_nnz.long() + 3) // 4).sum())}
+    flops = {"pjds_spmv": 2.0 * m.nnz, "sell_spmv": 2.0 * m.nnz,
+             "fused_iter": 2.0 * m.nnz + 2.0 * 5 * n_pad,
+             "ellr_spmv": 2.0 * m.nnz, "pjds_spmm": 2.0 * m.nnz * k_rhs,
              "cmrs_spmv": 2.0 * m.nnz}
     a_csr = torch.sparse_csr_tensor(
         torch.from_numpy(m.indptr.astype(np.int64)),
@@ -583,6 +620,7 @@ def main() -> int:
     lib_mm = library_ms(lambda: a_csr @ X, "csr @ X")
     library = {"pjds_spmv": lib_mv, "sell_spmv": lib_mv, "fused_iter": lib_mv,
                "ellr_spmv": lib_mv, "pjds_spmm": lib_mm, "cmrs_spmv": lib_mv}
+
     runs = {
         "pjds_spmv": (
             lambda: pjds_matvec_kernel_call(d_p.val, d_p.col_idx,
@@ -592,11 +630,7 @@ def main() -> int:
             lambda: R.pjds_matvec_ref(d_p.val, d_p.col_idx, d_p.row_block,
                                       x, d_p.n_blocks)),
         "sell_spmv": (
-            lambda: sell_matvec_kernel_call(d_s.val, d_s.col_idx,
-                                            d_s.block_start, d_s.inv_perm, x,
-                                            n_blocks=n_blocks,
-                                            sigma=d_s.sigma,
-                                            max_col=d_s.max_col),
+            lambda: k2_with(d_s, d_s.warp_len, x),
             lambda: R.sell_matvec_ref(d_s.val, d_s.col_idx, d_s.row_block,
                                       d_s.inv_perm, x, n_blocks)),
         "fused_iter": (
@@ -619,10 +653,7 @@ def main() -> int:
             lambda: R.pjds_matmat_ref(d_s.val, d_s.col_idx, d_s.row_block,
                                       X, n_blocks).index_select(0, unperm_s)),
         "cmrs_spmv": (
-            lambda: cmrs_matvec_kernel_call(d_c.val, d_c.col_idx,
-                                            d_c.row_in_strip, d_c.strip_start,
-                                            x, n_strips=d_c.n_strips,
-                                            max_col=d_c.max_col),
+            lambda: k6_with(d_c, d_c.strip_nnz, x),
             lambda: R.cmrs_matvec_ref(d_c.val, d_c.col_idx, d_c.row_in_strip,
                                       d_c.strip_map, x, d_c.n_strips)),
     }
@@ -635,7 +666,7 @@ def main() -> int:
     record = []
     for name, (kern, plain) in runs.items():
         k_ms, k_q25, k_q75 = time_ms(kern)
-        p_ms = time_ms(plain, reps=20, warm=2)[0]
+        p_ms = time_ms(plain, reps=20, warm=2, burst=1)[0]
         t_bytes = bytes_[name] / HBM_BYTES_PER_S
         t_ops = flops[name] / F32_FLOPS
         rec = {"name": name, "route": "cuda",
@@ -644,12 +675,15 @@ def main() -> int:
                "launches": main_launches[name],
                "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
                "ms": k_ms, "ms_q25_q75": [k_q25, k_q75], "samples": 30,
+               "launch_ms": time_ms(kern, burst=1)[0],
                "plain_ms": p_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "library_ms": library[name], "bytes": bytes_[name],
                "gbps": bytes_[name] / (k_ms * 1e-3) / 1e9}
-        if name in stored_bytes:
-            rec["stored_bytes"] = stored_bytes[name]
+        rec["stored_bytes"] = stored_bytes[name]
+        if name in slots_read:
+            rec["slots_read"] = slots_read[name]
+            rec["slots_read_over_nnz"] = slots_read[name] / m.nnz
         record.append(rec)
         emit(f"time:{name}", **rec)
 
@@ -662,7 +696,28 @@ def main() -> int:
     emit("time:cmrs_vs_sell:samg", picked="cmrs", k2_sell_ms=k2_ms,
          k6_cmrs_ms=k6_ms, k6_over_k2=k6_ms / k2_ms,
          samples=[list(t) for t in pair],
-         sell_stored_elements=stored, cmrs_stored_elements=c_stored)
+         sell_stored_elements=stored,
+         cmrs_stored_elements=d_c.val.numel())
+
+    # The padding skip alone: K2 and K6 with their derived lengths and
+    # with every stored slot walked, interleaved (derived, full, full,
+    # derived) in this call.
+    skip = {}
+    for nm, kern, d, derived, full in (
+            ("sell_spmv", k2_with, d_s, d_s.warp_len,
+             TO.stored_warp_len(d_s.block_start, d_s.b_r)),
+            ("cmrs_spmv", k6_with, d_c, d_c.strip_nnz,
+             TO.stored_strip_nnz(d_c.strip_start, d_c.b_r))):
+        t = [time_ms(lambda ln=ln: kern(d, ln, x))
+             for ln in (derived, full, full, derived)]
+        der = float(np.median([t[0][0], t[3][0]]))
+        ful = float(np.median([t[1][0], t[2][0]]))
+        skip[nm] = {"derived_ms": der, "full_ms": ful,
+                    "full_over_derived": ful / der,
+                    "slots_read": slots_read[nm],
+                    "stored_slots": d.val.numel(),
+                    "samples_derived_full_full_derived": [list(v) for v in t]}
+    emit("time:padding_skip", **skip)
 
     # The operator layer around the kernels: each product through the
     # operator (dispatch, unpermute, slicing) beside its kernel alone, and

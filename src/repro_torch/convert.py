@@ -65,8 +65,8 @@ def blocked_device(arrays: Mapping[str, np.ndarray], statics: Mapping,
         max_col=int(col.max(initial=0)))
     if "inv_perm" in arrays:
         inv = np.asarray(arrays["inv_perm"]).astype(np.int32)
-        return ops.SELLDevice(inv_perm=tensor_from_numpy(inv, dev),
-                              sigma=int(statics["sigma"]), **common)
+        return ops.sell_container(inv_perm=tensor_from_numpy(inv, dev),
+                                  sigma=int(statics["sigma"]), **common)
     return ops.PJDSDevice(**common)
 
 
@@ -96,7 +96,7 @@ def cmrs_device(arrays: Mapping[str, np.ndarray], statics: Mapping,
     ris = np.asarray(arrays["row_in_strip"])
     n_strips, b_r = int(statics["n_strips"]), int(statics["b_r"])
     ops.check_row_in_strip(ris, b_r)
-    return ops.CMRSDevice(
+    return ops.cmrs_container(
         val=tensor_from_numpy(np.asarray(arrays["val"]), dev),
         col_idx=tensor_from_numpy(col, dev),
         row_in_strip=tensor_from_numpy(ris.astype(np.int8), dev),

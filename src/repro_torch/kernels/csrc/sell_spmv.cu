@@ -5,48 +5,126 @@
 // keeps a whole sigma-window slab of w_b = sigma / b_r row blocks pinned
 // in VMEM and gathers it back to the original order after the window's
 // last chunk, so the unpermute never touches HBM.  Here one CTA owns one
-// window: its threads (one per row lane, as many row blocks at a time as
-// fit 1024 threads) walk the window's blocks exactly as K1 does and drop
-// the sorted sums into a shared-memory slab (sigma = 1024 -> 4 KB f32);
-// after __syncthreads the CTA writes y[i] = slab[inv_perm[i] - row0]
+// window: its 128 threads (one per row lane of 128 / b_r row blocks at a
+// time) walk the window's blocks in turns and drop the sorted sums into
+// a shared-memory slab (sigma = 1024 -> 4 KB f32); after
+// __syncthreads the CTA writes y[i] = slab[inv_perm[i] - row0]
 // coalesced, in original order.  Rows never leave their window, so
 // inv_perm stays inside the slab.
+//
+// What bounds it on an H100: bytes.  A block stores every lane to the
+// block's longest row, rounded up to diag_align (16 at the reference's
+// default): on the 3.4 M-row sAMG that is 2.70 x nnz slots, and a walk
+// over all of them reads 2.6 x the bytes the function needs.  So each
+// warp walks only its first warp_len[w] diagonals -- the slots up to the
+// last one in which any of its 32 lanes holds a non-padding entry,
+// derived once at conversion (ops.sell_warp_len) -- which is 1.05 x nnz
+// on sAMG.  The walk is unrolled by four, so each thread has four value
+// and index loads and then four gathers of x in flight; the value and
+// index streams are read once (__ldcs, evict-first), x through the
+// read-only path.  One f32 accumulator per row, in diagonal order.
+//
+// Padding is kept exactly.  A padded slot holds val 0 and col PAD_COL
+// (0), and the reference adds its 0 * x[0] to the row, so a NaN or Inf
+// in x[0] poisons every row that carries padding.  A lane whose warp
+// stops before the block's stored length therefore adds 0.f * x[0] once
+// after its walk: the slots it skipped are all padding.  For a finite
+// x[0] every skipped term is +-0, and adding +-0 to an f32 sum that
+// starts at +0 never changes it (the sum can never become -0), so y is
+// bit for bit that of the full walk; for a NaN or Inf x[0] the same rows
+// turn NaN.  A stored explicit 0 at column 0 at the end of a row looks
+// like padding; its product is the same 0 * x[0].  warp_len is clamped
+// to the block's stored length, so a corrupt length cannot read out of
+// bounds.
 //
 // When the slab would not fit the 48 KB of static shared memory (sigma
 // >= n, or sigma incommensurate with b_r: window_blocks returns
 // n_blocks), the wrapper passes a scratch vector and the unpermute goes
-// through device memory instead: K1's per-block walk into the scratch,
-// then a gather pass.
-//
-// Bound on an H100: bytes -- the stored elements (value + index width),
-// x, inv_perm and block_start read once, y written once.
+// through device memory instead: a per-block kernel with the same walk
+// into the scratch, then a gather pass.
 #include "common.cuh"
 
 namespace {
 
+// Threads of a window CTA: one per row lane of 128 / b_r row blocks at
+// a time (at least one block, at most the window's w_b), walking the
+// window's blocks in turns.  One thread per row of the whole window (up
+// to 1024) was about 1.2 x slower on sAMG (kernel_ab.py): sigma-sorted
+// blocks differ in length, and the CTA's warps idled at the slab barrier
+// until the window's longest block was done.
+constexpr int kWindowThreads = 128;
+
+// Lane r of row block b: its first warp_len diagonals (clamped to the
+// block's stored length), then the padding term if the walk stopped
+// short.
 template <typename V, typename I>
-__global__ void sell_window_kernel(const V* __restrict__ val,
-                                   const I* __restrict__ col,
-                                   const int* __restrict__ block_start,
-                                   const int* __restrict__ inv_perm,
-                                   const float* __restrict__ x,
-                                   float* __restrict__ y, int n_blocks,
-                                   int b_r, int w_b) {
+__device__ __forceinline__ float lane_sum(const V* __restrict__ val,
+                                          const I* __restrict__ col,
+                                          const int* __restrict__ block_start,
+                                          const int* __restrict__ warp_len,
+                                          const float* __restrict__ x,
+                                          int b, int b_r, int r) {
+  const int j0 = block_start[b];
+  const int stored = block_start[b + 1] - j0;
+  const int n = min(max(warp_len[b * (b_r >> 5) + (r >> 5)], 0), stored);
+  const size_t st = (size_t)b_r;
+  const V* vp = val + (size_t)j0 * st + r;
+  const I* cp = col + (size_t)j0 * st + r;
+  float acc = 0.f;
+  int j = 0;
+  for (; j + 4 <= n; j += 4, vp += 4 * st, cp += 4 * st) {
+    const V v0 = __ldcs(vp), v1 = __ldcs(vp + st);
+    const V v2 = __ldcs(vp + 2 * st), v3 = __ldcs(vp + 3 * st);
+    const I c0 = __ldcs(cp), c1 = __ldcs(cp + st);
+    const I c2 = __ldcs(cp + 2 * st), c3 = __ldcs(cp + 3 * st);
+    const float x0 = __ldg(x + (int)c0), x1 = __ldg(x + (int)c1);
+    const float x2 = __ldg(x + (int)c2), x3 = __ldg(x + (int)c3);
+    acc += repro::to_f32(v0) * x0;
+    acc += repro::to_f32(v1) * x1;
+    acc += repro::to_f32(v2) * x2;
+    acc += repro::to_f32(v3) * x3;
+  }
+  for (; j < n; ++j, vp += st, cp += st)
+    acc += repro::to_f32(__ldcs(vp)) * __ldg(x + (int)__ldcs(cp));
+  if (n < stored) acc += 0.f * __ldg(x);
+  return acc;
+}
+
+template <typename V, typename I>
+__global__ void __launch_bounds__(1024)
+    sell_window_kernel(const V* __restrict__ val, const I* __restrict__ col,
+                       const int* __restrict__ block_start,
+                       const int* __restrict__ warp_len,
+                       const int* __restrict__ inv_perm,
+                       const float* __restrict__ x, float* __restrict__ y,
+                       int n_blocks, int b_r, int w_b) {
   extern __shared__ float slab[];
   const int blk0 = blockIdx.x * w_b;
   const int nb = min(w_b, n_blocks - blk0);
   const int per = blockDim.x / b_r;
   const int r = threadIdx.x % b_r, q = threadIdx.x / b_r;
-  for (int bb = q; bb < nb; bb += per) {
-    const int b = blk0 + bb;
-    slab[bb * b_r + r] = repro::row_dot(val, col, x, block_start[b],
-                                        block_start[b + 1], b_r, r);
-  }
+  for (int bb = q; bb < nb; bb += per)
+    slab[bb * b_r + r] =
+        lane_sum(val, col, block_start, warp_len, x, blk0 + bb, b_r, r);
   __syncthreads();
   const int row0 = blk0 * b_r;
   const int rows = nb * b_r;
   for (int i = threadIdx.x; i < rows; i += blockDim.x)
     y[row0 + i] = slab[inv_perm[row0 + i] - row0];
+}
+
+// Device-memory path: one CTA per row block, one thread per lane, into
+// the sorted scratch vector.
+template <typename V, typename I>
+__global__ void sell_block_kernel(const V* __restrict__ val,
+                                  const I* __restrict__ col,
+                                  const int* __restrict__ block_start,
+                                  const int* __restrict__ warp_len,
+                                  const float* __restrict__ x,
+                                  float* __restrict__ ys, int b_r) {
+  const int b = blockIdx.x, r = threadIdx.x;
+  ys[(size_t)b * b_r + r] =
+      lane_sum(val, col, block_start, warp_len, x, b, b_r, r);
 }
 
 __global__ void unpermute_kernel(const float* __restrict__ ys,
@@ -60,30 +138,32 @@ __global__ void unpermute_kernel(const float* __restrict__ ys,
 
 REPRO_ERROR_STRING_FN(sell_spmv_error_string)
 
+// warp_len: (n_blocks * b_r / 32,) int32 diagonals to walk per warp.
 // scratch == nullptr: shared-memory slab path (w_b * b_r floats must fit
 // 48 KB); otherwise scratch holds n_blocks * b_r floats and the
 // unpermute runs through device memory.
 extern "C" int sell_spmv(const void* val, int val_kind, const void* col,
                          int idx_kind, const int* block_start,
-                         const int* inv_perm, const float* x, float* y,
-                         float* scratch, int n_blocks, int b_r, int w_b,
-                         void* stream) {
+                         const int* warp_len, const int* inv_perm,
+                         const float* x, float* y, float* scratch,
+                         int n_blocks, int b_r, int w_b, void* stream) {
   if (n_blocks <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (scratch == nullptr) {
     const int n_win = (n_blocks + w_b - 1) / w_b;
-    const int threads = repro::window_threads(b_r, w_b);
+    const int per = kWindowThreads / b_r;     // row blocks walked at once
+    const int threads = (per < 1 ? 1 : per < w_b ? per : w_b) * b_r;
     const size_t slab = (size_t)w_b * b_r * sizeof(float);
     REPRO_DISPATCH(val_kind, idx_kind,
                    sell_window_kernel<V, I><<<n_win, threads, slab, s>>>(
-                       (const V*)val, (const I*)col, block_start, inv_perm,
-                       x, y, n_blocks, b_r, w_b));
+                       (const V*)val, (const I*)col, block_start, warp_len,
+                       inv_perm, x, y, n_blocks, b_r, w_b));
   } else {
     const int n = n_blocks * b_r;
     REPRO_DISPATCH(val_kind, idx_kind,
-                   repro::block_rows_kernel<V, I><<<n_blocks, b_r, 0, s>>>(
-                       (const V*)val, (const I*)col, block_start, x,
-                       scratch, b_r));
+                   sell_block_kernel<V, I><<<n_blocks, b_r, 0, s>>>(
+                       (const V*)val, (const I*)col, block_start, warp_len,
+                       x, scratch, b_r));
     unpermute_kernel<<<(n + 255) / 256, 256, 0, s>>>(scratch, inv_perm, y,
                                                       n);
   }

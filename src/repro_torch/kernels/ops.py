@@ -7,7 +7,9 @@ Port of ``repro/kernels/ops.py``:
   tensors, with the kernel metadata computed once: the per-block (per
   strip) offsets ``block_start`` / ``strip_start`` that the kernels loop
   over, the block (strip) id per stored row that the plain versions
-  segment-sum by, and the largest stored column (checked against x).
+  segment-sum by, the largest stored column (checked against x), and
+  for K2 / K6 how far the stored slots hold more than padding
+  (``sell_warp_len`` / ``cmrs_strip_nnz``, derived on the device).
 * **Products** -- ``ell_matvec`` (K4), ``pjds_matvec`` (K1),
   ``sell_matvec`` (K2), ``cmrs_matvec`` (K6) and ``pjds_matmat`` (K5)
   launch their kernel for a CUDA tensor and take the plain version for a
@@ -57,6 +59,12 @@ __all__ = [
     "to_device_sell",
     "to_device_cmrs",
     "to_device_csr",
+    "sell_container",
+    "cmrs_container",
+    "sell_warp_len",
+    "cmrs_strip_nnz",
+    "stored_warp_len",
+    "stored_strip_nnz",
     "ell_matvec",
     "pjds_matvec",
     "pjds_matmat",
@@ -113,13 +121,16 @@ class PJDSDevice:
 class SELLDevice:
     """Device-resident SELL-C-sigma operand: the pJDS layout plus the
     window-local inverse permutation ``inv_perm`` (n_blocks * b_r,)
-    int32 that K2/K3 apply inside each window."""
+    int32 that K2/K3 apply inside each window, and ``warp_len``
+    (n_blocks * ceil(b_r / 32),) int32, the diagonals K2 walks for each
+    32 lanes of a block (:func:`sell_warp_len`)."""
 
     val: torch.Tensor
     col_idx: torch.Tensor
     row_block: torch.Tensor
     block_start: torch.Tensor
     inv_perm: torch.Tensor
+    warp_len: torch.Tensor
     n_blocks: int
     b_r: int
     chunk_l: int
@@ -137,14 +148,16 @@ class CMRSDevice:
     ``b_r`` original-order rows, nonzeros packed densely with an int8
     ``row_in_strip`` routing stream, all (total_su, b_r);
     ``strip_start`` (n_strips + 1,) int32 bounds each strip's tile rows
-    for K6; ``strip_map`` (total_su,) int32 is the strip of each tile row
-    for the plain version."""
+    for K6; ``strip_nnz`` (n_strips,) int32 is the slots K6 walks in
+    each strip (:func:`cmrs_strip_nnz`); ``strip_map`` (total_su,) int32
+    is the strip of each tile row for the plain version."""
 
     val: torch.Tensor
     col_idx: torch.Tensor
     row_in_strip: torch.Tensor
     strip_map: torch.Tensor
     strip_start: torch.Tensor
+    strip_nnz: torch.Tensor
     n_strips: int
     b_r: int
     max_col: int
@@ -194,6 +207,68 @@ def check_row_in_strip(ris: np.ndarray, b_r: int) -> None:
         raise ValueError("row_in_strip values must lie in [0, b_r)")
 
 
+# K2 and K6 walk only the stored slots that hold more than padding.  How
+# far that is comes from the stored arrays alone, by one reduction on
+# the device, so a container carried across from the reference gets the
+# same lengths as one built here.  A slot is padding when it is exactly
+# what the builders pad with: val == 0 and col == PAD_COL (and, for
+# CMRS, row id 0).  A stored explicit 0 at column 0 at the end of a row
+# looks the same and is skipped too; that is harmless, since its
+# product is the same 0 * x[0] that the kernels add once for skipped
+# padding.
+
+
+def sell_warp_len(val: torch.Tensor, col_idx: torch.Tensor,
+                  row_block: torch.Tensor, block_start: torch.Tensor,
+                  n_blocks: int) -> torch.Tensor:
+    """K2's walk lengths, (n_blocks * ceil(b_r / 32),) int32: for each
+    32 lanes of a row block, the diagonals up to and including the last
+    one in which any of them holds a non-padding slot (0 if none)."""
+    total, b_r = val.shape
+    w = -(-b_r // 32)
+    real = (val != 0) | (col_idx != F.PAD_COL)
+    if w * 32 != b_r:
+        real = torch.cat([real, real.new_zeros(total, w * 32 - b_r)], 1)
+    real = real.view(total, w, 32).any(dim=2)
+    rb = row_block.long()
+    # 1-based position of each stored diagonal inside its block
+    j = (torch.arange(1, total + 1, dtype=torch.int32, device=val.device)
+         - block_start[rb])
+    out = torch.zeros((n_blocks, w), dtype=torch.int32, device=val.device)
+    out.scatter_reduce_(0, rb[:, None].expand(total, w), j[:, None] * real,
+                        "amax")
+    return out.reshape(-1)
+
+
+def cmrs_strip_nnz(val: torch.Tensor, col_idx: torch.Tensor,
+                   row_in_strip: torch.Tensor, strip_map: torch.Tensor,
+                   strip_start: torch.Tensor, n_strips: int) -> torch.Tensor:
+    """K6's walk lengths, (n_strips,) int32: for each strip, the slots up
+    to and including its last non-padding one, counted row-major from
+    the strip's first slot (0 for an empty strip)."""
+    total, b_r = val.shape
+    real = (val != 0) | (col_idx != F.PAD_COL) | (row_in_strip != 0)
+    sm = strip_map.long()
+    tile = (torch.arange(total, dtype=torch.int32, device=val.device)
+            - strip_start[sm])
+    k = tile[:, None] * b_r + torch.arange(1, b_r + 1, dtype=torch.int32,
+                                           device=val.device)
+    last = (k * real).amax(dim=1)
+    out = torch.zeros(n_strips, dtype=torch.int32, device=val.device)
+    return out.scatter_reduce_(0, sm, last, "amax")
+
+
+def stored_warp_len(block_start: torch.Tensor, b_r: int) -> torch.Tensor:
+    """K2 lengths that walk every stored diagonal (a timing baseline)."""
+    return (block_start[1:] - block_start[:-1]).repeat_interleave(
+        -(-b_r // 32)).contiguous()
+
+
+def stored_strip_nnz(strip_start: torch.Tensor, b_r: int) -> torch.Tensor:
+    """K6 lengths that walk every stored slot (a timing baseline)."""
+    return ((strip_start[1:] - strip_start[:-1]) * b_r).contiguous()
+
+
 def to_device_ell(e: F.ELLMatrix, dtype=None, device=None) -> ELLDevice:
     """The reference's ``to_device_ell`` minus its TPU tile plumbing
     (``tile_chunks`` / ``chunk_l`` / ``tile_r``): K4 walks each row to
@@ -209,13 +284,13 @@ def to_device_ell(e: F.ELLMatrix, dtype=None, device=None) -> ELLDevice:
 def to_device_cmrs(c: F.CMRSMatrix, dtype=None,
                    device=None) -> CMRSDevice:
     """The reference's ``to_device_cmrs`` minus its TPU tile plumbing
-    (``chunk_l``): K6 walks each strip one tile row at a time, whatever
+    (``chunk_l``): K6 walks each strip's slots as one flat run, whatever
     the strip's length."""
     check_row_in_strip(c.row_in_strip, c.b_r)
     dev = resolve_device(device)
     strip_map = np.repeat(np.arange(c.n_strips, dtype=np.int32),
                           c.strip_len)
-    return CMRSDevice(
+    return cmrs_container(
         val=host_tensor(c.val, dev, value_dtype(dtype)),
         col_idx=host_tensor(c.col_idx, dev),
         row_in_strip=host_tensor(c.row_in_strip, dev),
@@ -223,6 +298,23 @@ def to_device_cmrs(c: F.CMRSMatrix, dtype=None,
         strip_start=host_tensor(c.strip_start, dev),
         n_strips=c.n_strips, b_r=c.b_r,
         max_col=int(c.col_idx.max(initial=0)))
+
+
+def cmrs_container(**fields) -> CMRSDevice:
+    """A ``CMRSDevice`` from its stored tensors, with ``strip_nnz``
+    derived from them (:func:`cmrs_strip_nnz`)."""
+    nnz = cmrs_strip_nnz(fields["val"], fields["col_idx"],
+                         fields["row_in_strip"], fields["strip_map"],
+                         fields["strip_start"], fields["n_strips"])
+    return CMRSDevice(strip_nnz=nnz, **fields)
+
+
+def sell_container(**fields) -> SELLDevice:
+    """A ``SELLDevice`` from its stored tensors, with ``warp_len``
+    derived from them (:func:`sell_warp_len`)."""
+    wl = sell_warp_len(fields["val"], fields["col_idx"], fields["row_block"],
+                       fields["block_start"], fields["n_blocks"])
+    return SELLDevice(warp_len=wl, **fields)
 
 
 def to_device_pjds(p: F.PJDSMatrix, chunk_l: int = 8, dtype=None,
@@ -242,8 +334,9 @@ def to_device_sell(s: F.SELLMatrix, chunk_l: int = 8, dtype=None,
     if np.any(p.inv_perm // span != rows // span):
         raise ValueError("inv_perm moves rows across sigma windows")
     dev = resolve_device(device)
-    return SELLDevice(inv_perm=host_tensor(p.inv_perm, dev), sigma=s.sigma,
-                      **_blocked_parts(p, chunk_l, dtype, dev))
+    return sell_container(inv_perm=host_tensor(p.inv_perm, dev),
+                          sigma=s.sigma,
+                          **_blocked_parts(p, chunk_l, dtype, dev))
 
 
 def to_device_csr(m: F.CSRMatrix, dtype=None, device=None) -> CSRDevice:
@@ -314,7 +407,7 @@ def cmrs_matvec(a: CMRSDevice, x: torch.Tensor,
     (n, k).  K6 for a CUDA tensor, the plain version for a CPU tensor."""
     if resolve_backend(x, backend) == "kernel":
         return _by_column(lambda v: cmrs_matvec_kernel_call(
-            a.val, a.col_idx, a.row_in_strip, a.strip_start, v,
+            a.val, a.col_idx, a.row_in_strip, a.strip_start, a.strip_nnz, v,
             n_strips=a.n_strips, max_col=a.max_col), x, a.n_rows_pad)
     return R.cmrs_matvec_ref(a.val, a.col_idx, a.row_in_strip, a.strip_map,
                              x, a.n_strips)
@@ -327,8 +420,9 @@ def sell_matvec(a: SELLDevice, x: torch.Tensor, backend: str = "auto",
     del x_tiles
     if resolve_backend(x, backend) == "kernel":
         return sell_matvec_kernel_call(a.val, a.col_idx, a.block_start,
-                                       a.inv_perm, x, n_blocks=a.n_blocks,
-                                       sigma=a.sigma, max_col=a.max_col)
+                                       a.inv_perm, a.warp_len, x,
+                                       n_blocks=a.n_blocks, sigma=a.sigma,
+                                       max_col=a.max_col)
     return R.sell_matvec_ref(a.val, a.col_idx, a.row_block, a.inv_perm, x,
                              a.n_blocks)
 

@@ -16,6 +16,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import formats as F
 from repro.core import matrices as M
@@ -169,6 +170,56 @@ def test_footprints_and_data_reduction_match(name):
             F.data_reduction_vs_ellpack(m, b_r)
 
 
+@pytest.mark.parametrize("name", sorted(_MATRICES))
+@pytest.mark.parametrize("b_r,diag_align", [(32, 1), (32, 8), (64, 16),
+                                            (128, 16)])
+@pytest.mark.parametrize("sigma_mult", [1, 8, None])     # None: sigma >= n
+def test_derived_lengths_match_host_lengths(name, b_r, diag_align,
+                                            sigma_mult):
+    # K2's per-warp and K6's per-strip walk lengths, derived on the
+    # device from the stored arrays alone, are the host's row lengths
+    # (no test matrix stores an explicit 0 at column 0)
+    tm = _as_port(_MATRICES[name]())
+    sigma = 1 << 20 if sigma_mult is None else sigma_mult * b_r
+    s = TF.csr_to_sell(tm, c=b_r, sigma=sigma, diag_align=diag_align,
+                       permuted_cols=False)
+    d = TO.to_device_sell(s, chunk_l=diag_align, device="cpu")
+    assert d.warp_len.dtype == torch.int32
+    np.testing.assert_array_equal(d.warp_len.numpy(),
+                                  s.pjds.rowlen.reshape(-1, 32).max(axis=1))
+    assert int(d.warp_len.max()) <= int(s.pjds.block_len.max())
+    c = TF.csr_to_cmrs(tm, b_r=b_r, diag_align=diag_align)
+    dc = TO.to_device_cmrs(c, device="cpu")
+    assert dc.strip_nnz.dtype == torch.int32
+    np.testing.assert_array_equal(dc.strip_nnz.numpy(), c.strip_nnz)
+
+
+@pytest.mark.parametrize("fmt", ["sell", "cmrs"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_derived_lengths_of_carried_containers_match(fmt, bf16):
+    # a reference container carried across by convert.sparse_device gets
+    # the same lengths as the port's own as_device build
+    import jax.numpy as jnp
+    from repro_torch import convert
+    m = M.samg(scale=2e-4, seed=3)
+    sd = JO.as_device(m, fmt, b_r=32, chunk_l=8,
+                      dtype=jnp.bfloat16 if bf16 else None)
+    inner = sd.dev
+    arrays = {f: np.asarray(getattr(inner, f))
+              for f in ("val", "col_idx", "row_block", "inv_perm",
+                        "row_in_strip", "strip_map") if hasattr(inner, f)}
+    statics = {f: getattr(inner, f) for f in ("n_blocks", "b_r", "chunk_l",
+                                              "sigma", "n_strips")
+               if hasattr(inner, f)}
+    port = convert.sparse_device(fmt, sd.shape, arrays, statics,
+                                 x_tiles=sd.x_tiles, device="cpu")
+    own = TO.as_device(_as_port(m), fmt, b_r=32, chunk_l=8,
+                       dtype=torch.bfloat16 if bf16 else None, device="cpu")
+    field = "warp_len" if fmt == "sell" else "strip_nnz"
+    assert torch.equal(getattr(own.dev, field), getattr(port.dev, field))
+    assert int(getattr(own.dev, field).sum()) > 0
+
+
 def test_padding_audit_catches_a_corrupt_slot():
     q = TF.csr_to_pjds(_as_port(M.samg(scale=1e-4)), b_r=32)
     TF.assert_padding_invariant(q)
@@ -311,7 +362,8 @@ def test_validate_csr_matches_reference():
 # ---------------------------------------------------------------- isolation
 def _port_files():
     pkg = ROOT / "src" / "repro_torch"
-    return sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "kernel_ab.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),

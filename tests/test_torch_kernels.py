@@ -401,8 +401,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     c = TO.as_device(_TM, "cmrs", b_r=B_R, device="cpu").dev
     with pytest.raises(ValueError, match="CUDA"):
         cmrs_matvec_kernel_call(c.val, c.col_idx, c.row_in_strip,
-                                c.strip_start, x, n_strips=c.n_strips,
-                                max_col=c.max_col)
+                                c.strip_start, c.strip_nnz, x,
+                                n_strips=c.n_strips, max_col=c.max_col)
+    s = TO.as_device(_TM, "sell", b_r=B_R, device="cpu").dev
+    with pytest.raises(ValueError, match="CUDA"):
+        sell_matvec_kernel_call(s.val, s.col_idx, s.block_start, s.inv_perm,
+                                s.warp_len, x, n_blocks=s.n_blocks,
+                                sigma=s.sigma, max_col=s.max_col)
 
 
 def test_cpu_wrappers_of_k4_k5_k6_take_the_plain_version():
@@ -467,6 +472,92 @@ def test_to_device_rejects_operands_the_kernels_would_overrun():
     c.row_in_strip[0, 0] = B_R
     with pytest.raises(ValueError, match="row_in_strip"):
         TO.to_device_cmrs(c, device="cpu")
+
+
+def _trailing_zero_matrix():
+    """64 x 64, b_r 32: row 3 (the longest of its warp) ends in a stored
+    explicit 0 at column 0, as does row 32, the only non-empty row of
+    strip 1."""
+    rows = {3: ([5, 9, 0], [1.0, 2.0, 0.0]), 7: ([1, 2], [0.5, -1.0]),
+            32: ([4, 0], [1.5, 0.0])}
+    indptr, indices, data = [0], [], []
+    for i in range(64):
+        c, v = rows.get(i, ([i], [1.0 + i]) if i < 32 else ([], []))
+        indices += c
+        data += v
+        indptr.append(len(indices))
+    return TF.CSRMatrix(np.array(indptr, np.int64),
+                        np.array(indices, np.int32),
+                        np.array(data, np.float64), (64, 64))
+
+
+def test_trailing_explicit_zero_at_column_0_shortens_the_walk():
+    # Such a slot looks like padding, so the derived length stops before
+    # it; its product is the 0 * x[0] the kernels add for skipped
+    # padding, and the plain versions (which walk every slot) give the
+    # reference's y.
+    jnp, F, jops, _ = _jax()
+    m = _trailing_zero_matrix()
+    x = np.random.default_rng(7).standard_normal(64).astype(np.float32)
+    m_j = F.CSRMatrix(m.indptr, m.indices, m.data, m.shape)
+    for fmt in ("sell", "cmrs"):
+        sd = TO.as_device(m, fmt, b_r=32, diag_align=8, chunk_l=8,
+                          device="cpu")
+        if fmt == "sell":
+            host = TF.csr_to_sell(m, c=32, sigma=sd.dev.sigma, diag_align=8,
+                                  permuted_cols=False)
+            full = host.pjds.rowlen.reshape(-1, 32).max(axis=1)
+            got = sd.dev.warp_len.numpy()
+        else:
+            host = TF.csr_to_cmrs(m, b_r=32, diag_align=8)
+            full, got = host.strip_nnz, sd.dev.strip_nnz.numpy()
+        # exactly one length is one shorter: the warp / strip whose last
+        # real slot is that explicit zero (for CMRS only strip 1, whose
+        # zero sits in its row 0; strip 0's sits in row 3)
+        assert np.count_nonzero(got != full) == 1
+        assert np.all(full - got == (full != got))
+        y_ref = np.asarray(jops.as_device(m_j, fmt, b_r=32, diag_align=8,
+                                          chunk_l=8).matvec(
+            jnp.asarray(x), backend="ref"))
+        y_t = sd.matvec(torch.from_numpy(x)).numpy()
+        _close(y_t, y_ref)
+        _close(y_t, _dense(m) @ x.astype(np.float64), tol=1e-6)
+
+
+def _dense(m):
+    a = np.zeros(m.shape)
+    rows = np.repeat(np.arange(m.n_rows), np.diff(m.indptr))
+    np.add.at(a, (rows, m.indices), m.data)
+    return a
+
+
+def _strips_matrix():
+    """384 x 384 in strips of 128: strip 0 empty, strip 1 exactly 128
+    non-zeros (two in each of its first 64 rows), strip 2 ordinary."""
+    rng = np.random.default_rng(11)
+    a = np.zeros((384, 384))
+    for i in range(128, 192):
+        a[i, rng.choice(384, 2, replace=False)] = rng.standard_normal(2)
+    for i in range(256, 384):
+        a[i, rng.choice(384, 1 + i % 5, replace=False)] = rng.standard_normal(
+            1 + i % 5)
+    return a
+
+
+@pytest.mark.parametrize("diag_align", [1, 16])
+def test_empty_and_exact_128_strips_derive_0_and_128(diag_align):
+    a = _strips_matrix()
+    m = TF.csr_from_dense(a)
+    c = TF.csr_to_cmrs(m, b_r=128, diag_align=diag_align)
+    d = TO.to_device_cmrs(c, device="cpu")
+    assert d.strip_nnz.tolist()[:2] == [0, 128]
+    np.testing.assert_array_equal(d.strip_nnz.numpy(), c.strip_nnz)
+    assert d.strip_nnz.dtype == torch.int32
+    stored = TO.stored_strip_nnz(d.strip_start, 128)
+    np.testing.assert_array_equal(stored.numpy(), c.strip_len * 128)
+    x = np.random.default_rng(12).standard_normal(384).astype(np.float32)
+    _close(TO.cmrs_matvec(d, torch.from_numpy(x)).numpy(),
+           a @ x.astype(np.float64), tol=1e-6)
 
 
 # ------------------------------------------------------------- on the card
@@ -609,3 +700,109 @@ def test_k5_row_map_matches_plain_unpermute_on_card(fmt):
         assert y.shape == (m.n_rows, k)
         _close(y.cpu(), y_r.cpu())
         assert torch.equal(y, sd.matmat(xk))
+
+
+def _k2_k6_runs(m, tdt=None, idt="auto", b_r=128, diag_align=8,
+                chunk_l=16):
+    """(label, kernel(lengths, x), derived lengths, full lengths,
+    plain(x)) for K6 and for K2 on both unpermute paths."""
+    kw = dict(dtype=tdt, index_dtype=idt, b_r=b_r, diag_align=diag_align,
+              chunk_l=chunk_l)
+    c = TO.as_device(m, "cmrs", **kw).dev
+    runs = [("cmrs", c,
+             lambda n, v, c=c: cmrs_matvec_kernel_call(
+                 c.val, c.col_idx, c.row_in_strip, c.strip_start, n, v,
+                 n_strips=c.n_strips, max_col=c.max_col),
+             c.strip_nnz, TO.stored_strip_nnz(c.strip_start, c.b_r),
+             lambda v, c=c: TR.cmrs_matvec_ref(
+                 c.val, c.col_idx, c.row_in_strip, c.strip_map, v,
+                 c.n_strips))]
+    for sigma in (None, 1 << 16):        # slab and device-memory paths
+        s = TO.as_device(m, "sell", sigma=sigma, **kw).dev
+        runs.append((
+            f"sell sigma={s.sigma}", s,
+            lambda n, v, s=s: sell_matvec_kernel_call(
+                s.val, s.col_idx, s.block_start, s.inv_perm, n, v,
+                n_blocks=s.n_blocks, sigma=s.sigma, max_col=s.max_col),
+            s.warp_len, TO.stored_warp_len(s.block_start, s.b_r),
+            lambda v, s=s: TR.sell_matvec_ref(
+                s.val, s.col_idx, s.row_block, s.inv_perm, v, s.n_blocks)))
+    return runs
+
+
+def _check_k2_k6(runs, x):
+    for label, d, kern, derived, full, plain in runs:
+        y = kern(derived, x)
+        _close(y.cpu(), plain(x).cpu())
+        assert torch.equal(y, kern(derived, x)), label      # bit-repeatable
+        assert torch.equal(y, kern(full, x)), label         # same bits
+        for bad in (float("nan"), float("inf")):
+            xb = x.clone()
+            xb[0] = bad
+            want = torch.isnan(plain(xb))
+            assert bool(want.any()), label
+            for n in (derived, full):
+                assert torch.equal(torch.isnan(kern(n, xb)), want), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt,idt", [(None, "int32"),
+                                     (torch.bfloat16, "int16"),
+                                     (None, "int16")])
+@pytest.mark.parametrize("scale", [0.004, 0.006, 0.009])
+def test_k2_k6_length_aware_walks_on_card(scale, tdt, idt):
+    # 13.6k-30.6k rows: int16 indices fit, and sigma > n outgrows the
+    # 48 KB slab, so K2's device-memory path runs too
+    _need_cuda()
+    m = TM.samg(scale=scale)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        m.n_rows).astype(np.float32)).cuda()
+    runs = _k2_k6_runs(m, tdt, idt)
+    for _, d, *_ in runs:
+        assert str(d.col_idx.dtype) == f"torch.{idt}"
+    assert [slab_fits(window_blocks(d.sigma, d.b_r, d.n_blocks), d.b_r)
+            for _, d, *_ in runs[1:]] == [True, False]
+    _check_k2_k6(runs, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,b_r,diag_align", [("strips", 128, 1),
+                                                  ("strips", 128, 16),
+                                                  ("trailing_zero", 32, 8)])
+def test_k2_k6_edge_matrices_on_card(which, b_r, diag_align):
+    # an empty strip (128 empty rows), a strip of exactly 128 non-zeros
+    # (one whole tile row at diag_align 1), and rows ending in a stored
+    # explicit 0 at column 0
+    _need_cuda()
+    if which == "strips":
+        a = _strips_matrix()
+        m = TF.csr_from_dense(a)
+    else:
+        m = _trailing_zero_matrix()
+        a = _dense(m)
+    runs = _k2_k6_runs(m, b_r=b_r, diag_align=diag_align,
+                       chunk_l=diag_align)
+    if which == "strips":
+        assert runs[0][3].tolist()[:2] == [0, 128]
+    x = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        m.n_rows).astype(np.float32)).cuda()
+    _check_k2_k6(runs, x)
+    y64 = a @ x.cpu().double().numpy()
+    for _, _, kern, derived, *_ in runs:
+        _close(kern(derived, x).cpu()[: m.n_rows], y64)
+
+
+@pytest.mark.cuda
+def test_k2_k6_wrappers_validate_lengths_on_card():
+    _need_cuda()
+    m = TM.samg(scale=1e-3)
+    x = torch.zeros(m.n_rows, device="cuda")
+    for _, d, kern, derived, *_ in _k2_k6_runs(m):
+        with pytest.raises(ValueError):
+            kern(derived[:-1], x)                           # shape
+        with pytest.raises(ValueError):
+            kern(derived.cpu(), x)                          # device
+        with pytest.raises(ValueError):
+            kern(torch.stack([derived, derived], 1)[:, 0], x)   # strides
+        with pytest.raises(TypeError):
+            kern(derived.float(), x)                        # dtype
