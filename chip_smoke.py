@@ -10,10 +10,12 @@ pipeline on the sAMG analogue at its published 3.4 M rows --
 ``repro_torch.solve`` with CG and block CG -- and the paper's
 ELLPACK-R-vs-pJDS comparison, and holds every kernel against its plain
 PyTorch version and every product against a float64 scipy reference.
-K2 and K6 walk only the slots their derived lengths cover; the script
-checks that they repeat bit for bit and that walking every stored slot
-gives the same bits, and times both walks (phase ``time:padding_skip``).
-Each kernel's bound counts the nnz slots the function needs.
+K1, K2 and K6 walk only the slots their derived lengths cover; the
+script checks that they repeat bit for bit and that walking every stored
+slot gives the same bits, and times both walks (phase
+``time:padding_skip``).  Each kernel's bound counts the nnz slots the
+function needs; K4's record adds the floor its unsorted layout sets
+(``layout_bound_ms``) and its time on the Poisson operator.
 Each main-path phase sets every launch count to 0 before it and reads
 the counts after it.  Each phase prints one JSON line; any failed check
 raises, and the script then exits non-zero without its final line.
@@ -120,6 +122,12 @@ def main() -> int:
         err = float((y - y_ref).abs().max())
         return err, err / scale
 
+    def k1_with(d, lengths, v):
+        """K1 on pJDS operand ``d`` walking ``lengths`` (per warp)."""
+        return pjds_matvec_kernel_call(d.val, d.col_idx, d.block_start,
+                                       lengths, v, n_blocks=d.n_blocks,
+                                       max_col=d.max_col)
+
     def k2_with(d, lengths, v):
         """K2 on SELL operand ``d`` walking ``lengths`` (per warp)."""
         return sell_matvec_kernel_call(d.val, d.col_idx, d.block_start,
@@ -135,10 +143,11 @@ def main() -> int:
                                        max_col=d.max_col)
 
     def same_bits(y, d, v, what):
-        """K2 / K6 on ``d`` repeat ``y`` bit for bit, and walking every
-        stored slot changes no bit of it."""
-        if what.endswith("sell_spmv"):
-            kern, derived = k2_with, d.warp_len
+        """K1 / K2 / K6 on ``d`` repeat ``y`` bit for bit, and walking
+        every stored slot changes no bit of it."""
+        if what.endswith(("pjds_spmv", "sell_spmv")):
+            kern = k1_with if what.endswith("pjds_spmv") else k2_with
+            derived = d.warp_len
             full = TO.stored_warp_len(d.block_start, d.b_r)
         else:
             kern, derived = k6_with, d.strip_nnz
@@ -148,23 +157,31 @@ def main() -> int:
         require(torch.equal(y, kern(d, full, v)),
                 f"{what}: full-length walk differs from the derived one")
 
-    def time_ms(fn, reps=30, warm=5, burst=BURST):
+    def time_ms(fn, reps=30, warm=5, burst=BURST, graph=False):
         """(median, 25th, 75th percentile) ms per call of ``fn`` by CUDA
         events, after ``warm`` calls.  Each of ``reps`` samples times
         ``burst`` calls back to back, so the card stays busy and the
         host's launch overhead hides behind the call before, as in a
         solver loop; ``burst=1`` times one call from an idle card, the
-        host's launch overhead included."""
+        host's launch overhead included.  ``graph`` replays the burst as
+        one CUDA graph: device time for a kernel shorter than the host's
+        launch overhead."""
         for _ in range(warm):
             fn()
         torch.cuda.synchronize()
+        run = lambda: [fn() for _ in range(burst)]
+        if graph:
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                run()
+            run = g.replay
+            run()
         out = []
         for _ in range(reps):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
-            for _ in range(burst):
-                fn()
+            run()
             e1.record()
             e1.synchronize()
             out.append(e0.elapsed_time(e1) / burst)
@@ -222,16 +239,14 @@ def main() -> int:
         plain_free(plain_calls, f"matvec:{name}")
         d = op.dev.dev
         if name == "pjds_spmv":
-            y_k = pjds_matvec_kernel_call(d.val, d.col_idx, d.block_start,
-                                          x, n_blocks=d.n_blocks,
-                                          max_col=d.max_col)
+            y_k = k1_with(d, d.warp_len, x)
             y_r = R.pjds_matvec_ref(d.val, d.col_idx, d.row_block, x,
                                     d.n_blocks)
         else:
             y_k = k2_with(d, d.warp_len, x)
             y_r = R.sell_matvec_ref(d.val, d.col_idx, d.row_block,
                                     d.inv_perm, x, d.n_blocks)
-            same_bits(y_k, d, x, name)
+        same_bits(y_k, d, x, name)
         e_abs, e_rel = rel_err(y_k, y_r)
         s_abs, s_rel = rel_err(y, y64_t)
         require(e_rel <= Y_TOL, f"{name} vs plain: {e_rel}")
@@ -471,23 +486,20 @@ def main() -> int:
         dpp = TO.to_device_pjds(p_h, chunk_l=chunk_l, device=dev)
         y4 = ell_matvec_kernel_call(de.val, de.col_idx, de.rowlen, x,
                                     max_col=de.max_col)
-        y1 = pjds_matvec_kernel_call(dpp.val, dpp.col_idx, dpp.block_start,
-                                     x, n_blocks=dpp.n_blocks,
-                                     max_col=dpp.max_col)
+        y1 = k1_with(dpp, dpp.warp_len, x)
         inv = torch.from_numpy(p_h.inv_perm[:n].astype(np.int64)).to(dev)
         require(rel_err(y1[inv], y4[:n])[1] <= Y_TOL, "K1 and K4 disagree")
         t4 = time_ms(lambda: ell_matvec_kernel_call(
             de.val, de.col_idx, de.rowlen, x, max_col=de.max_col))
-        t1 = time_ms(lambda: pjds_matvec_kernel_call(
-            dpp.val, dpp.col_idx, dpp.block_start, x, n_blocks=dpp.n_blocks,
-            max_col=dpp.max_col))
+        t1 = time_ms(lambda: k1_with(dpp, dpp.warp_len, x))
         ell_b, pj_b = TF.format_nbytes(e_h), TF.format_nbytes(p_h)
         ell_e, pj_e = TF.storage_elements(e_h), TF.storage_elements(p_h)
         emit("paper:samg", build=label, index_dtype=str(de.col_idx.dtype),
              ell_nbytes=ell_b, pjds_nbytes=pj_b, ell_elements=ell_e,
              pjds_elements=pj_e, data_reduction_elements=1.0 - pj_e / ell_e,
              data_reduction_bytes=1.0 - pj_b / ell_b, k4_ms=list(t4),
-             k1_ms=list(t1), k1_speed_share_of_k4=t4[0] / t1[0])
+             k1_ms=list(t1), k1_speed_share_of_k4=t4[0] / t1[0],
+             k1_slots_read=32 * int(dpp.warp_len.long().sum()))
         del de, dpp, e_h, p_h, y1, y4
 
     # ---- 8. small builds: bf16 + int16, and the device-memory path ------
@@ -505,11 +517,10 @@ def main() -> int:
         opp = repro_torch.operator(ms, format="pjds", **kw)
         ops_ = repro_torch.operator(ms, format="sell", sigma=sigma, **kw)
         p, s = opp.dev.dev, ops_.dev.dev
-        e1 = rel_err(pjds_matvec_kernel_call(
-            p.val, p.col_idx, p.block_start, xs, n_blocks=p.n_blocks,
-            max_col=p.max_col),
-            R.pjds_matvec_ref(p.val, p.col_idx, p.row_block, xs,
-                              p.n_blocks))[1]
+        y1 = k1_with(p, p.warp_len, xs)
+        e1 = rel_err(y1, R.pjds_matvec_ref(p.val, p.col_idx, p.row_block,
+                                           xs, p.n_blocks))[1]
+        same_bits(y1, p, xs, f"small:{label} pjds_spmv")
         y2 = k2_with(s, s.warp_len, xs)
         e2 = rel_err(y2, R.sell_matvec_ref(s.val, s.col_idx, s.row_block,
                                            s.inv_perm, xs, s.n_blocks))[1]
@@ -569,8 +580,8 @@ def main() -> int:
     # the layout stores.  The stored-slot bytes are printed beside as
     # ``stored_bytes``; ``slots_read`` is what K2's and K6's length-aware
     # walks touch (K2: 32 lanes x warp_len per warp; K6: strip_nnz rounded
-    # up to the 4 slots a lane loads at once).  K5 is timed as the
-    # operator launches it, with its row map.
+    # up to the 4 slots a lane loads at once; K1 as K2).  K5 is timed as
+    # the operator launches it, with its row map.
     vb = d_s.val.element_size()
     ib = d_s.col_idx.element_size()
     slot = vb + ib
@@ -580,7 +591,8 @@ def main() -> int:
     n_part = -(-n_blocks // w_b)
     c_slot = d_c.val.element_size() + d_c.col_idx.element_size() + 1
     e_pad = d_e.n_rows_pad
-    vec = {"pjds_spmv": n * 4 + n_pad * 4 + (n_blocks + 1) * 4,
+    vec = {"pjds_spmv": n * 4 + d_p.n_rows_pad * 4 + (d_p.n_blocks + 1) * 4
+           + d_p.warp_len.numel() * 4,
            "sell_spmv": n * 4 + 2 * n_pad * 4 + (n_blocks + 1) * 4
            + d_s.warp_len.numel() * 4,
            "fused_iter": n * 4 + 4 * n_pad * 4 + (n_blocks + 1) * 4
@@ -598,16 +610,13 @@ def main() -> int:
                         + vec[nm]) for nm in vec}
     stored_bytes = {nm: float(stored_slots[nm] + vec[nm]) for nm in vec}
     slots_read = {
+        "pjds_spmv": 32 * int(d_p.warp_len.long().sum()),
         "sell_spmv": 32 * int(d_s.warp_len.long().sum()),
         "cmrs_spmv": 4 * int(((d_c.strip_nnz.long() + 3) // 4).sum())}
     flops = {"pjds_spmv": 2.0 * m.nnz, "sell_spmv": 2.0 * m.nnz,
              "fused_iter": 2.0 * m.nnz + 2.0 * 5 * n_pad,
              "ellr_spmv": 2.0 * m.nnz, "pjds_spmm": 2.0 * m.nnz * k_rhs,
              "cmrs_spmv": 2.0 * m.nnz}
-    a_csr = torch.sparse_csr_tensor(
-        torch.from_numpy(m.indptr.astype(np.int64)),
-        torch.from_numpy(m.indices.astype(np.int64)),
-        torch.from_numpy(m.data.astype(np.float32)), size=m.shape).to(dev)
 
     def library_ms(fn, what):
         try:      # a yardstick only: the port never calls cuSPARSE
@@ -616,6 +625,26 @@ def main() -> int:
             emit("library", call=what, error=f"{type(e).__name__}: {e}")
             return None
 
+    # K4's layout floor: rows stay unsorted, so a 32-byte sector of val
+    # or col spans 32 / width rows and is fetched while any of them runs.
+    # Counted from the device arrays: the sectors that hold at least one
+    # slot below rowlen, plus rowlen, x and y once.
+    def ell_layout_bytes(e, n_x):
+        j = torch.arange(e.val.shape[0], device=dev)[:, None]
+        flat = (j < e.rowlen.long()[None, :]).flatten().nonzero().squeeze(1)
+        sectors = sum(
+            int(torch.unique_consecutive(flat * t.element_size() // 32)
+                .numel()) for t in (e.val, e.col_idx))
+        return float(32 * sectors + n_x * 4 + 2 * e.n_rows_pad * 4)
+
+    def csr_of(mat):
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(mat.indptr.astype(np.int64)),
+            torch.from_numpy(mat.indices.astype(np.int64)),
+            torch.from_numpy(mat.data.astype(np.float32)),
+            size=mat.shape).to(dev)
+
+    a_csr = csr_of(m)
     lib_mv = library_ms(lambda: torch.mv(a_csr, x), "torch.mv(csr, x)")
     lib_mm = library_ms(lambda: a_csr @ X, "csr @ X")
     library = {"pjds_spmv": lib_mv, "sell_spmv": lib_mv, "fused_iter": lib_mv,
@@ -623,10 +652,7 @@ def main() -> int:
 
     runs = {
         "pjds_spmv": (
-            lambda: pjds_matvec_kernel_call(d_p.val, d_p.col_idx,
-                                            d_p.block_start, x,
-                                            n_blocks=d_p.n_blocks,
-                                            max_col=d_p.max_col),
+            lambda: k1_with(d_p, d_p.warp_len, x),
             lambda: R.pjds_matvec_ref(d_p.val, d_p.col_idx, d_p.row_block,
                                       x, d_p.n_blocks)),
         "sell_spmv": (
@@ -663,6 +689,29 @@ def main() -> int:
                "ellr_spmv": "src/repro/kernels/ellr_spmv.py:96",
                "pjds_spmm": "src/repro/kernels/pjds_spmm.py:108",
                "cmrs_spmv": "src/repro/kernels/cmrs_spmv.py:126"}
+
+    def k4_poisson():
+        """K4 on the Poisson 512^2 operator the dispatch built, beside its
+        bounds and cuSPARSE on the same matrix.  One launch's host
+        overhead outlasts this kernel, so the burst time is the host's;
+        ``graph_ms`` replays the burst as a CUDA graph."""
+        d = op_pe.dev.dev
+        k4 = lambda: ell_matvec_kernel_call(d.val, d.col_idx, d.rowlen,
+                                            xpo, max_col=d.max_col)
+        t = time_ms(k4)
+        tg = time_ms(k4, graph=True)
+        a_p = csr_of(mp)
+        nb = float(mp.nnz * (d.val.element_size() + d.col_idx.element_size())
+                   + mp.n_rows * 4 + 2 * d.n_rows_pad * 4)
+        lb = ell_layout_bytes(d, mp.n_rows)
+        return {"n_rows": mp.n_rows, "nnz": mp.nnz, "ms": t[0],
+                "ms_q25_q75": [t[1], t[2]], "graph_ms": tg[0],
+                "graph_ms_q25_q75": [tg[1], tg[2]],
+                "bound_ms": 1e3 * nb / HBM_BYTES_PER_S,
+                "layout_bound_ms": 1e3 * lb / HBM_BYTES_PER_S,
+                "library_ms": library_ms(lambda: torch.mv(a_p, xpo),
+                                         "torch.mv(csr, x) poisson512")}
+
     record = []
     for name, (kern, plain) in runs.items():
         k_ms, k_q25, k_q75 = time_ms(kern)
@@ -684,6 +733,12 @@ def main() -> int:
         if name in slots_read:
             rec["slots_read"] = slots_read[name]
             rec["slots_read_over_nnz"] = slots_read[name] / m.nnz
+        if name == "ellr_spmv":
+            lb = ell_layout_bytes(d_e, n)
+            rec["layout_sector_bytes"] = lb
+            rec["layout_bound_ms"] = 1e3 * lb / HBM_BYTES_PER_S
+            rec["layout_share"] = rec["layout_bound_ms"] / k_ms
+            rec["poisson512"] = k4_poisson()
         record.append(rec)
         emit(f"time:{name}", **rec)
 
@@ -699,11 +754,13 @@ def main() -> int:
          sell_stored_elements=stored,
          cmrs_stored_elements=d_c.val.numel())
 
-    # The padding skip alone: K2 and K6 with their derived lengths and
-    # with every stored slot walked, interleaved (derived, full, full,
+    # The padding skip alone: K1, K2 and K6 with their derived lengths
+    # and with every stored slot walked, interleaved (derived, full, full,
     # derived) in this call.
     skip = {}
     for nm, kern, d, derived, full in (
+            ("pjds_spmv", k1_with, d_p, d_p.warp_len,
+             TO.stored_warp_len(d_p.block_start, d_p.b_r)),
             ("sell_spmv", k2_with, d_s, d_s.warp_len,
              TO.stored_warp_len(d_s.block_start, d_s.b_r)),
             ("cmrs_spmv", k6_with, d_c, d_c.strip_nnz,

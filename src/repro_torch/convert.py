@@ -67,7 +67,7 @@ def blocked_device(arrays: Mapping[str, np.ndarray], statics: Mapping,
         inv = np.asarray(arrays["inv_perm"]).astype(np.int32)
         return ops.sell_container(inv_perm=tensor_from_numpy(inv, dev),
                                   sigma=int(statics["sigma"]), **common)
-    return ops.PJDSDevice(**common)
+    return ops.pjds_container(**common)
 
 
 def ell_device(arrays: Mapping[str, np.ndarray], device=None

@@ -53,6 +53,54 @@ __global__ void block_rows_kernel(const V* __restrict__ val,
       row_dot(val, col, x, block_start[b], block_start[b + 1], b_r, r);
 }
 
+// The length-aware walk of K1 and K2.  Lane r of row block b walks its
+// first warp_len diagonals -- warp_len holds one length per 32 lanes of
+// a block (ops.sell_warp_len: up to the last diagonal in which any of
+// the 32 holds a slot that is not exactly padding), clamped to the
+// block's stored length -- four diagonals per step, so each thread has
+// four value and index loads and then four gathers of x in flight.  The
+// value and index streams are read once (__ldcs, evict-first), x
+// through the read-only path.  One f32 accumulator, in diagonal order.
+//
+// Every slot past warp_len is padding (val 0, col PAD_COL), whose
+// product the full walk would add as 0 * x[0]; a lane whose walk stops
+// short adds 0.f * x[0] once instead.  For a finite x[0] each skipped
+// term is +-0, and adding +-0 to an f32 sum that starts at +0 never
+// changes it (the sum can never become -0), so y is bit for bit that of
+// the full walk; a NaN or Inf in x[0] poisons the same rows.
+template <typename V, typename I>
+__device__ __forceinline__ float lane_sum(const V* __restrict__ val,
+                                          const I* __restrict__ col,
+                                          const int* __restrict__ block_start,
+                                          const int* __restrict__ warp_len,
+                                          const float* __restrict__ x,
+                                          int b, int b_r, int r) {
+  const int j0 = block_start[b];
+  const int stored = block_start[b + 1] - j0;
+  const int n = min(max(warp_len[b * (b_r >> 5) + (r >> 5)], 0), stored);
+  const size_t st = (size_t)b_r;
+  const V* vp = val + (size_t)j0 * st + r;
+  const I* cp = col + (size_t)j0 * st + r;
+  float acc = 0.f;
+  int j = 0;
+  for (; j + 4 <= n; j += 4, vp += 4 * st, cp += 4 * st) {
+    const V v0 = __ldcs(vp), v1 = __ldcs(vp + st);
+    const V v2 = __ldcs(vp + 2 * st), v3 = __ldcs(vp + 3 * st);
+    const I c0 = __ldcs(cp), c1 = __ldcs(cp + st);
+    const I c2 = __ldcs(cp + 2 * st), c3 = __ldcs(cp + 3 * st);
+    const float x0 = __ldg(x + (int)c0), x1 = __ldg(x + (int)c1);
+    const float x2 = __ldg(x + (int)c2), x3 = __ldg(x + (int)c3);
+    acc += to_f32(v0) * x0;
+    acc += to_f32(v1) * x1;
+    acc += to_f32(v2) * x2;
+    acc += to_f32(v3) * x3;
+  }
+  for (; j < n; ++j, vp += st, cp += st)
+    acc += to_f32(__ldcs(vp)) * __ldg(x + (int)__ldcs(cp));
+  if (n < stored) acc += 0.f * __ldg(x);
+  return acc;
+}
+
 // Deterministic sum of five per-thread values over the CTA (blockDim a
 // multiple of 32): warp shuffles, then warp 0 over the warp sums.  No
 // atomics, so a solve repeats bit for bit.

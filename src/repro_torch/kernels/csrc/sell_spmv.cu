@@ -19,23 +19,18 @@
 // warp walks only its first warp_len[w] diagonals -- the slots up to the
 // last one in which any of its 32 lanes holds a non-padding entry,
 // derived once at conversion (ops.sell_warp_len) -- which is 1.05 x nnz
-// on sAMG.  The walk is unrolled by four, so each thread has four value
-// and index loads and then four gathers of x in flight; the value and
-// index streams are read once (__ldcs, evict-first), x through the
-// read-only path.  One f32 accumulator per row, in diagonal order.
+// on sAMG, four diagonals per step with the loads in flight
+// (repro::lane_sum in common.cuh, shared with K1).
 //
 // Padding is kept exactly.  A padded slot holds val 0 and col PAD_COL
 // (0), and the reference adds its 0 * x[0] to the row, so a NaN or Inf
 // in x[0] poisons every row that carries padding.  A lane whose warp
 // stops before the block's stored length therefore adds 0.f * x[0] once
-// after its walk: the slots it skipped are all padding.  For a finite
-// x[0] every skipped term is +-0, and adding +-0 to an f32 sum that
-// starts at +0 never changes it (the sum can never become -0), so y is
-// bit for bit that of the full walk; for a NaN or Inf x[0] the same rows
-// turn NaN.  A stored explicit 0 at column 0 at the end of a row looks
-// like padding; its product is the same 0 * x[0].  warp_len is clamped
-// to the block's stored length, so a corrupt length cannot read out of
-// bounds.
+// after its walk, which keeps y bit for bit that of the full walk
+// (common.cuh says why).  A stored explicit 0 at column 0 at the end of
+// a row looks like padding; its product is the same 0 * x[0].  warp_len
+// is clamped to the block's stored length, so a corrupt length cannot
+// read out of bounds.
 //
 // When the slab would not fit the 48 KB of static shared memory (sigma
 // >= n, or sigma incommensurate with b_r: window_blocks returns
@@ -54,42 +49,6 @@ namespace {
 // until the window's longest block was done.
 constexpr int kWindowThreads = 128;
 
-// Lane r of row block b: its first warp_len diagonals (clamped to the
-// block's stored length), then the padding term if the walk stopped
-// short.
-template <typename V, typename I>
-__device__ __forceinline__ float lane_sum(const V* __restrict__ val,
-                                          const I* __restrict__ col,
-                                          const int* __restrict__ block_start,
-                                          const int* __restrict__ warp_len,
-                                          const float* __restrict__ x,
-                                          int b, int b_r, int r) {
-  const int j0 = block_start[b];
-  const int stored = block_start[b + 1] - j0;
-  const int n = min(max(warp_len[b * (b_r >> 5) + (r >> 5)], 0), stored);
-  const size_t st = (size_t)b_r;
-  const V* vp = val + (size_t)j0 * st + r;
-  const I* cp = col + (size_t)j0 * st + r;
-  float acc = 0.f;
-  int j = 0;
-  for (; j + 4 <= n; j += 4, vp += 4 * st, cp += 4 * st) {
-    const V v0 = __ldcs(vp), v1 = __ldcs(vp + st);
-    const V v2 = __ldcs(vp + 2 * st), v3 = __ldcs(vp + 3 * st);
-    const I c0 = __ldcs(cp), c1 = __ldcs(cp + st);
-    const I c2 = __ldcs(cp + 2 * st), c3 = __ldcs(cp + 3 * st);
-    const float x0 = __ldg(x + (int)c0), x1 = __ldg(x + (int)c1);
-    const float x2 = __ldg(x + (int)c2), x3 = __ldg(x + (int)c3);
-    acc += repro::to_f32(v0) * x0;
-    acc += repro::to_f32(v1) * x1;
-    acc += repro::to_f32(v2) * x2;
-    acc += repro::to_f32(v3) * x3;
-  }
-  for (; j < n; ++j, vp += st, cp += st)
-    acc += repro::to_f32(__ldcs(vp)) * __ldg(x + (int)__ldcs(cp));
-  if (n < stored) acc += 0.f * __ldg(x);
-  return acc;
-}
-
 template <typename V, typename I>
 __global__ void __launch_bounds__(1024)
     sell_window_kernel(const V* __restrict__ val, const I* __restrict__ col,
@@ -104,8 +63,8 @@ __global__ void __launch_bounds__(1024)
   const int per = blockDim.x / b_r;
   const int r = threadIdx.x % b_r, q = threadIdx.x / b_r;
   for (int bb = q; bb < nb; bb += per)
-    slab[bb * b_r + r] =
-        lane_sum(val, col, block_start, warp_len, x, blk0 + bb, b_r, r);
+    slab[bb * b_r + r] = repro::lane_sum(val, col, block_start, warp_len, x,
+                                         blk0 + bb, b_r, r);
   __syncthreads();
   const int row0 = blk0 * b_r;
   const int rows = nb * b_r;
@@ -124,7 +83,7 @@ __global__ void sell_block_kernel(const V* __restrict__ val,
                                   float* __restrict__ ys, int b_r) {
   const int b = blockIdx.x, r = threadIdx.x;
   ys[(size_t)b * b_r + r] =
-      lane_sum(val, col, block_start, warp_len, x, b, b_r, r);
+      repro::lane_sum(val, col, block_start, warp_len, x, b, b_r, r);
 }
 
 __global__ void unpermute_kernel(const float* __restrict__ ys,

@@ -3,7 +3,7 @@ Hopper (paper Listing 1, the baseline pJDS is measured against).
 
 Replaces ``repro/kernels/ellr_spmv.py::ell_matvec_kernel_call`` (the
 Pallas TPU kernel).  The CUDA source is ``csrc/ellr_spmv.cu``: one
-thread per row in original order, looping ``j < rowlen[i]`` over the
+thread per row in original order, reading ``j < rowlen[i]`` of the
 jagged-diagonal-major ``(max_nzr, n_pad)`` arrays, so each diagonal is
 one coalesced load across a warp.  The TPU kernel's ``tile_chunks`` /
 ``tile_r`` grid is TPU plumbing and has no counterpart.
@@ -15,7 +15,14 @@ version (``ref.ell_matvec_ref``), which is what the CPU parity tests
 compare against.
 
 What bounds it on an H100: bytes -- nnz x (value + index width) plus
-rowlen, x and y once; the 2 flops per slot are far below compute.
+rowlen, x and y once; the 2 flops per slot are far below compute.  The
+unsorted rows add a floor of their own: a 32-byte sector of the streams
+spans 8 rows and is fetched while any of them runs (1.56 x nnz slots on
+the 3.4 M-row sAMG).  So the kernel keeps loads in flight instead: each
+warp loops to the longest of its rows, several diagonals per step, all
+value and index loads of a step issued before its gathers and each
+predicated by the lane's own ``rowlen``.  Each row sums in diagonal
+order, so y keeps its bits from one build of the kernel to the next.
 """
 from __future__ import annotations
 

@@ -8,7 +8,7 @@ Port of ``repro/kernels/ops.py``:
   strip) offsets ``block_start`` / ``strip_start`` that the kernels loop
   over, the block (strip) id per stored row that the plain versions
   segment-sum by, the largest stored column (checked against x), and
-  for K2 / K6 how far the stored slots hold more than padding
+  for K1 / K2 / K6 how far the stored slots hold more than padding
   (``sell_warp_len`` / ``cmrs_strip_nnz``, derived on the device).
 * **Products** -- ``ell_matvec`` (K4), ``pjds_matvec`` (K1),
   ``sell_matvec`` (K2), ``cmrs_matvec`` (K6) and ``pjds_matmat`` (K5)
@@ -59,6 +59,7 @@ __all__ = [
     "to_device_sell",
     "to_device_cmrs",
     "to_device_csr",
+    "pjds_container",
     "sell_container",
     "cmrs_container",
     "sell_warp_len",
@@ -99,7 +100,9 @@ class PJDSDevice:
     """Device-resident pJDS operand (permuted basis).  ``val`` is the f32
     or bf16 value stream, ``col_idx`` the int32 or int16 index stream,
     both (total_jds, b_r); ``block_start`` (n_blocks + 1,) int32 bounds
-    each row block's diagonals for the kernels; ``row_block``
+    each row block's diagonals for the kernels; ``warp_len``
+    (n_blocks * ceil(b_r / 32),) int32 is the diagonals K1 walks for
+    each 32 lanes of a block (:func:`sell_warp_len`); ``row_block``
     (total_jds,) int32 is the block of each diagonal for the plain
     version; ``max_col`` the largest stored column index."""
 
@@ -107,6 +110,7 @@ class PJDSDevice:
     col_idx: torch.Tensor
     row_block: torch.Tensor
     block_start: torch.Tensor
+    warp_len: torch.Tensor
     n_blocks: int
     b_r: int
     chunk_l: int
@@ -207,7 +211,7 @@ def check_row_in_strip(ris: np.ndarray, b_r: int) -> None:
         raise ValueError("row_in_strip values must lie in [0, b_r)")
 
 
-# K2 and K6 walk only the stored slots that hold more than padding.  How
+# K1, K2 and K6 walk only the stored slots that hold more than padding.  How
 # far that is comes from the stored arrays alone, by one reduction on
 # the device, so a container carried across from the reference gets the
 # same lengths as one built here.  A slot is padding when it is exactly
@@ -221,9 +225,10 @@ def check_row_in_strip(ris: np.ndarray, b_r: int) -> None:
 def sell_warp_len(val: torch.Tensor, col_idx: torch.Tensor,
                   row_block: torch.Tensor, block_start: torch.Tensor,
                   n_blocks: int) -> torch.Tensor:
-    """K2's walk lengths, (n_blocks * ceil(b_r / 32),) int32: for each
-    32 lanes of a row block, the diagonals up to and including the last
-    one in which any of them holds a non-padding slot (0 if none)."""
+    """K1's and K2's walk lengths (the pJDS layout both share),
+    (n_blocks * ceil(b_r / 32),) int32: for each 32 lanes of a row block,
+    the diagonals up to and including the last one in which any of them
+    holds a non-padding slot (0 if none)."""
     total, b_r = val.shape
     w = -(-b_r // 32)
     real = (val != 0) | (col_idx != F.PAD_COL)
@@ -259,7 +264,8 @@ def cmrs_strip_nnz(val: torch.Tensor, col_idx: torch.Tensor,
 
 
 def stored_warp_len(block_start: torch.Tensor, b_r: int) -> torch.Tensor:
-    """K2 lengths that walk every stored diagonal (a timing baseline)."""
+    """K1 / K2 lengths that walk every stored diagonal (a timing
+    baseline)."""
     return (block_start[1:] - block_start[:-1]).repeat_interleave(
         -(-b_r // 32)).contiguous()
 
@@ -309,18 +315,28 @@ def cmrs_container(**fields) -> CMRSDevice:
     return CMRSDevice(strip_nnz=nnz, **fields)
 
 
+def _fields_warp_len(fields: dict) -> torch.Tensor:
+    return sell_warp_len(fields["val"], fields["col_idx"],
+                         fields["row_block"], fields["block_start"],
+                         fields["n_blocks"])
+
+
+def pjds_container(**fields) -> PJDSDevice:
+    """A ``PJDSDevice`` from its stored tensors, with ``warp_len``
+    derived from them (:func:`sell_warp_len`)."""
+    return PJDSDevice(warp_len=_fields_warp_len(fields), **fields)
+
+
 def sell_container(**fields) -> SELLDevice:
     """A ``SELLDevice`` from its stored tensors, with ``warp_len``
     derived from them (:func:`sell_warp_len`)."""
-    wl = sell_warp_len(fields["val"], fields["col_idx"], fields["row_block"],
-                       fields["block_start"], fields["n_blocks"])
-    return SELLDevice(warp_len=wl, **fields)
+    return SELLDevice(warp_len=_fields_warp_len(fields), **fields)
 
 
 def to_device_pjds(p: F.PJDSMatrix, chunk_l: int = 8, dtype=None,
                    device=None) -> PJDSDevice:
-    return PJDSDevice(**_blocked_parts(p, chunk_l, dtype,
-                                       resolve_device(device)))
+    return pjds_container(**_blocked_parts(p, chunk_l, dtype,
+                                           resolve_device(device)))
 
 
 def to_device_sell(s: F.SELLMatrix, chunk_l: int = 8, dtype=None,
@@ -358,8 +374,8 @@ def pjds_matvec(a: PJDSDevice, x: torch.Tensor, backend: str = "auto",
     accepted for parity and changes nothing."""
     del x_tiles
     if resolve_backend(x, backend) == "kernel":
-        return pjds_matvec_kernel_call(a.val, a.col_idx, a.block_start, x,
-                                       n_blocks=a.n_blocks,
+        return pjds_matvec_kernel_call(a.val, a.col_idx, a.block_start,
+                                       a.warp_len, x, n_blocks=a.n_blocks,
                                        max_col=a.max_col)
     return R.pjds_matvec_ref(a.val, a.col_idx, a.row_block, x, a.n_blocks)
 

@@ -194,7 +194,7 @@ def test_derived_lengths_match_host_lengths(name, b_r, diag_align,
     np.testing.assert_array_equal(dc.strip_nnz.numpy(), c.strip_nnz)
 
 
-@pytest.mark.parametrize("fmt", ["sell", "cmrs"])
+@pytest.mark.parametrize("fmt", ["sell", "cmrs", "pjds"])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_derived_lengths_of_carried_containers_match(fmt, bf16):
     # a reference container carried across by convert.sparse_device gets
@@ -211,11 +211,13 @@ def test_derived_lengths_of_carried_containers_match(fmt, bf16):
     statics = {f: getattr(inner, f) for f in ("n_blocks", "b_r", "chunk_l",
                                               "sigma", "n_strips")
                if hasattr(inner, f)}
-    port = convert.sparse_device(fmt, sd.shape, arrays, statics,
-                                 x_tiles=sd.x_tiles, device="cpu")
+    port = convert.sparse_device(
+        fmt, sd.shape, arrays, statics,
+        inv_perm=None if sd.inv_perm is None else np.asarray(sd.inv_perm),
+        x_tiles=sd.x_tiles, device="cpu")
     own = TO.as_device(_as_port(m), fmt, b_r=32, chunk_l=8,
                        dtype=torch.bfloat16 if bf16 else None, device="cpu")
-    field = "warp_len" if fmt == "sell" else "strip_nnz"
+    field = "strip_nnz" if fmt == "cmrs" else "warp_len"
     assert torch.equal(getattr(own.dev, field), getattr(port.dev, field))
     assert int(getattr(own.dev, field).sum()) > 0
 

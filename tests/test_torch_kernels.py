@@ -389,8 +389,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     d = TO.as_device(_TM, "pjds", b_r=B_R, device="cpu").dev
     x = torch.from_numpy(_X)
     with pytest.raises(ValueError, match="CUDA"):
-        pjds_matvec_kernel_call(d.val, d.col_idx, d.block_start, x,
-                                n_blocks=d.n_blocks, max_col=d.max_col)
+        pjds_matvec_kernel_call(d.val, d.col_idx, d.block_start, d.warp_len,
+                                x, n_blocks=d.n_blocks, max_col=d.max_col)
     with pytest.raises(ValueError, match="CUDA"):
         pjds_matmat_kernel_call(d.val, d.col_idx, d.block_start, x[:, None],
                                 n_blocks=d.n_blocks, max_col=d.max_col)
@@ -560,6 +560,64 @@ def test_empty_and_exact_128_strips_derive_0_and_128(diag_align):
            a @ x.astype(np.float64), tol=1e-6)
 
 
+def _edge_matrix(n=203):
+    """n x n, not a multiple of 32 rows: row 5 holds 60 non-zeros (the
+    only long row, so one block carries one long row), every third row
+    from 40 on is empty, and the last 70 rows are empty."""
+    rng = np.random.default_rng(21)
+    a = np.zeros((n, n))
+    a[5, rng.choice(n, 60, replace=False)] = rng.standard_normal(60)
+    for i in range(n - 70):
+        if i == 5 or (i >= 40 and i % 3 == 0):
+            continue
+        k = 1 + i % 4
+        a[i, rng.choice(n, k, replace=False)] = rng.standard_normal(k)
+    return TF.csr_from_dense(a)
+
+
+def _np_warp_len(p) -> np.ndarray:
+    """Walk lengths recounted in numpy from the host pJDS arrays: per
+    block and 32 lanes, the 1-based last diagonal holding a slot that is
+    not exactly padding."""
+    real = (p.val != 0) | (p.col_idx != TF.PAD_COL)
+    out = []
+    for b in range(p.n_blocks):
+        blk = real[p.block_start[b]:p.block_start[b + 1]]
+        for w in range(p.b_r // 32):
+            hit = np.flatnonzero(blk[:, 32 * w:32 * w + 32].any(axis=1))
+            out.append(int(hit[-1]) + 1 if hit.size else 0)
+    return np.array(out, np.int32)
+
+
+@pytest.mark.parametrize("name", ["samg", "poisson", "edge"])
+@pytest.mark.parametrize("b_r,diag_align", [(32, 1), (32, 8), (64, 16),
+                                            (128, 16)])
+def test_pjds_warp_len_matches_a_numpy_recount(name, b_r, diag_align):
+    # K1's per-warp walk lengths, derived on the device from the stored
+    # arrays, are a numpy recount of the host arrays; pJDS sorts rows
+    # globally, so each is the length of the warp's first row
+    m = {"samg": lambda: TM.samg(scale=1e-4),
+         "poisson": lambda: TM.poisson_2d(24, 24),
+         "edge": _edge_matrix}[name]()
+    p = TF.csr_to_pjds(m, b_r=b_r, diag_align=diag_align,
+                       permuted_cols=False)
+    d = TO.to_device_pjds(p, chunk_l=diag_align, device="cpu")
+    assert d.warp_len.dtype == torch.int32
+    assert d.warp_len.shape == (p.n_rows_pad // 32,)
+    np.testing.assert_array_equal(d.warp_len.numpy(), _np_warp_len(p))
+    np.testing.assert_array_equal(d.warp_len.numpy(), p.rowlen[::32])
+    stored = TO.stored_warp_len(d.block_start, b_r)
+    assert torch.all(d.warp_len <= stored)
+    if name == "edge":
+        # the block of the one long row walks 60 of its diagonals in its
+        # first warp; the empty rows' warps walk none
+        assert int(d.warp_len[0]) == 60
+        assert int(stored[0]) == -(-60 // diag_align) * diag_align
+        assert int((d.warp_len == 0).sum()) >= 70 // 32
+        if b_r > 32:
+            assert int(d.warp_len[1]) < 60
+
+
 # ------------------------------------------------------------- on the card
 def _need_cuda():
     if not torch.cuda.is_available():
@@ -619,12 +677,12 @@ def test_kernel_wrappers_validate_operands_on_card():
     d = TO.as_device(TM.samg(scale=1e-3), "pjds").dev
     x = torch.zeros(d.max_col, device="cuda")          # one entry short
     with pytest.raises(ValueError, match="column"):
-        pjds_matvec_kernel_call(d.val, d.col_idx, d.block_start, x,
-                                n_blocks=d.n_blocks, max_col=d.max_col)
+        pjds_matvec_kernel_call(d.val, d.col_idx, d.block_start, d.warp_len,
+                                x, n_blocks=d.n_blocks, max_col=d.max_col)
     x = torch.zeros(d.max_col + 1, device="cuda", dtype=torch.float64)
     with pytest.raises(TypeError):
-        pjds_matvec_kernel_call(d.val, d.col_idx, d.block_start, x,
-                                n_blocks=d.n_blocks, max_col=d.max_col)
+        pjds_matvec_kernel_call(d.val, d.col_idx, d.block_start, d.warp_len,
+                                x, n_blocks=d.n_blocks, max_col=d.max_col)
 
 
 @pytest.mark.cuda
@@ -806,3 +864,108 @@ def test_k2_k6_wrappers_validate_lengths_on_card():
             kern(torch.stack([derived, derived], 1)[:, 0], x)   # strides
         with pytest.raises(TypeError):
             kern(derived.float(), x)                        # dtype
+
+
+def _k1_runs(m, tdt=None, idt="auto", b_r=128, diag_align=8, chunk_l=16):
+    """[(label, operand, kernel(lengths, x), derived lengths, full
+    lengths, plain(x))] for K1, in the shape of ``_k2_k6_runs``."""
+    p = TO.as_device(m, "pjds", dtype=tdt, index_dtype=idt, b_r=b_r,
+                     diag_align=diag_align, chunk_l=chunk_l).dev
+    return [("pjds", p,
+             lambda n, v, p=p: pjds_matvec_kernel_call(
+                 p.val, p.col_idx, p.block_start, n, v, n_blocks=p.n_blocks,
+                 max_col=p.max_col),
+             p.warp_len, TO.stored_warp_len(p.block_start, p.b_r),
+             lambda v, p=p: TR.pjds_matvec_ref(p.val, p.col_idx, p.row_block,
+                                               v, p.n_blocks))]
+
+
+_ALL_POLICIES = [(None, "int32"), (torch.bfloat16, "int16"),
+                 (None, "int16"), (torch.bfloat16, "int32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt,idt", _ALL_POLICIES)
+@pytest.mark.parametrize("scale", [0.004, 0.009])
+def test_k1_length_aware_walk_on_card(scale, tdt, idt):
+    # K1 walking its derived per-warp lengths gives the bits of K1
+    # walking every stored diagonal, and NaN / Inf in x[0] poisons the
+    # same rows either way
+    _need_cuda()
+    m = TM.samg(scale=scale)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        m.n_rows).astype(np.float32)).cuda()
+    runs = _k1_runs(m, tdt, idt)
+    d = runs[0][1]
+    assert str(d.col_idx.dtype) == f"torch.{idt}"
+    assert d.val.dtype == (tdt or torch.float32)
+    assert int(d.warp_len.sum()) < int(runs[0][4].sum())   # skips padding
+    _check_k2_k6(runs, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,b_r,diag_align", [("edge", 32, 8),
+                                                  ("edge", 64, 16),
+                                                  ("strips", 128, 1),
+                                                  ("trailing_zero", 32, 8)])
+def test_k1_edge_matrices_on_card(which, b_r, diag_align):
+    # empty rows, a block holding one long row, n not a multiple of b_r,
+    # and rows ending in a stored explicit 0 at column 0
+    _need_cuda()
+    m = {"edge": _edge_matrix, "trailing_zero": _trailing_zero_matrix,
+         "strips": lambda: TF.csr_from_dense(_strips_matrix())}[which]()
+    runs = _k1_runs(m, b_r=b_r, diag_align=diag_align, chunk_l=diag_align)
+    x = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        m.n_rows).astype(np.float32)).cuda()
+    _check_k2_k6(runs, x)
+    sd = TO.as_device(m, "pjds", b_r=b_r, diag_align=diag_align,
+                      chunk_l=diag_align)
+    _close(sd.matvec(x).cpu(), _dense(m) @ x.cpu().double().numpy())
+
+
+@pytest.mark.cuda
+def test_k1_wrapper_validates_lengths_on_card():
+    _need_cuda()
+    m = TM.samg(scale=1e-3)
+    x = torch.zeros(m.n_rows, device="cuda")
+    _, _, kern, derived, *_ = _k1_runs(m)[0]
+    with pytest.raises(ValueError):
+        kern(derived[:-1], x)                               # shape
+    with pytest.raises(ValueError):
+        kern(derived.cpu(), x)                              # device
+    with pytest.raises(ValueError):
+        kern(torch.stack([derived, derived], 1)[:, 0], x)   # strides
+    with pytest.raises(TypeError):
+        kern(derived.float(), x)                            # dtype
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt,idt", _ALL_POLICIES)
+@pytest.mark.parametrize("which", ["samg", "edge"])
+def test_k4_matches_plain_and_keeps_nan_out_of_short_rows_on_card(which,
+                                                                   tdt, idt):
+    # K4 against its plain version, also with n_pad not a multiple of 32
+    # (row_align 1), and a NaN in x[0] reaches only the rows that store
+    # column 0: K4 reads no slot past rowlen
+    _need_cuda()
+    m = TM.samg(scale=0.004) if which == "samg" else _edge_matrix()
+    e = TF.csr_to_ell(m, row_align=1 if which == "edge" else 128,
+                      index_dtype=idt)
+    d = TO.to_device_ell(e, dtype=tdt, device="cuda")
+    assert str(d.col_idx.dtype) == f"torch.{idt}"
+    x = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        m.n_rows).astype(np.float32)).cuda()
+    run = lambda v: ell_matvec_kernel_call(d.val, d.col_idx, d.rowlen, v,
+                                           max_col=d.max_col)
+    y = run(x)
+    _close(y.cpu(), TR.ell_matvec_ref(d.val, d.col_idx, d.rowlen, x).cpu())
+    assert torch.equal(y, run(x))                           # deterministic
+    reads_col0 = torch.from_numpy(_dense(m)[:, 0] != 0)
+    for bad in (float("nan"), float("inf")):
+        xb = x.clone()
+        xb[0] = bad
+        got = ~torch.isfinite(run(xb)).cpu()[: m.n_rows]
+        want = ~torch.isfinite(TR.ell_matvec_ref(
+            d.val, d.col_idx, d.rowlen, xb)).cpu()[: m.n_rows]
+        assert torch.equal(got, want)
+        assert torch.equal(got, reads_col0)
