@@ -10,12 +10,15 @@ pipeline on the sAMG analogue at its published 3.4 M rows --
 ``repro_torch.solve`` with CG and block CG -- and the paper's
 ELLPACK-R-vs-pJDS comparison, and holds every kernel against its plain
 PyTorch version and every product against a float64 scipy reference.
-K1, K2 and K6 walk only the slots their derived lengths cover; the
-script checks that they repeat bit for bit and that walking every stored
-slot gives the same bits, and times both walks (phase
-``time:padding_skip``).  Each kernel's bound counts the nnz slots the
+K1, K2, K3, K5 and K6 walk only the slots their derived lengths cover;
+the script checks that they repeat bit for bit and that walking every
+stored slot gives the same bits, and times both walks (phase
+``time:padding_skip``).  K3 is K2's window walk plus the dots: its y
+must equal K2's bit for bit, and the two are timed in turns
+(``time:k3_vs_k2:samg``).  Each kernel's bound counts the nnz slots the
 function needs; K4's record adds the floor its unsorted layout sets
-(``layout_bound_ms``) and its time on the Poisson operator.
+(``layout_bound_ms``) and its time on the Poisson operator, where K3 is
+also timed as a CUDA graph.
 Each main-path phase sets every launch count to 0 before it and reads
 the counts after it.  Each phase prints one JSON line; any failed check
 raises, and the script then exits non-zero without its final line.
@@ -135,6 +138,21 @@ def main() -> int:
                                        n_blocks=d.n_blocks, sigma=d.sigma,
                                        max_col=d.max_col)
 
+    def k3_with(d, lengths, v, w1, w2):
+        """K3 on SELL operand ``d`` walking ``lengths``: (y, dots)."""
+        return fused_spmv_dots_kernel_call(d.val, d.col_idx, d.block_start,
+                                           d.inv_perm, lengths, v, w1, w2,
+                                           n_blocks=d.n_blocks, sigma=d.sigma,
+                                           max_col=d.max_col)
+
+    def k5_with(d, lengths, xk, rows=None, n_out=0):
+        """K5 on blocked operand ``d`` walking ``lengths``, with the row
+        map ``rows`` onto ``n_out`` rows if given."""
+        return pjds_matmat_kernel_call(d.val, d.col_idx, d.block_start,
+                                       lengths, xk, n_blocks=d.n_blocks,
+                                       max_col=d.max_col, out_row=rows,
+                                       n_out=n_out)
+
     def k6_with(d, lengths, v):
         """K6 on CMRS operand ``d`` walking ``lengths`` (per strip)."""
         return cmrs_matvec_kernel_call(d.val, d.col_idx, d.row_in_strip,
@@ -142,19 +160,25 @@ def main() -> int:
                                        n_strips=d.n_strips,
                                        max_col=d.max_col)
 
-    def same_bits(y, d, v, what):
-        """K1 / K2 / K6 on ``d`` repeat ``y`` bit for bit, and walking
-        every stored slot changes no bit of it."""
-        if what.endswith(("pjds_spmv", "sell_spmv")):
-            kern = k1_with if what.endswith("pjds_spmv") else k2_with
-            derived = d.warp_len
-            full = TO.stored_warp_len(d.block_start, d.b_r)
-        else:
-            kern, derived = k6_with, d.strip_nnz
-            full = TO.stored_strip_nnz(d.strip_start, d.b_r)
-        require(torch.equal(y, kern(d, derived, v)),
-                f"{what}: not bit-repeatable")
-        require(torch.equal(y, kern(d, full, v)),
+    def walk_lengths(d):
+        """(derived, every stored slot) walk lengths of operand ``d``:
+        per strip for CMRS, per warp for the pJDS layout."""
+        if hasattr(d, "strip_nnz"):
+            return d.strip_nnz, TO.stored_strip_nnz(d.strip_start, d.b_r)
+        return d.warp_len, TO.stored_warp_len(d.block_start, d.b_r)
+
+    def equal(a, b):
+        if isinstance(a, tuple):                 # K3: (y, dots)
+            return all(torch.equal(u, v) for u, v in zip(a, b))
+        return torch.equal(a, b)
+
+    def same_bits(y, run, d, what):
+        """``run(lengths)`` -- K1, K2, K3, K5 or K6 on operand ``d`` --
+        repeats ``y`` bit for bit with the derived lengths, and walking
+        every stored slot changes no bit of it (K3: nor of its dots)."""
+        derived, full = walk_lengths(d)
+        require(equal(y, run(derived)), f"{what}: not bit-repeatable")
+        require(equal(y, run(full)),
                 f"{what}: full-length walk differs from the derived one")
 
     def time_ms(fn, reps=30, warm=5, burst=BURST, graph=False):
@@ -190,11 +214,10 @@ def main() -> int:
     # ---- 1. kernel build ------------------------------------------------
     t0 = time.perf_counter()
     built = _build.build_all()
-    ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for n in _build.SOURCES}
     emit("build", seconds=time.perf_counter() - t0, compiled=built,
-         dir=str(_build.build_dir().relative_to(ROOT)), ptxas=ptxas)
+         dir=str(_build.build_dir().relative_to(ROOT)),
+         ptxas={n: _build.ptxas_usage(_build.build_log(n))
+                for n in _build.SOURCES})
 
     def plain_free(plain_calls, what):
         require(not any(plain_calls.values()),
@@ -246,7 +269,8 @@ def main() -> int:
             y_k = k2_with(d, d.warp_len, x)
             y_r = R.sell_matvec_ref(d.val, d.col_idx, d.row_block,
                                     d.inv_perm, x, d.n_blocks)
-        same_bits(y_k, d, x, name)
+        kern = k1_with if name == "pjds_spmv" else k2_with
+        same_bits(y_k, lambda ln: kern(d, ln, x), d, name)
         e_abs, e_rel = rel_err(y_k, y_r)
         s_abs, s_rel = rel_err(y, y64_t)
         require(e_rel <= Y_TOL, f"{name} vs plain: {e_rel}")
@@ -280,7 +304,7 @@ def main() -> int:
             y_k = k6_with(d, d.strip_nnz, x)
             y_r = R.cmrs_matvec_ref(d.val, d.col_idx, d.row_in_strip,
                                     d.strip_map, x, d.n_strips)
-            same_bits(y_k, d, x, name)
+            same_bits(y_k, lambda ln: k6_with(d, ln, x), d, name)
         else:
             y_k = ell_matvec_kernel_call(d.val, d.col_idx, d.rowlen, x,
                                          max_col=d.max_col)
@@ -312,6 +336,11 @@ def main() -> int:
     y_r, dots_r = R.fused_matvec_dots_ref(d_s.val, d_s.col_idx, d_s.row_block,
                                           d_s.inv_perm, xp, w1, w2,
                                           d_s.n_blocks)
+    # K3 is K2's window walk plus the dots: the same y, bit for bit
+    require(torch.equal(y_k, k2_with(d_s, d_s.warp_len, xp)),
+            "fused_iter: y differs from K2's on the same x")
+    same_bits((y_k, dots_k), lambda ln: k3_with(d_s, ln, xp, w1, w2), d_s,
+              "fused_iter")
     e_abs, e_rel = rel_err(y_k, y_r)
     dk, dr = dots_k.double().cpu(), dots_r.double().cpu()
     dot_rel = ((dk - dr).abs() / dr.abs().clamp(min=1e-30)).tolist()
@@ -320,7 +349,8 @@ def main() -> int:
     errs["fused_iter"] = (e_abs, e_rel)
     emit("fused:fused_iter", max_abs_err_vs_plain=e_abs,
          max_rel_err_vs_plain=e_rel, dots=dk.tolist(),
-         dots_rel_err_vs_plain=dot_rel)
+         dots_rel_err_vs_plain=dot_rel, y_equal_to_k2=True,
+         derived_equal_to_full_walk=True)
 
     # ---- 5. fused-CG solve on sAMG --------------------------------------
     b_np = rng.standard_normal(n).astype(np.float32)
@@ -375,15 +405,19 @@ def main() -> int:
     ms_iter = 1e3 * resp.info["phase_s"]["solve"] / max(resp.iters, 1)
     dp = repro_torch.operator(mp, format="sell").dev.dev
     vp = [torch.ones(dp.n_rows_pad, device=dev) for _ in range(3)]
-    k3_ms = time_ms(lambda: fused_spmv_dots_kernel_call(
-        dp.val, dp.col_idx, dp.block_start, dp.inv_perm, *vp,
-        n_blocks=dp.n_blocks, sigma=dp.sigma, max_col=dp.max_col))[0]
+    k3p = lambda: k3_with(dp, dp.warp_len, *vp)
+    k3_ms = time_ms(k3p)[0]
+    # one launch's host overhead outlasts K3 here, so the burst time is
+    # the host's; a CUDA graph of the burst gives the device time
+    k3_graph = time_ms(k3p, graph=True)
     emit("solve:poisson512:fused", status=resp.status, iters=resp.iters,
          true_residual=resp.diagnostics["true_residual"],
          restarts=resp.diagnostics["restarts"],
          host_syncs=resp.info["host_syncs"], launches=launched,
          plain_calls=plain_calls, seconds=t_p, ms_per_iter=ms_iter,
-         k3_ms_at_this_size=k3_ms, k3_share_of_iteration=k3_ms / ms_iter)
+         k3_ms_at_this_size=k3_ms, k3_share_of_iteration=k3_ms / ms_iter,
+         k3_graph_ms=k3_graph[0], k3_graph_ms_q25_q75=list(k3_graph[1:]),
+         k3_slots_read=32 * int(dp.warp_len.long().sum()), nnz=mp.nnz)
     require(resp.status == "converged", f"poisson solve: {resp.status}")
     plain_free(plain_calls, "solve:poisson512:fused")
 
@@ -428,21 +462,22 @@ def main() -> int:
     # original order) and in the permuted basis, each against its plain
     # version on the same inputs
     unperm_s, rows_s = op_s.dev.stored_rows(), op_s.dev.row_map()
-    Y_k = pjds_matmat_kernel_call(d_s.val, d_s.col_idx, d_s.block_start, X,
-                                  n_blocks=d_s.n_blocks, max_col=d_s.max_col)
+    Y_k = k5_with(d_s, d_s.warp_len, X)
+    same_bits(Y_k, lambda ln: k5_with(d_s, ln, X), d_s, "pjds_spmm")
     Y_r = R.pjds_matmat_ref(d_s.val, d_s.col_idx, d_s.row_block, X,
                             d_s.n_blocks)
     e_perm = rel_err(Y_k, Y_r)
-    Y_k = pjds_matmat_kernel_call(d_s.val, d_s.col_idx, d_s.block_start, X,
-                                  n_blocks=d_s.n_blocks, max_col=d_s.max_col,
-                                  out_row=rows_s, n_out=n)
+    Y_k = k5_with(d_s, d_s.warp_len, X, rows_s, n)
+    same_bits(Y_k, lambda ln: k5_with(d_s, ln, X, rows_s, n), d_s,
+              "pjds_spmm row map")
     errs["pjds_spmm"] = rel_err(Y_k, Y_r.index_select(0, unperm_s))
     require(max(e_perm[1], errs["pjds_spmm"][1]) <= Y_TOL,
             f"pjds_spmm vs plain: {e_perm}, row map {errs['pjds_spmm']}")
     emit("matmat:samg:k5_vs_plain", k=k_rhs,
          max_abs_err_vs_plain=errs["pjds_spmm"][0],
          max_rel_err_vs_plain=errs["pjds_spmm"][1],
-         permuted_basis_max_rel_err_vs_plain=e_perm[1])
+         permuted_basis_max_rel_err_vs_plain=e_perm[1],
+         derived_equal_to_full_walk=True)
     del Y_k, Y_r
 
     B_np = rng.standard_normal((n, 4)).astype(np.float32)
@@ -520,20 +555,24 @@ def main() -> int:
         y1 = k1_with(p, p.warp_len, xs)
         e1 = rel_err(y1, R.pjds_matvec_ref(p.val, p.col_idx, p.row_block,
                                            xs, p.n_blocks))[1]
-        same_bits(y1, p, xs, f"small:{label} pjds_spmv")
+        same_bits(y1, lambda ln: k1_with(p, ln, xs), p,
+                  f"small:{label} pjds_spmv")
         y2 = k2_with(s, s.warp_len, xs)
         e2 = rel_err(y2, R.sell_matvec_ref(s.val, s.col_idx, s.row_block,
                                            s.inv_perm, xs, s.n_blocks))[1]
-        same_bits(y2, s, xs, f"small:{label} sell_spmv")
+        same_bits(y2, lambda ln: k2_with(s, ln, xs), s,
+                  f"small:{label} sell_spmv")
         npd = s.n_rows_pad
         v = [torch.zeros(npd, device=dev) for _ in range(3)]
         for t in v:
             t[: ms.n_rows] = xs
         v[1].mul_(0.5)
         v[2].neg_()
-        yk, dk = fused_spmv_dots_kernel_call(
-            s.val, s.col_idx, s.block_start, s.inv_perm, v[0], v[1], v[2],
-            n_blocks=s.n_blocks, sigma=s.sigma, max_col=s.max_col)
+        yk, dk = k3_with(s, s.warp_len, *v)
+        require(torch.equal(yk, k2_with(s, s.warp_len, v[0])),
+                f"small:{label} fused_iter: y differs from K2's")
+        same_bits((yk, dk), lambda ln: k3_with(s, ln, *v), s,
+                  f"small:{label} fused_iter")
         yr, dr = R.fused_matvec_dots_ref(s.val, s.col_idx, s.row_block,
                                          s.inv_perm, v[0], v[1], v[2],
                                          s.n_blocks)
@@ -541,7 +580,16 @@ def main() -> int:
         d3 = float(((dk.double() - dr.double()).abs()
                     / dr.double().abs().clamp(min=1e-30)).max())
         slab = slab_fits(window_blocks(s.sigma, s.b_r, s.n_blocks), s.b_r)
-        more = {}
+        # K5 on the SELL layout as the operator launches it (row map)
+        xk = torch.stack([xs * (j + 1) for j in range(k_rhs)], dim=1)
+        rows = ops_.dev.row_map()
+        y5 = k5_with(s, s.warp_len, xk, rows, ms.n_rows)
+        same_bits(y5, lambda ln: k5_with(s, ln, xk, rows, ms.n_rows), s,
+                  f"small:{label} pjds_spmm row map")
+        more = {"pjds_spmm_row_map_rel_err": rel_err(
+            y5, R.pjds_matmat_ref(s.val, s.col_idx, s.row_block, xk,
+                                  s.n_blocks).index_select(
+                0, ops_.dev.stored_rows()))[1]}
         if sigma is None:              # K4, K5 and K6 at this policy
             e = repro_torch.operator(ms, format="ellpack_r", **kw).dev.dev
             c = repro_torch.operator(ms, format="cmrs", **kw).dev.dev
@@ -553,15 +601,16 @@ def main() -> int:
             more["cmrs_rel_err"] = rel_err(
                 y6, R.cmrs_matvec_ref(c.val, c.col_idx, c.row_in_strip,
                                       c.strip_map, xs, c.n_strips))[1]
-            same_bits(y6, c, xs, f"small:{label} cmrs_spmv")
+            same_bits(y6, lambda ln: k6_with(c, ln, xs), c,
+                      f"small:{label} cmrs_spmv")
             for k in (1, 3, 8):
                 xk = torch.stack([xs * (j + 1) for j in range(k)], dim=1)
+                y5 = k5_with(p, p.warp_len, xk)
+                same_bits(y5, lambda ln: k5_with(p, ln, xk), p,
+                          f"small:{label} pjds_spmm k={k}")
                 more[f"pjds_spmm_k{k}_rel_err"] = rel_err(
-                    pjds_matmat_kernel_call(p.val, p.col_idx, p.block_start,
-                                            xk, n_blocks=p.n_blocks,
-                                            max_col=p.max_col),
-                    R.pjds_matmat_ref(p.val, p.col_idx, p.row_block, xk,
-                                      p.n_blocks))[1]
+                    y5, R.pjds_matmat_ref(p.val, p.col_idx, p.row_block, xk,
+                                          p.n_blocks))[1]
         emit(f"small:{label}", n_rows=ms.n_rows, value_dtype=str(s.val.dtype),
              index_dtype=str(s.col_idx.dtype), sigma=s.sigma,
              sell_path="shared-memory slab" if slab else "device memory",
@@ -578,9 +627,9 @@ def main() -> int:
     # written once, and of the matrix the nnz slots the function needs --
     # value + index width, plus CMRS's int8 row stream -- whatever padding
     # the layout stores.  The stored-slot bytes are printed beside as
-    # ``stored_bytes``; ``slots_read`` is what K2's and K6's length-aware
-    # walks touch (K2: 32 lanes x warp_len per warp; K6: strip_nnz rounded
-    # up to the 4 slots a lane loads at once; K1 as K2).  K5 is timed as
+    # ``stored_bytes``; ``slots_read`` is what the length-aware walks
+    # touch (K1, K2, K3, K5: 32 lanes x warp_len per warp; K6: strip_nnz
+    # rounded up to the 4 slots a lane loads at once).  K5 is timed as
     # the operator launches it, with its row map.
     vb = d_s.val.element_size()
     ib = d_s.col_idx.element_size()
@@ -591,14 +640,15 @@ def main() -> int:
     n_part = -(-n_blocks // w_b)
     c_slot = d_c.val.element_size() + d_c.col_idx.element_size() + 1
     e_pad = d_e.n_rows_pad
+    wl_s = d_s.warp_len.numel() * 4
     vec = {"pjds_spmv": n * 4 + d_p.n_rows_pad * 4 + (d_p.n_blocks + 1) * 4
            + d_p.warp_len.numel() * 4,
-           "sell_spmv": n * 4 + 2 * n_pad * 4 + (n_blocks + 1) * 4
-           + d_s.warp_len.numel() * 4,
-           "fused_iter": n * 4 + 4 * n_pad * 4 + (n_blocks + 1) * 4
+           "sell_spmv": n * 4 + 2 * n_pad * 4 + (n_blocks + 1) * 4 + wl_s,
+           "fused_iter": n * 4 + 4 * n_pad * 4 + (n_blocks + 1) * 4 + wl_s
            + 2 * n_part * 5 * 4 + 5 * 4,
            "ellr_spmv": n * 4 + 2 * e_pad * 4,
-           "pjds_spmm": (n_blocks + 1) * 4 + n_pad * 4 + 2 * n * k_rhs * 4,
+           "pjds_spmm": (n_blocks + 1) * 4 + wl_s + n_pad * 4
+           + 2 * n * k_rhs * 4,
            "cmrs_spmv": n * 4 + d_c.n_rows_pad * 4
            + (2 * d_c.n_strips + 1) * 4}
     stored_slots = {"pjds_spmv": d_p.val.numel() * slot,
@@ -609,9 +659,11 @@ def main() -> int:
     bytes_ = {nm: float(m.nnz * (c_slot if nm == "cmrs_spmv" else slot)
                         + vec[nm]) for nm in vec}
     stored_bytes = {nm: float(stored_slots[nm] + vec[nm]) for nm in vec}
+    sell_slots = 32 * int(d_s.warp_len.long().sum())
     slots_read = {
         "pjds_spmv": 32 * int(d_p.warp_len.long().sum()),
-        "sell_spmv": 32 * int(d_s.warp_len.long().sum()),
+        "sell_spmv": sell_slots, "fused_iter": sell_slots,
+        "pjds_spmm": sell_slots,
         "cmrs_spmv": 4 * int(((d_c.strip_nnz.long() + 3) // 4).sum())}
     flops = {"pjds_spmv": 2.0 * m.nnz, "sell_spmv": 2.0 * m.nnz,
              "fused_iter": 2.0 * m.nnz + 2.0 * 5 * n_pad,
@@ -660,9 +712,7 @@ def main() -> int:
             lambda: R.sell_matvec_ref(d_s.val, d_s.col_idx, d_s.row_block,
                                       d_s.inv_perm, x, n_blocks)),
         "fused_iter": (
-            lambda: fused_spmv_dots_kernel_call(
-                d_s.val, d_s.col_idx, d_s.block_start, d_s.inv_perm, xp, w1,
-                w2, n_blocks=n_blocks, sigma=d_s.sigma, max_col=d_s.max_col),
+            lambda: k3_with(d_s, d_s.warp_len, xp, w1, w2),
             lambda: R.fused_matvec_dots_ref(d_s.val, d_s.col_idx,
                                             d_s.row_block, d_s.inv_perm, xp,
                                             w1, w2, n_blocks)),
@@ -671,11 +721,7 @@ def main() -> int:
                                            x, max_col=d_e.max_col),
             lambda: R.ell_matvec_ref(d_e.val, d_e.col_idx, d_e.rowlen, x)),
         "pjds_spmm": (
-            lambda: pjds_matmat_kernel_call(d_s.val, d_s.col_idx,
-                                            d_s.block_start, X,
-                                            n_blocks=n_blocks,
-                                            max_col=d_s.max_col,
-                                            out_row=rows_s, n_out=n),
+            lambda: k5_with(d_s, d_s.warp_len, X, rows_s, n),
             lambda: R.pjds_matmat_ref(d_s.val, d_s.col_idx, d_s.row_block,
                                       X, n_blocks).index_select(0, unperm_s)),
         "cmrs_spmv": (
@@ -754,18 +800,28 @@ def main() -> int:
          sell_stored_elements=stored,
          cmrs_stored_elements=d_c.val.numel())
 
-    # The padding skip alone: K1, K2 and K6 with their derived lengths
-    # and with every stored slot walked, interleaved (derived, full, full,
-    # derived) in this call.
+    # K3 is K2 plus the dots: both timed in turns (K2, K3, K3, K2) on
+    # the same x, so the ratio is the epilogue's cost on this card.
+    pair = [time_ms(f) for f in (
+        lambda: k2_with(d_s, d_s.warp_len, xp), runs["fused_iter"][0],
+        runs["fused_iter"][0], lambda: k2_with(d_s, d_s.warp_len, xp))]
+    k2_ms = float(np.median([pair[0][0], pair[3][0]]))
+    k3_ms = float(np.median([pair[1][0], pair[2][0]]))
+    emit("time:k3_vs_k2:samg", k2_sell_ms=k2_ms, k3_fused_ms=k3_ms,
+         k3_over_k2=k3_ms / k2_ms, samples=[list(v) for v in pair])
+
+    # The padding skip alone: K1, K2, K3, K5 (k = 8, row map) and K6
+    # with their derived lengths and with every stored slot walked,
+    # interleaved (derived, full, full, derived) in this call.
     skip = {}
-    for nm, kern, d, derived, full in (
-            ("pjds_spmv", k1_with, d_p, d_p.warp_len,
-             TO.stored_warp_len(d_p.block_start, d_p.b_r)),
-            ("sell_spmv", k2_with, d_s, d_s.warp_len,
-             TO.stored_warp_len(d_s.block_start, d_s.b_r)),
-            ("cmrs_spmv", k6_with, d_c, d_c.strip_nnz,
-             TO.stored_strip_nnz(d_c.strip_start, d_c.b_r))):
-        t = [time_ms(lambda ln=ln: kern(d, ln, x))
+    for nm, run, d in (
+            ("pjds_spmv", lambda ln: k1_with(d_p, ln, x), d_p),
+            ("sell_spmv", lambda ln: k2_with(d_s, ln, x), d_s),
+            ("fused_iter", lambda ln: k3_with(d_s, ln, xp, w1, w2), d_s),
+            ("pjds_spmm", lambda ln: k5_with(d_s, ln, X, rows_s, n), d_s),
+            ("cmrs_spmv", lambda ln: k6_with(d_c, ln, x), d_c)):
+        derived, full = walk_lengths(d)
+        t = [time_ms(lambda ln=ln: run(ln))
              for ln in (derived, full, full, derived)]
         der = float(np.median([t[0][0], t[3][0]]))
         ful = float(np.median([t[1][0], t[2][0]]))
@@ -785,9 +841,7 @@ def main() -> int:
     X4 = X[:, :4].contiguous()
     g4 = X4.T @ X4
     def k5(xk, rows=None):
-        return lambda: pjds_matmat_kernel_call(
-            d_s.val, d_s.col_idx, d_s.block_start, xk, n_blocks=n_blocks,
-            max_col=d_s.max_col, out_row=rows, n_out=n)
+        return lambda: k5_with(d_s, d_s.warp_len, xk, rows, n)
 
     Y_p = k5(X)()
     unperm64 = unperm_s.long()

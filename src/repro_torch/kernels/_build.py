@@ -20,7 +20,7 @@ import tempfile
 import time
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "build_all", "build_log",
-           "load", "check"]
+           "ptxas_usage", "load", "check"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("pjds_spmv", "sell_spmv", "fused_iter", "ellr_spmv",
@@ -100,6 +100,30 @@ def build_log(name: str) -> str:
         return _BUILD_LOG[name]
     f = build_dir() / f"{name}.log"
     return f.read_text() if f.exists() else ""
+
+
+def ptxas_usage(log: str) -> dict:
+    """``{kernel: {"registers": per thread, "spill_stores": bytes}}``
+    from an nvcc build log (``-Xptxas -v``), one entry per compiled
+    kernel (every template instance), names demangled by the toolkit's
+    ``cu++filt``."""
+    out, entry, spill = {}, None, 0
+    for ln in log.splitlines():
+        if "Compiling entry function '" in ln:
+            entry, spill = ln.split("'")[1], 0
+        elif "bytes spill stores" in ln:
+            spill = int(ln.split("bytes spill stores")[0].split(",")[-1])
+        elif entry is not None and "Used " in ln and " registers" in ln:
+            out[entry] = {"registers": int(ln.split("Used ")[1].split()[0]),
+                          "spill_stores": spill}
+            entry = None
+    if not out:
+        return out
+    names = subprocess.run(
+        [str(pathlib.Path(_nvcc()).with_name("cu++filt")), *out],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.splitlines()
+    return dict(zip(names, out.values()))
 
 
 def load(name: str):

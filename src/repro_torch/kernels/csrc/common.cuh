@@ -25,38 +25,11 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// Sum of one sorted row: lane r of a block walks its diagonals,
-// accumulating val * x[col] in f32 (bf16 values widen before the
-// product; int16 indices widen before the gather).
-template <typename V, typename I>
-__device__ __forceinline__ float row_dot(const V* __restrict__ val,
-                                         const I* __restrict__ col,
-                                         const float* __restrict__ x,
-                                         int j0, int j1, int b_r, int r) {
-  float acc = 0.f;
-  size_t k = (size_t)j0 * b_r + r;
-  for (int j = j0; j < j1; ++j, k += b_r) {
-    acc += to_f32(val[k]) * __ldg(x + (int)col[k]);
-  }
-  return acc;
-}
-
-// One CTA per row block, one thread per row lane: y_sorted[b*b_r + r].
-template <typename V, typename I>
-__global__ void block_rows_kernel(const V* __restrict__ val,
-                                  const I* __restrict__ col,
-                                  const int* __restrict__ block_start,
-                                  const float* __restrict__ x,
-                                  float* __restrict__ y, int b_r) {
-  const int b = blockIdx.x, r = threadIdx.x;
-  y[(size_t)b * b_r + r] =
-      row_dot(val, col, x, block_start[b], block_start[b + 1], b_r, r);
-}
-
-// The length-aware walk of K1 and K2.  Lane r of row block b walks its
-// first warp_len diagonals -- warp_len holds one length per 32 lanes of
-// a block (ops.sell_warp_len: up to the last diagonal in which any of
-// the 32 holds a slot that is not exactly padding), clamped to the
+// The length-aware walk of K1, K2 and K3 (K5 walks the same lengths for
+// a block of columns).  Lane r of row block b walks its first warp_len
+// diagonals -- warp_len holds one length per 32 lanes of a block
+// (ops.sell_warp_len: up to the last diagonal in which any of the 32
+// holds a slot that is not exactly padding), clamped to the
 // block's stored length -- four diagonals per step, so each thread has
 // four value and index loads and then four gathers of x in flight.  The
 // value and index streams are read once (__ldcs, evict-first), x
@@ -67,7 +40,8 @@ __global__ void block_rows_kernel(const V* __restrict__ val,
 // short adds 0.f * x[0] once instead.  For a finite x[0] each skipped
 // term is +-0, and adding +-0 to an f32 sum that starts at +0 never
 // changes it (the sum can never become -0), so y is bit for bit that of
-// the full walk; a NaN or Inf in x[0] poisons the same rows.
+// the full walk; a NaN or Inf in x[0] poisons the same rows.  The rule
+// holds per column of a block of right-hand sides alike (K5).
 template <typename V, typename I>
 __device__ __forceinline__ float lane_sum(const V* __restrict__ val,
                                           const I* __restrict__ col,
@@ -101,6 +75,87 @@ __device__ __forceinline__ float lane_sum(const V* __restrict__ val,
   return acc;
 }
 
+// Threads of a window CTA (K2, K3): one per row lane of kWindowThreads
+// / b_r row blocks at a time (at least one block, at most the window's
+// w_b), walking the window's blocks in turns.  One thread per row of the
+// whole window (up to 1024) was about 1.2 x slower for K2 and K3 on sAMG
+// (kernel_ab.py): sigma-sorted blocks differ in length, and the CTA's
+// warps idled at the slab barrier until the window's longest block was
+// done.  But a matrix with few windows (Poisson 512^2: 256) then leaves
+// most of the card's thread slots (2048 per SM on an H100) empty, and K3
+// ran 2.3 x slower there than with one thread per row; so when n_win
+// CTAs of that shape cannot fill the card, each window gets as many more
+// row blocks walked at once as filling it takes.  A row's sum is one
+// thread's walk whatever the shape, so y's bits do not depend on it (K3's
+// dots do, in their rounding, through the per-thread partials: the same
+// card and matrix always give the same shape).
+constexpr int kWindowThreads = 128;
+
+inline int window_cta_threads(int b_r, int w_b, int n_win) {
+  int per = kWindowThreads / b_r;          // row blocks walked at once
+  if (per < 1) per = 1;
+  int dev = 0, sms = 0, slots = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&slots, cudaDevAttrMaxThreadsPerMultiProcessor,
+                         dev);
+  const long rows = (long)n_win * b_r;
+  const long fill = ((long)slots * sms + rows - 1) / rows;
+  if (fill > per) per = (int)fill;         // too few windows to fill it
+  if (per > w_b) per = w_b;
+  return per * b_r;
+}
+
+// The sigma-window walk of K2, shared by K3.  CTA blockIdx.x owns the
+// window's row blocks [blockIdx.x * w_b, + w_b): its threads walk them
+// in turns (lane_sum) and drop the sorted row sums into the
+// shared-memory slab (w_b * b_r floats); after the barrier they write
+// y[g] = slab[inv_perm[g] - row0] coalesced, in ORIGINAL row order, and
+// hand each row they write to epi(g, y[g]).  Rows never leave their
+// window, so inv_perm stays inside the slab.
+template <typename V, typename I, typename Epi>
+__device__ __forceinline__ void window_spmv(const V* __restrict__ val,
+                                            const I* __restrict__ col,
+                                            const int* __restrict__ block_start,
+                                            const int* __restrict__ warp_len,
+                                            const int* __restrict__ inv_perm,
+                                            const float* __restrict__ x,
+                                            float* __restrict__ y,
+                                            float* slab, int n_blocks,
+                                            int b_r, int w_b, Epi&& epi) {
+  const int blk0 = blockIdx.x * w_b;
+  const int nb = min(w_b, n_blocks - blk0);
+  const int per = blockDim.x / b_r;
+  const int r = threadIdx.x % b_r, q = threadIdx.x / b_r;
+  for (int bb = q; bb < nb; bb += per)
+    slab[bb * b_r + r] = lane_sum(val, col, block_start, warp_len, x,
+                                  blk0 + bb, b_r, r);
+  __syncthreads();
+  const int row0 = blk0 * b_r;
+  const int rows = nb * b_r;
+  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+    const int g = row0 + i;
+    const float yo = slab[inv_perm[g] - row0];
+    y[g] = yo;
+    epi(g, yo);
+  }
+}
+
+// The device-memory path of K2 and K3 (the slab would not fit): one CTA
+// per row block, one thread per lane, the same walk into the sorted
+// scratch vector ys, which a gather pass then unpermutes.
+template <typename V, typename I>
+__global__ void sell_block_kernel(const V* __restrict__ val,
+                                  const I* __restrict__ col,
+                                  const int* __restrict__ block_start,
+                                  const int* __restrict__ warp_len,
+                                  const float* __restrict__ x,
+                                  float* __restrict__ ys, int b_r) {
+  const int b = blockIdx.x, r = threadIdx.x;
+  ys[(size_t)b * b_r + r] =
+      lane_sum(val, col, block_start, warp_len, x, b, b_r, r);
+}
+
 // Deterministic sum of five per-thread values over the CTA (blockDim a
 // multiple of 32): warp shuffles, then warp 0 over the warp sums.  No
 // atomics, so a solve repeats bit for bit.
@@ -127,15 +182,6 @@ __device__ __forceinline__ void block_sum5(float v[5], float* out) {
       if (lane == 0) out[d] = s;
     }
   }
-}
-
-// Threads of a window CTA: one per row lane of as many row blocks as fit
-// in 1024 threads (at most the window's w_b blocks).
-inline int window_threads(int b_r, int w_b) {
-  int per = 1024 / b_r;
-  if (per < 1) per = 1;
-  if (per > w_b) per = w_b;
-  return per * b_r;
 }
 
 }  // namespace repro

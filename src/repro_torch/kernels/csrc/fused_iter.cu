@@ -4,23 +4,29 @@
 // Replaces the Pallas kernel repro/kernels/fused_iter.py
 // fused_spmv_dots_kernel_call (body _fused_iter_kernel), which extends
 // the SELL window epilogue: while the unpermuted slab is still in VMEM
-// it reduces lane partials against two weight slabs.  Here the window
-// CTA of K2 does the same while the slab is in shared memory: each
-// thread multiplies the rows it writes out by w1[i] / w2[i], and the
-// CTA reduces its five partials with warp shuffles into one row of a
-// (n_win, 5) buffer.  A second stage (one CTA per dot, f64 sums in a
-// fixed order) folds the rows into the five scalars.  No float atomics
-// anywhere, so a solve is deterministic.
+// it reduces lane partials against two weight slabs.  Here K3 is K2's
+// window kernel plus an epilogue: the same sigma-window CTA (128 threads,
+// more when too few windows would leave the card idle) runs the same walk (repro::window_spmv in common.cuh: each warp walks
+// its derived warp_len diagonals, four per step with the loads in
+// flight, and adds the skipped padding's 0 * x[0] once) and writes the
+// same y, so K3's y is K2's y bit for bit by construction.  While the
+// slab is in shared memory each thread multiplies the rows it writes by
+// w1[i] / w2[i], and the CTA reduces its five partials with warp
+// shuffles into one row of a (n_win, 5) buffer.  A second stage (one
+// CTA per dot, f64 sums in a fixed order) folds the rows into the five
+// scalars.  No float atomics anywhere, so a solve repeats bit for bit.
 //
 // Every window stores at least one chunk (formats.py: block_len >= 1
 // diagonal), so the reference kernel's <w2,w2> / <w1,w2> caveat for
 // empty windows never arises and all five dots run over every row.
 //
 // When the slab does not fit shared memory the unpermute goes through
-// device memory as in K2, and the dots ride the gather pass instead.
+// device memory as in K2 (K2's repro::sell_block_kernel into a scratch
+// vector), and the dots ride the gather pass instead.
 //
-// Bound on an H100: bytes -- K2's traffic plus w1 and w2 read once and
-// the (n_part, 5) partials written and read once.
+// Bound on an H100: bytes -- K2's traffic (the walked slots, 1.05 x nnz
+// on sAMG, plus x, inv_perm, warp_len and y) plus w1 and w2 read once
+// and the (n_part, 5) partials written and read once.
 #include "common.cuh"
 
 namespace {
@@ -28,41 +34,27 @@ namespace {
 constexpr int kGatherRows = 2048;   // rows per CTA of the gather-dots pass
 
 template <typename V, typename I>
-__global__ void fused_window_kernel(const V* __restrict__ val,
-                                    const I* __restrict__ col,
-                                    const int* __restrict__ block_start,
-                                    const int* __restrict__ inv_perm,
-                                    const float* __restrict__ x,
-                                    const float* __restrict__ w1,
-                                    const float* __restrict__ w2,
-                                    float* __restrict__ y,
-                                    float* __restrict__ part, int n_blocks,
-                                    int b_r, int w_b) {
+__global__ void __launch_bounds__(1024)
+    fused_window_kernel(const V* __restrict__ val, const I* __restrict__ col,
+                        const int* __restrict__ block_start,
+                        const int* __restrict__ warp_len,
+                        const int* __restrict__ inv_perm,
+                        const float* __restrict__ x,
+                        const float* __restrict__ w1,
+                        const float* __restrict__ w2, float* __restrict__ y,
+                        float* __restrict__ part, int n_blocks, int b_r,
+                        int w_b) {
   extern __shared__ float slab[];
-  const int blk0 = blockIdx.x * w_b;
-  const int nb = min(w_b, n_blocks - blk0);
-  const int per = blockDim.x / b_r;
-  const int r = threadIdx.x % b_r, q = threadIdx.x / b_r;
-  for (int bb = q; bb < nb; bb += per) {
-    const int b = blk0 + bb;
-    slab[bb * b_r + r] = repro::row_dot(val, col, x, block_start[b],
-                                        block_start[b + 1], b_r, r);
-  }
-  __syncthreads();
-  const int row0 = blk0 * b_r;
-  const int rows = nb * b_r;
   float acc[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
-    const int g = row0 + i;
-    const float yo = slab[inv_perm[g] - row0];
-    const float a = w1[g], c = w2[g];
-    y[g] = yo;
-    acc[0] += yo * a;
-    acc[1] += yo * c;
-    acc[2] += yo * yo;
-    acc[3] += c * c;
-    acc[4] += a * c;
-  }
+  repro::window_spmv(val, col, block_start, warp_len, inv_perm, x, y, slab,
+                     n_blocks, b_r, w_b, [&](int g, float yo) {
+                       const float a = w1[g], c = w2[g];
+                       acc[0] += yo * a;
+                       acc[1] += yo * c;
+                       acc[2] += yo * yo;
+                       acc[3] += c * c;
+                       acc[4] += a * c;
+                     });
   repro::block_sum5(acc, part + (size_t)blockIdx.x * 5);
 }
 
@@ -113,34 +105,35 @@ REPRO_ERROR_STRING_FN(fused_iter_error_string)
 
 extern "C" int fused_iter_gather_rows() { return kGatherRows; }
 
+// warp_len: (n_blocks * b_r / 32,) int32 diagonals to walk per warp.
 // scratch == nullptr: shared-memory slab path, part holds n_win rows of
 // five; otherwise scratch holds n_blocks * b_r floats and part
 // ceil(n / kGatherRows) rows.  dots receives the five scalars.
 extern "C" int fused_spmv_dots(const void* val, int val_kind,
                                const void* col, int idx_kind,
                                const int* block_start, const int* inv_perm,
-                               const float* x, const float* w1,
-                               const float* w2, float* y, float* part,
-                               float* dots, float* scratch, int n_blocks,
-                               int b_r, int w_b, void* stream) {
+                               const int* warp_len, const float* x,
+                               const float* w1, const float* w2, float* y,
+                               float* part, float* dots, float* scratch,
+                               int n_blocks, int b_r, int w_b, void* stream) {
   if (n_blocks <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int n_part;
   if (scratch == nullptr) {
     n_part = (n_blocks + w_b - 1) / w_b;
-    const int threads = repro::window_threads(b_r, w_b);
+    const int threads = repro::window_cta_threads(b_r, w_b, n_part);
     const size_t slab = (size_t)w_b * b_r * sizeof(float);
     REPRO_DISPATCH(val_kind, idx_kind,
                    fused_window_kernel<V, I><<<n_part, threads, slab, s>>>(
-                       (const V*)val, (const I*)col, block_start, inv_perm,
-                       x, w1, w2, y, part, n_blocks, b_r, w_b));
+                       (const V*)val, (const I*)col, block_start, warp_len,
+                       inv_perm, x, w1, w2, y, part, n_blocks, b_r, w_b));
   } else {
     const int n = n_blocks * b_r;
     n_part = (n + kGatherRows - 1) / kGatherRows;
     REPRO_DISPATCH(val_kind, idx_kind,
-                   repro::block_rows_kernel<V, I><<<n_blocks, b_r, 0, s>>>(
-                       (const V*)val, (const I*)col, block_start, x,
-                       scratch, b_r));
+                   repro::sell_block_kernel<V, I><<<n_blocks, b_r, 0, s>>>(
+                       (const V*)val, (const I*)col, block_start, warp_len,
+                       x, scratch, b_r));
     unpermute_dots_kernel<<<n_part, 256, 0, s>>>(scratch, inv_perm, w1, w2,
                                                  y, part, n);
   }

@@ -7,14 +7,34 @@
 // chunks and gathers (chunk_l, b_r) rows of a resident X tile per step.
 // Here, as in K1, one CTA owns one row block and one thread one row
 // lane; the thread keeps a register tile of KT accumulators (KT = 1, 2,
-// 4 or 8 columns of Y) and walks its block's jagged diagonals once per
-// column tile.  X is row-major (n_cols_pad, k), so the gathered row
-// X[col, c0 : c0 + KT] is KT contiguous floats: one or two 16-byte loads
-// when k is a multiple of 4, scalar loads otherwise; the thread's row of
-// Y is stored the same way (Y is allocated by the wrapper, so a row
-// of k % 4 == 0 floats is 16-byte aligned).  k above 8 runs
+// 4 or 8 columns of Y).  X is row-major (n_cols_pad, k), so the gathered
+// row X[col, c0 : c0 + KT] is KT contiguous floats: one or two 16-byte
+// loads when k is a multiple of 4, scalar loads otherwise; the thread's
+// row of Y is stored the same way (Y is allocated by the wrapper, so a
+// row of k % 4 == 0 floats is 16-byte aligned).  k above 8 runs
 // ceil(k / 8) column tiles on the grid's y axis; each re-reads the
 // matrix stream, which stays in L2 only for small matrices.
+//
+// What bounds it on an H100: bytes.  Under the operator K5 runs on
+// SELL's (or pJDS's) layout, whose blocks store every lane to the
+// block's longest row rounded up to diag_align: 2.70 x nnz slots on the
+// 3.4 M-row sAMG's SELL layout.  So each lane walks only its warp's
+// derived warp_len diagonals (ops.sell_warp_len, the lengths K1 and K2
+// walk: 1.05 x nnz there), clamped to the block's stored length, and
+// issues the value/index loads (__ldcs, read once) and then the X-row
+// gathers (__ldg) of kStep* diagonals before their FMAs, so that many
+// loads are in flight per thread.  The bytes it must move are the
+// walked slots times (value + index width) per column tile, X read and
+// Y written once; 2 k flops per slot, so the flop bound only matters
+// for k in the hundreds.
+//
+// Padding is kept exactly, per column.  Every slot past warp_len is
+// padding (val 0, col PAD_COL = 0), whose products the full walk would
+// add as 0 * X[0, c]; a lane whose warp stops short adds 0.f * X[0, c]
+// once for each of its columns instead.  For a finite X[0, c] that
+// leaves column c's sum bit for bit that of the full walk (common.cuh,
+// lane_sum, says why), and a NaN or Inf in X[0, c] poisons column c of
+// the same rows as the full walk and the plain version.
 //
 // With a row map (out_row != nullptr, one int32 per stored row lane)
 // the thread of row lane p stores its KT sums at Y row out_row[p]
@@ -22,51 +42,103 @@
 // nothing: the operator's unpermute back to the original row order is
 // folded into the store, as K2 folds its own.  The map is a bijection
 // onto the rows of Y, so every row is written exactly once.
-//
-// Bound on an H100: bytes -- the stored elements (value + index width)
-// once per column tile, X read and Y written once; 2 * k flops per
-// stored element, so the flop bound only matters for k in the hundreds.
 #include "common.cuh"
 
 namespace {
+
+// Diagonals per step for a tile of KT columns: their value and index
+// loads, then their X-row gathers, are all issued before the first FMA.
+// More registers per thread past about 32-40 cost occupancy (ptxas -v,
+// in the build log); kernel_ab.py times the alternatives.  X is
+// gathered through the read-only path (__ldg), whose L1 catches the
+// columns that neighbouring rows share: through L2 only (__ldcg) K5 ran
+// 1.25-1.31 x slower on sAMG.
+constexpr int kStepNarrow = 4;   // KT = 1, 2
+constexpr int kStepK4 = 4;       // KT = 4
+constexpr int kStepK8 = 2;       // KT = 8
+
+template <int KT>
+__host__ __device__ constexpr int step_of() {
+  return KT == 8 ? kStepK8 : KT == 4 ? kStepK4 : kStepNarrow;
+}
+
+// xv[q] = X[c, c0 + q] for q < kt (xr points at X[c, c0]), 0 past kt;
+// 16-byte loads when vec4.
+template <int KT>
+__device__ __forceinline__ void load_row(const float* __restrict__ xr,
+                                         int kt, int vec4, float (&xv)[KT]) {
+  if (KT >= 4 && vec4) {
+#pragma unroll
+    for (int q = 0; q < KT / 4; ++q) {
+      float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (4 * q < kt) u = __ldg((const float4*)xr + q);
+      xv[4 * q + 0] = u.x;
+      xv[4 * q + 1] = u.y;
+      xv[4 * q + 2] = u.z;
+      xv[4 * q + 3] = u.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < KT; ++q) xv[q] = q < kt ? __ldg(xr + q) : 0.f;
+  }
+}
 
 template <typename V, typename I, int KT>
 __global__ void spmm_kernel(const V* __restrict__ val,
                             const I* __restrict__ col,
                             const int* __restrict__ block_start,
+                            const int* __restrict__ warp_len,
                             const float* __restrict__ X,
                             const int* __restrict__ out_row,
                             float* __restrict__ Y, int b_r, int k,
                             int vec4) {
+  constexpr int U = step_of<KT>();
   const int b = blockIdx.x, r = threadIdx.x;
   const int row = out_row ? out_row[(size_t)b * b_r + r] : b * b_r + r;
   if (row < 0) return;  // padding lane under a row map: no output row
   const int c0 = blockIdx.y * KT;
   const int kt = min(KT, k - c0);
+  const int j0 = block_start[b];
+  const int stored = block_start[b + 1] - j0;
+  const int n = min(max(warp_len[b * (b_r >> 5) + (r >> 5)], 0), stored);
+  const size_t st = (size_t)b_r;
+  const V* vp = val + (size_t)j0 * st + r;
+  const I* cp = col + (size_t)j0 * st + r;
+  const float* xc = X + c0;
   float acc[KT];
 #pragma unroll
   for (int q = 0; q < KT; ++q) acc[q] = 0.f;
-  const int j0 = block_start[b], j1 = block_start[b + 1];
-  size_t off = (size_t)j0 * b_r + r;
-  for (int j = j0; j < j1; ++j, off += (size_t)b_r) {
-    const float v = repro::to_f32(val[off]);
-    const float* xr = X + (size_t)(int)col[off] * k + c0;
-    if (KT >= 4 && vec4) {
+  int j = 0;
+  for (; j + U <= n; j += U, vp += U * st, cp += U * st) {
+    float v[U];
+    int c[U];
 #pragma unroll
-      for (int q = 0; q < KT / 4; ++q) {
-        if (4 * q < kt) {
-          const float4 u = __ldg((const float4*)xr + q);
-          acc[4 * q + 0] += v * u.x;
-          acc[4 * q + 1] += v * u.y;
-          acc[4 * q + 2] += v * u.z;
-          acc[4 * q + 3] += v * u.w;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int q = 0; q < KT; ++q)
-        if (q < kt) acc[q] += v * __ldg(xr + q);
+    for (int u = 0; u < U; ++u) {
+      v[u] = repro::to_f32(__ldcs(vp + u * st));
+      c[u] = (int)__ldcs(cp + u * st);
     }
+    float xv[U][KT];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      load_row<KT>(xc + (size_t)c[u] * k, kt, vec4, xv[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int q = 0; q < KT; ++q) acc[q] += v[u] * xv[u][q];
+    }
+  }
+  for (; j < n; ++j, vp += st, cp += st) {
+    const float v = repro::to_f32(__ldcs(vp));
+    float xv[KT];
+    load_row<KT>(xc + (size_t)(int)__ldcs(cp) * k, kt, vec4, xv);
+#pragma unroll
+    for (int q = 0; q < KT; ++q) acc[q] += v * xv[q];
+  }
+  if (n < stored) {       // the skipped padding's 0 * X[0, c], once
+    float xv[KT];
+    load_row<KT>(xc, kt, vec4, xv);
+#pragma unroll
+    for (int q = 0; q < KT; ++q) acc[q] += 0.f * xv[q];
   }
   float* yr = Y + (size_t)row * k + c0;
   if (KT >= 4 && vec4) {
@@ -84,20 +156,21 @@ __global__ void spmm_kernel(const V* __restrict__ val,
 
 template <typename V, typename I>
 cudaError_t launch(const V* val, const I* col, const int* block_start,
-                   const float* X, const int* out_row, float* Y,
-                   int n_blocks, int b_r, int k, int vec4, cudaStream_t s) {
+                   const int* warp_len, const float* X, const int* out_row,
+                   float* Y, int n_blocks, int b_r, int k, int vec4,
+                   cudaStream_t s) {
   if (k == 1) {
     spmm_kernel<V, I, 1><<<dim3(n_blocks, 1), b_r, 0, s>>>(
-        val, col, block_start, X, out_row, Y, b_r, k, vec4);
+        val, col, block_start, warp_len, X, out_row, Y, b_r, k, vec4);
   } else if (k == 2) {
     spmm_kernel<V, I, 2><<<dim3(n_blocks, 1), b_r, 0, s>>>(
-        val, col, block_start, X, out_row, Y, b_r, k, vec4);
+        val, col, block_start, warp_len, X, out_row, Y, b_r, k, vec4);
   } else if (k <= 4) {
     spmm_kernel<V, I, 4><<<dim3(n_blocks, 1), b_r, 0, s>>>(
-        val, col, block_start, X, out_row, Y, b_r, k, vec4);
+        val, col, block_start, warp_len, X, out_row, Y, b_r, k, vec4);
   } else {
     spmm_kernel<V, I, 8><<<dim3(n_blocks, (k + 7) / 8), b_r, 0, s>>>(
-        val, col, block_start, X, out_row, Y, b_r, k, vec4);
+        val, col, block_start, warp_len, X, out_row, Y, b_r, k, vec4);
   }
   return cudaGetLastError();
 }
@@ -106,20 +179,21 @@ cudaError_t launch(const V* val, const I* col, const int* block_start,
 
 REPRO_ERROR_STRING_FN(pjds_spmm_error_string)
 
+// warp_len: (n_blocks * b_r / 32,) int32 diagonals to walk per warp.
 // X: (n_cols_pad, k) row-major f32; Y row-major f32, (n_blocks * b_r, k)
 // without a row map, (number of mapped rows, k) with one.
 // vec4 != 0 promises k % 4 == 0 and X and Y 16-byte aligned (float4
 // loads and stores).
 extern "C" int pjds_spmm(const void* val, int val_kind, const void* col,
                          int idx_kind, const int* block_start,
-                         const float* X, const int* out_row, float* Y,
-                         int n_blocks, int b_r, int k, int vec4,
-                         void* stream) {
+                         const int* warp_len, const float* X,
+                         const int* out_row, float* Y, int n_blocks, int b_r,
+                         int k, int vec4, void* stream) {
   if (n_blocks <= 0 || k <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   REPRO_DISPATCH(val_kind, idx_kind,
                  return (int)launch<V, I>((const V*)val, (const I*)col,
-                                          block_start, X, out_row, Y,
-                                          n_blocks, b_r, k, vec4, s));
+                                          block_start, warp_len, X, out_row,
+                                          Y, n_blocks, b_r, k, vec4, s));
   return 0;
 }

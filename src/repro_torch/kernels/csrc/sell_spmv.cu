@@ -6,9 +6,10 @@
 // in VMEM and gathers it back to the original order after the window's
 // last chunk, so the unpermute never touches HBM.  Here one CTA owns one
 // window: its 128 threads (one per row lane of 128 / b_r row blocks at a
-// time) walk the window's blocks in turns and drop the sorted sums into
-// a shared-memory slab (sigma = 1024 -> 4 KB f32); after
-// __syncthreads the CTA writes y[i] = slab[inv_perm[i] - row0]
+// time; more when too few windows would leave the card idle,
+// repro::window_cta_threads) walk the window's blocks in turns and drop
+// the sorted sums into a shared-memory slab (sigma = 1024 -> 4 KB f32);
+// after __syncthreads the CTA writes y[i] = slab[inv_perm[i] - row0]
 // coalesced, in original order.  Rows never leave their window, so
 // inv_perm stays inside the slab.
 //
@@ -19,8 +20,9 @@
 // warp walks only its first warp_len[w] diagonals -- the slots up to the
 // last one in which any of its 32 lanes holds a non-padding entry,
 // derived once at conversion (ops.sell_warp_len) -- which is 1.05 x nnz
-// on sAMG, four diagonals per step with the loads in flight
-// (repro::lane_sum in common.cuh, shared with K1).
+// on sAMG, four diagonals per step with the loads in flight.  The
+// window walk is repro::window_spmv in common.cuh, which K3 calls too
+// (with its dots as the epilogue), over repro::lane_sum, which K1 calls.
 //
 // Padding is kept exactly.  A padded slot holds val 0 and col PAD_COL
 // (0), and the reference adds its 0 * x[0] to the row, so a NaN or Inf
@@ -41,14 +43,6 @@
 
 namespace {
 
-// Threads of a window CTA: one per row lane of 128 / b_r row blocks at
-// a time (at least one block, at most the window's w_b), walking the
-// window's blocks in turns.  One thread per row of the whole window (up
-// to 1024) was about 1.2 x slower on sAMG (kernel_ab.py): sigma-sorted
-// blocks differ in length, and the CTA's warps idled at the slab barrier
-// until the window's longest block was done.
-constexpr int kWindowThreads = 128;
-
 template <typename V, typename I>
 __global__ void __launch_bounds__(1024)
     sell_window_kernel(const V* __restrict__ val, const I* __restrict__ col,
@@ -58,32 +52,8 @@ __global__ void __launch_bounds__(1024)
                        const float* __restrict__ x, float* __restrict__ y,
                        int n_blocks, int b_r, int w_b) {
   extern __shared__ float slab[];
-  const int blk0 = blockIdx.x * w_b;
-  const int nb = min(w_b, n_blocks - blk0);
-  const int per = blockDim.x / b_r;
-  const int r = threadIdx.x % b_r, q = threadIdx.x / b_r;
-  for (int bb = q; bb < nb; bb += per)
-    slab[bb * b_r + r] = repro::lane_sum(val, col, block_start, warp_len, x,
-                                         blk0 + bb, b_r, r);
-  __syncthreads();
-  const int row0 = blk0 * b_r;
-  const int rows = nb * b_r;
-  for (int i = threadIdx.x; i < rows; i += blockDim.x)
-    y[row0 + i] = slab[inv_perm[row0 + i] - row0];
-}
-
-// Device-memory path: one CTA per row block, one thread per lane, into
-// the sorted scratch vector.
-template <typename V, typename I>
-__global__ void sell_block_kernel(const V* __restrict__ val,
-                                  const I* __restrict__ col,
-                                  const int* __restrict__ block_start,
-                                  const int* __restrict__ warp_len,
-                                  const float* __restrict__ x,
-                                  float* __restrict__ ys, int b_r) {
-  const int b = blockIdx.x, r = threadIdx.x;
-  ys[(size_t)b * b_r + r] =
-      repro::lane_sum(val, col, block_start, warp_len, x, b, b_r, r);
+  repro::window_spmv(val, col, block_start, warp_len, inv_perm, x, y, slab,
+                     n_blocks, b_r, w_b, [](int, float) {});
 }
 
 __global__ void unpermute_kernel(const float* __restrict__ ys,
@@ -110,8 +80,7 @@ extern "C" int sell_spmv(const void* val, int val_kind, const void* col,
   cudaStream_t s = (cudaStream_t)stream;
   if (scratch == nullptr) {
     const int n_win = (n_blocks + w_b - 1) / w_b;
-    const int per = kWindowThreads / b_r;     // row blocks walked at once
-    const int threads = (per < 1 ? 1 : per < w_b ? per : w_b) * b_r;
+    const int threads = repro::window_cta_threads(b_r, w_b, n_win);
     const size_t slab = (size_t)w_b * b_r * sizeof(float);
     REPRO_DISPATCH(val_kind, idx_kind,
                    sell_window_kernel<V, I><<<n_win, threads, slab, s>>>(
@@ -120,7 +89,7 @@ extern "C" int sell_spmv(const void* val, int val_kind, const void* col,
   } else {
     const int n = n_blocks * b_r;
     REPRO_DISPATCH(val_kind, idx_kind,
-                   sell_block_kernel<V, I><<<n_blocks, b_r, 0, s>>>(
+                   repro::sell_block_kernel<V, I><<<n_blocks, b_r, 0, s>>>(
                        (const V*)val, (const I*)col, block_start, warp_len,
                        x, scratch, b_r));
     unpermute_kernel<<<(n + 255) / 256, 256, 0, s>>>(scratch, inv_perm, y,

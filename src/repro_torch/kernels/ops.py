@@ -8,7 +8,7 @@ Port of ``repro/kernels/ops.py``:
   strip) offsets ``block_start`` / ``strip_start`` that the kernels loop
   over, the block (strip) id per stored row that the plain versions
   segment-sum by, the largest stored column (checked against x), and
-  for K1 / K2 / K6 how far the stored slots hold more than padding
+  for K1-K3, K5 and K6 how far the stored slots hold more than padding
   (``sell_warp_len`` / ``cmrs_strip_nnz``, derived on the device).
 * **Products** -- ``ell_matvec`` (K4), ``pjds_matvec`` (K1),
   ``sell_matvec`` (K2), ``cmrs_matvec`` (K6) and ``pjds_matmat`` (K5)
@@ -101,8 +101,8 @@ class PJDSDevice:
     or bf16 value stream, ``col_idx`` the int32 or int16 index stream,
     both (total_jds, b_r); ``block_start`` (n_blocks + 1,) int32 bounds
     each row block's diagonals for the kernels; ``warp_len``
-    (n_blocks * ceil(b_r / 32),) int32 is the diagonals K1 walks for
-    each 32 lanes of a block (:func:`sell_warp_len`); ``row_block``
+    (n_blocks * ceil(b_r / 32),) int32 is the diagonals K1 and K5 walk
+    for each 32 lanes of a block (:func:`sell_warp_len`); ``row_block``
     (total_jds,) int32 is the block of each diagonal for the plain
     version; ``max_col`` the largest stored column index."""
 
@@ -126,8 +126,8 @@ class SELLDevice:
     """Device-resident SELL-C-sigma operand: the pJDS layout plus the
     window-local inverse permutation ``inv_perm`` (n_blocks * b_r,)
     int32 that K2/K3 apply inside each window, and ``warp_len``
-    (n_blocks * ceil(b_r / 32),) int32, the diagonals K2 walks for each
-    32 lanes of a block (:func:`sell_warp_len`)."""
+    (n_blocks * ceil(b_r / 32),) int32, the diagonals K2, K3 and K5
+    walk for each 32 lanes of a block (:func:`sell_warp_len`)."""
 
     val: torch.Tensor
     col_idx: torch.Tensor
@@ -211,10 +211,10 @@ def check_row_in_strip(ris: np.ndarray, b_r: int) -> None:
         raise ValueError("row_in_strip values must lie in [0, b_r)")
 
 
-# K1, K2 and K6 walk only the stored slots that hold more than padding.  How
-# far that is comes from the stored arrays alone, by one reduction on
-# the device, so a container carried across from the reference gets the
-# same lengths as one built here.  A slot is padding when it is exactly
+# K1, K2, K3, K5 and K6 walk only the stored slots that hold more than
+# padding.  How far that is comes from the stored arrays alone, by one
+# reduction on the device, so a container carried across from the
+# reference gets the same lengths as one built here.  A slot is padding when it is exactly
 # what the builders pad with: val == 0 and col == PAD_COL (and, for
 # CMRS, row id 0).  A stored explicit 0 at column 0 at the end of a row
 # looks the same and is skipped too; that is harmless, since its
@@ -225,10 +225,10 @@ def check_row_in_strip(ris: np.ndarray, b_r: int) -> None:
 def sell_warp_len(val: torch.Tensor, col_idx: torch.Tensor,
                   row_block: torch.Tensor, block_start: torch.Tensor,
                   n_blocks: int) -> torch.Tensor:
-    """K1's and K2's walk lengths (the pJDS layout both share),
-    (n_blocks * ceil(b_r / 32),) int32: for each 32 lanes of a row block,
-    the diagonals up to and including the last one in which any of them
-    holds a non-padding slot (0 if none)."""
+    """K1's, K2's, K3's and K5's walk lengths (the pJDS layout they
+    share), (n_blocks * ceil(b_r / 32),) int32: for each 32 lanes of a
+    row block, the diagonals up to and including the last one in which
+    any of them holds a non-padding slot (0 if none)."""
     total, b_r = val.shape
     w = -(-b_r // 32)
     real = (val != 0) | (col_idx != F.PAD_COL)
@@ -264,8 +264,8 @@ def cmrs_strip_nnz(val: torch.Tensor, col_idx: torch.Tensor,
 
 
 def stored_warp_len(block_start: torch.Tensor, b_r: int) -> torch.Tensor:
-    """K1 / K2 lengths that walk every stored diagonal (a timing
-    baseline)."""
+    """K1 / K2 / K3 / K5 lengths that walk every stored diagonal (a
+    timing baseline)."""
     return (block_start[1:] - block_start[:-1]).repeat_interleave(
         -(-b_r // 32)).contiguous()
 
@@ -386,8 +386,8 @@ def pjds_matmat(a: PJDSDevice, x: torch.Tensor,
     K5 for a CUDA tensor, the plain version for a CPU tensor.  Takes a
     ``SELLDevice`` too: its storage is the pJDS layout."""
     if resolve_backend(x, backend) == "kernel":
-        return pjds_matmat_kernel_call(a.val, a.col_idx, a.block_start, x,
-                                       n_blocks=a.n_blocks,
+        return pjds_matmat_kernel_call(a.val, a.col_idx, a.block_start,
+                                       a.warp_len, x, n_blocks=a.n_blocks,
                                        max_col=a.max_col)
     return R.pjds_matmat_ref(a.val, a.col_idx, a.row_block, x, a.n_blocks)
 
@@ -632,9 +632,9 @@ class SparseDevice:
         if self.fmt in ("sell", "pjds"):
             if resolve_backend(x, backend) == "kernel":
                 return pjds_matmat_kernel_call(
-                    d.val, d.col_idx, d.block_start, x, n_blocks=d.n_blocks,
-                    max_col=d.max_col, out_row=self.row_map(),
-                    n_out=self.n_rows)
+                    d.val, d.col_idx, d.block_start, d.warp_len, x,
+                    n_blocks=d.n_blocks, max_col=d.max_col,
+                    out_row=self.row_map(), n_out=self.n_rows)
             return pjds_matmat(d, x, backend).index_select(
                 0, self.stored_rows())
         if self.fmt == "ellpack_r":

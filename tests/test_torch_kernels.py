@@ -392,8 +392,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         pjds_matvec_kernel_call(d.val, d.col_idx, d.block_start, d.warp_len,
                                 x, n_blocks=d.n_blocks, max_col=d.max_col)
     with pytest.raises(ValueError, match="CUDA"):
-        pjds_matmat_kernel_call(d.val, d.col_idx, d.block_start, x[:, None],
-                                n_blocks=d.n_blocks, max_col=d.max_col)
+        pjds_matmat_kernel_call(d.val, d.col_idx, d.block_start, d.warp_len,
+                                x[:, None], n_blocks=d.n_blocks,
+                                max_col=d.max_col)
     e = TO.as_device(_TM, "ellpack_r", b_r=B_R, device="cpu").dev
     with pytest.raises(ValueError, match="CUDA"):
         ell_matvec_kernel_call(e.val, e.col_idx, e.rowlen, x,
@@ -408,6 +409,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         sell_matvec_kernel_call(s.val, s.col_idx, s.block_start, s.inv_perm,
                                 s.warp_len, x, n_blocks=s.n_blocks,
                                 sigma=s.sigma, max_col=s.max_col)
+    v = torch.zeros(s.n_rows_pad)
+    with pytest.raises(ValueError, match="CUDA"):
+        TFI.fused_spmv_dots_kernel_call(
+            s.val, s.col_idx, s.block_start, s.inv_perm, s.warp_len, v, v, v,
+            n_blocks=s.n_blocks, sigma=s.sigma, max_col=s.max_col)
 
 
 def test_cpu_wrappers_of_k4_k5_k6_take_the_plain_version():
@@ -618,6 +624,66 @@ def test_pjds_warp_len_matches_a_numpy_recount(name, b_r, diag_align):
             assert int(d.warp_len[1]) < 60
 
 
+def _np_matmat_walk(p, val, lengths, X):
+    """Y = A X over the host pJDS arrays ``p`` (values ``val``) in numpy
+    float32, one diagonal at a time in K5's order: lane r of block b
+    walks min(lengths[its warp], stored) diagonals and, if that stops
+    short of the block's stored length, adds 0 * X[0, :] once."""
+    w = p.b_r // 32
+    Y = np.zeros((p.n_rows_pad, X.shape[1]), np.float32)
+    for b in range(p.n_blocks):
+        j0, j1 = p.block_start[b], p.block_start[b + 1]
+        n = np.minimum(np.repeat(lengths[b * w:(b + 1) * w], 32), j1 - j0)
+        acc = np.zeros((p.b_r, X.shape[1]), np.float32)
+        for j in range(j1 - j0):
+            term = val[j0 + j][:, None] * X[p.col_idx[j0 + j]]
+            acc = np.where((j < n)[:, None], acc + term, acc)
+        short = (n < j1 - j0)[:, None]
+        acc = np.where(short, acc + np.float32(0) * X[0][None, :], acc)
+        Y[b * p.b_r:(b + 1) * p.b_r] = acc
+    return Y
+
+
+@pytest.mark.parametrize("poison", [None, float("nan"), float("inf")])
+@pytest.mark.parametrize("k", [1, 3, 4, 8, 12])
+def test_skipped_padding_keeps_every_columns_bits(k, poison):
+    # K5's rule, per column of a block of right-hand sides: walking each
+    # warp's derived length and adding 0 * X[0, c] once gives the bits of
+    # the full walk; a NaN or Inf in X[0, c] poisons column c -- of the
+    # same rows as the full walk and the plain version -- and no other
+    m = _edge_matrix()
+    p = TF.csr_to_pjds(m, b_r=64, diag_align=16, permuted_cols=False)
+    d = TO.to_device_pjds(p, chunk_l=16, device="cpu")
+    val = p.val.astype(np.float32)
+    derived = d.warp_len.numpy()
+    full = TO.stored_warp_len(d.block_start, p.b_r).numpy()
+    assert derived.sum() < full.sum()                     # skips padding
+    X = np.random.default_rng(16).standard_normal((m.n_rows, k)).astype(
+        np.float32)
+    c = k // 2
+    if poison is not None:
+        X[0, c] = poison
+    with np.errstate(invalid="ignore"):
+        y_full = _np_matmat_walk(p, val, full, X)
+        y_der = _np_matmat_walk(p, val, derived, X)
+    bad = np.isnan(y_der)
+    np.testing.assert_array_equal(bad, np.isnan(y_full))
+    np.testing.assert_array_equal(y_der[~bad].view(np.int32),
+                                  y_full[~bad].view(np.int32))
+    want = torch.isnan(TR.pjds_matmat_ref(d.val, d.col_idx, d.row_block,
+                                          torch.from_numpy(X),
+                                          d.n_blocks)).numpy()
+    np.testing.assert_array_equal(bad, want)
+    if poison is None:
+        assert not bad.any()
+    else:
+        assert bad[:, c].any()
+        assert not np.delete(bad, c, axis=1).any()
+    keep = [q for q in range(k) if poison is None or q != c]
+    if keep:                                # the finite columns are A X
+        _close(y_der[p.inv_perm[: m.n_rows]][:, keep],
+               _dense(m) @ X[:, keep].astype(np.float64))
+
 # ------------------------------------------------------------- on the card
 def _need_cuda():
     if not torch.cuda.is_available():
@@ -730,10 +796,11 @@ def test_k5_reads_strided_and_misaligned_x_correctly_on_card():
     p = TO.as_device(m, "pjds").dev
     n = m.n_rows
     big = torch.from_numpy(np.random.default_rng(3).standard_normal(
-        4 * n + 1).astype(np.float32)).cuda()
+        8 * n + 1).astype(np.float32)).cuda()
     strided = big[: 4 * n].view(n, 4)[:, ::2]          # (n, 2), stride 4
-    offset = big[1:].view(n, 4)                        # 4-byte offset
-    for xk in (strided, offset):
+    offset = big[1: 4 * n + 1].view(n, 4)              # 4-byte offset
+    offset8 = big[1:].view(n, 8)                       # k = 8, no float4
+    for xk in (strided, offset, offset8):
         _close(TO.pjds_matmat(p, xk).cpu(),
                TR.pjds_matmat_ref(p.val, p.col_idx, p.row_block, xk,
                                   p.n_blocks).cpu())
@@ -750,9 +817,10 @@ def test_k5_row_map_matches_plain_unpermute_on_card(fmt):
     for k in (1, 3, 8, 12):
         xk = torch.from_numpy(rng.standard_normal((m.n_rows, k)).astype(
             np.float32)).cuda()
-        y = pjds_matmat_kernel_call(d.val, d.col_idx, d.block_start, xk,
-                                    n_blocks=d.n_blocks, max_col=d.max_col,
-                                    out_row=rows, n_out=m.n_rows)
+        y = pjds_matmat_kernel_call(d.val, d.col_idx, d.block_start,
+                                    d.warp_len, xk, n_blocks=d.n_blocks,
+                                    max_col=d.max_col, out_row=rows,
+                                    n_out=m.n_rows)
         y_r = TR.pjds_matmat_ref(d.val, d.col_idx, d.row_block, xk,
                                  d.n_blocks).index_select(0, unperm)
         assert y.shape == (m.n_rows, k)
@@ -969,3 +1037,138 @@ def test_k4_matches_plain_and_keeps_nan_out_of_short_rows_on_card(which,
             d.val, d.col_idx, d.rowlen, xb)).cpu()[: m.n_rows]
         assert torch.equal(got, want)
         assert torch.equal(got, reads_col0)
+
+
+def _k3_k5_operands(m, tdt=None, idt="auto", sigma=None, fmt="sell",
+                    row_map=False):
+    """K3 and K5 on one operand of ``m``: (operand, k3(lengths, x, w1, w2),
+    k5(lengths, X), plain K5(X)); K5 with the operator's row map when
+    ``row_map``, in the permuted basis otherwise."""
+    sd = TO.as_device(m, fmt, sigma=sigma, dtype=tdt, index_dtype=idt)
+    d = sd.dev
+    rows = sd.row_map() if row_map else None
+
+    def k3(n, v, w1, w2):
+        return TFI.fused_spmv_dots_kernel_call(
+            d.val, d.col_idx, d.block_start, d.inv_perm, n, v, w1, w2,
+            n_blocks=d.n_blocks, sigma=d.sigma, max_col=d.max_col)
+
+    def k5(n, xk):
+        return pjds_matmat_kernel_call(
+            d.val, d.col_idx, d.block_start, n, xk, n_blocks=d.n_blocks,
+            max_col=d.max_col, out_row=rows, n_out=m.n_rows)
+
+    def plain5(xk):
+        y = TR.pjds_matmat_ref(d.val, d.col_idx, d.row_block, xk,
+                               d.n_blocks)
+        return y.index_select(0, sd.stored_rows()) if row_map else y
+
+    return d, k3, k5, plain5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt,idt", _ALL_POLICIES)
+@pytest.mark.parametrize("sigma", [None, 1 << 16])
+def test_k3_y_is_k2_y_and_keeps_the_full_walks_bits_on_card(sigma, tdt,
+                                                           idt):
+    # K3 runs K2's window walk (or, for sigma > n, K2's device-memory
+    # walk): its y is K2's y bit for bit; walking every stored diagonal
+    # changes no bit of y or of the dots; NaN / Inf in x[0] poisons the
+    # rows K2's and the plain version's poisons
+    _need_cuda()
+    m = TM.samg(scale=0.006)
+    d, k3, _, _ = _k3_k5_operands(m, tdt, idt, sigma)
+    assert str(d.col_idx.dtype) == f"torch.{idt}"
+    assert slab_fits(window_blocks(d.sigma, d.b_r, d.n_blocks),
+                     d.b_r) == (sigma is None)
+    rng = np.random.default_rng(17)
+    v = [torch.zeros(d.n_rows_pad, device="cuda") for _ in range(3)]
+    for t in v:
+        t[: m.n_rows] = torch.from_numpy(rng.standard_normal(
+            m.n_rows).astype(np.float32))
+    x, w1, w2 = v
+    full = TO.stored_warp_len(d.block_start, d.b_r)
+    assert int(d.warp_len.sum()) < int(full.sum())        # skips padding
+
+    def k2(n, xv):
+        return sell_matvec_kernel_call(d.val, d.col_idx, d.block_start,
+                                       d.inv_perm, n, xv, n_blocks=d.n_blocks,
+                                       sigma=d.sigma, max_col=d.max_col)
+
+    y, dots = k3(d.warp_len, x, w1, w2)
+    assert torch.equal(y, k2(d.warp_len, x))
+    for n in (d.warp_len, full):                  # repeatable, same bits
+        y_n, dots_n = k3(n, x, w1, w2)
+        assert torch.equal(y, y_n) and torch.equal(dots, dots_n)
+    y_r, d_r = TR.fused_matvec_dots_ref(d.val, d.col_idx, d.row_block,
+                                        d.inv_perm, x, w1, w2, d.n_blocks)
+    _close(y.cpu(), y_r.cpu())
+    ny, n1, n2 = float(y_r.norm()), float(w1.norm()), float(w2.norm())
+    _dots_close(dots.cpu().numpy(), d_r.cpu().numpy(),
+                [ny * n1, ny * n2, ny * ny, n2 * n2, n1 * n2])
+    for bad in (float("nan"), float("inf")):
+        xb = x.clone()
+        xb[0] = bad
+        want = torch.isnan(TR.sell_matvec_ref(d.val, d.col_idx, d.row_block,
+                                              d.inv_perm, xb, d.n_blocks))
+        assert bool(want.any())
+        assert torch.equal(torch.isnan(k2(d.warp_len, xb)), want)
+        for n in (d.warp_len, full):
+            assert torch.equal(torch.isnan(k3(n, xb, w1, w2)[0]), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt,idt", _ALL_POLICIES)
+@pytest.mark.parametrize("fmt,row_map", [("sell", False), ("sell", True),
+                                         ("pjds", True)])
+def test_k5_length_aware_walk_on_card(fmt, row_map, tdt, idt):
+    # K5 walking its derived per-warp lengths gives the bits of K5
+    # walking every stored diagonal, for every column count and both
+    # stores, and a NaN / Inf in X[0, c] poisons the entries of column c
+    # that the plain version's poisons, and no other column
+    _need_cuda()
+    m = TM.samg(scale=0.006)
+    d, _, k5, plain = _k3_k5_operands(m, tdt, idt, fmt=fmt, row_map=row_map)
+    assert str(d.col_idx.dtype) == f"torch.{idt}"
+    assert d.val.dtype == (tdt or torch.float32)
+    full = TO.stored_warp_len(d.block_start, d.b_r)
+    assert int(d.warp_len.sum()) < int(full.sum())        # skips padding
+    rng = np.random.default_rng(18)
+    for k in (1, 3, 4, 6, 8, 12):       # 6: k > 4 without 16-byte loads
+        xk = torch.from_numpy(rng.standard_normal((m.n_rows, k)).astype(
+            np.float32)).cuda()
+        y = k5(d.warp_len, xk)
+        assert y.shape == (m.n_rows if row_map else d.n_rows_pad, k)
+        _close(y.cpu(), plain(xk).cpu())
+        assert torch.equal(y, k5(d.warp_len, xk))           # repeatable
+        assert torch.equal(y, k5(full, xk))                 # same bits
+        c = k // 2
+        for bad in (float("nan"), float("inf")):
+            xb = xk.clone()
+            xb[0, c] = bad
+            want = torch.isnan(plain(xb))
+            assert bool(want[:, c].any())
+            assert not bool(torch.cat([want[:, :c], want[:, c + 1:]],
+                                      1).any())
+            for n in (d.warp_len, full):
+                assert torch.equal(torch.isnan(k5(n, xb)), want)
+
+
+@pytest.mark.cuda
+def test_k3_k5_wrappers_validate_lengths_on_card():
+    _need_cuda()
+    m = TM.samg(scale=1e-3)
+    d, k3, k5, _ = _k3_k5_operands(m, row_map=True)
+    v = torch.zeros(d.n_rows_pad, device="cuda")
+    xk = torch.zeros((m.n_rows, 4), device="cuda")
+    runs = [lambda n: k3(n, v, v, v), lambda n: k5(n, xk)]
+    derived = d.warp_len
+    for run in runs:
+        with pytest.raises(ValueError):
+            run(derived[:-1])                               # shape
+        with pytest.raises(ValueError):
+            run(derived.cpu())                              # device
+        with pytest.raises(ValueError):
+            run(torch.stack([derived, derived], 1)[:, 0])   # strides
+        with pytest.raises(TypeError):
+            run(derived.float())                            # dtype
