@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
 """Drive the repro_torch port's main path on one CUDA card, at full size.
 
-Builds the six hand-written kernels (K1 pJDS spMV, K2 SELL-C-sigma
-spMV, K3 fused spMV + dots, K4 ELLPACK-R spMV, K5 multi-RHS pJDS, K6
-CMRS spMV) from ``src/repro_torch/kernels/csrc``, runs the paper's
-pipeline on the sAMG analogue at its published 3.4 M rows --
-``operator(m) @ x`` with the format the dispatch picks or a named one,
-``operator(m, format) @ X`` for a block of right-hand sides, and
-``repro_torch.solve`` with CG and block CG -- and the paper's
-ELLPACK-R-vs-pJDS comparison, and holds every kernel against its plain
-PyTorch version and every product against a float64 scipy reference.
+Builds the hand-written kernels (K1 pJDS spMV, K2 SELL-C-sigma spMV, K3
+fused spMV + dots, K4 ELLPACK-R spMV, K5 multi-RHS pJDS, K6 CMRS spMV,
+and the fused Krylov loop's scalar step and vector updates) from
+``src/repro_torch/kernels/csrc``, runs the paper's pipeline on the sAMG
+analogue at its published 3.4 M rows -- ``operator(m) @ x`` with the
+format the dispatch picks or a named one, ``operator(m, format) @ X``
+for a block of right-hand sides, and ``repro_torch.solve`` with fused
+CG and BiCGStab (the loop on the card as CUDA graphs, one host read per
+chunk), Jacobi-preconditioned CG over K6 and block CG -- fused and
+composed BiCGStab on the 512 x 512 convection operator, the degradation
+ladder on Poisson 128^2, and the paper's ELLPACK-R-vs-pJDS comparison,
+and holds every kernel against its plain PyTorch version (the scalar
+step bit for bit on a table of edge inputs) and every product and
+solve against a float64 scipy reference.
 K1, K2, K3, K5 and K6 walk only the slots their derived lengths cover;
 the script checks that they repeat bit for bit and that walking every
 stored slot gives the same bits, and times both walks (phase
@@ -61,6 +66,84 @@ def require(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+# The scalar step's table of edge inputs: K3's five dots, and the loop
+# state they meet (csrc/krylov_step.cu; tests/test_torch_krylov.py holds
+# the plain versions to numpy on the same kind of table).
+STEP_DOTS = ([3.25, -1.5, 7.0, 2.0, 0.3], [0.0] * 5,
+             [1e-40, 2e-41, 1e-39, 3e-40, -1e-41],
+             [2.5, 1e-40, 1.0, 3e-40, 0.75], [-2.0, 1.0, 3.0, 5.0, 0.0],
+             [float("nan"), 1.0, 1.0, 1.0, 0.0],
+             [1.0, 1.0, float("inf"), float("inf"), 1.0],
+             [1.0, 0.0, 0.0, 1e13, 0.0], [1e-31, 1e-20, 1e-36, 1e-32, 1e-31],
+             [2.0, 1.0, 0.5, 1.0, -0.5])
+STEP_STATES = ({}, dict(since=499, best=1e3), dict(since=499, best=1e-30),
+               dict(since=500, best=1e-30), dict(since=999, best=1e-30),
+               dict(since=1000, best=1e-30), dict(tol=0.0), dict(tol=-1.0),
+               dict(k=99), dict(done=1), dict(flag=3))
+
+
+def step_vs_plain(torch, np, R, KS, dev, require):
+    """Every step kind on every (dots, state) pair of the table, the
+    kernel on the card against the plain version on the CPU: the same
+    bits (NaN on both sides counts as equal).  Returns (max |diff| over
+    the finite values, cases)."""
+    base = dict(tol=1e-5, b2=1.0, rs=4.0, best=1.0, alpha=0.5, beta=0.25,
+                omega=0.75, rho=1.5, rhat_v=2.0, k=3, maxiter=100, flag=0,
+                since=7, done=0, skip=0)
+    fslot = dict(tol=R.FS_TOL, b2=R.FS_B2, rs=R.FS_RS, best=R.FS_BEST,
+                 alpha=R.FS_ALPHA, beta=R.FS_BETA, omega=R.FS_OMEGA,
+                 rho=R.FS_RHO, rhat_v=R.FS_RHAT_V)
+    islot = dict(k=R.IS_K, maxiter=R.IS_MAXITER, flag=R.IS_FLAG,
+                 since=R.IS_SINCE, done=R.IS_DONE, skip=R.IS_SKIP)
+
+    def state(over, device):
+        st = dict(base, **over)
+        fs, is_ = KS.new_state(device)
+        for k, i in fslot.items():
+            fs[i] = st[k]
+        for k, i in islot.items():
+            is_[i] = st[k]
+        return fs, is_
+
+    def compare(fs_k, is_k, fs_p, is_p, what):
+        a, b = fs_k.cpu().numpy(), fs_p.numpy()
+        same = (a.view(np.int32) == b.view(np.int32)) | (np.isnan(a)
+                                                         & np.isnan(b))
+        require(bool(same.all()) and torch.equal(is_k.cpu(), is_p),
+                f"krylov_step {what}: kernel {a.tolist()} "
+                f"{is_k.tolist()} vs plain {b.tolist()} {is_p.tolist()}")
+        fin = np.isfinite(a) & np.isfinite(b)
+        return float(np.abs(a[fin].astype(np.float64)
+                            - b[fin].astype(np.float64)).max(initial=0.0))
+
+    err, n = 0.0, 0
+    for over in STEP_STATES:
+        for dots in STEP_DOTS:
+            d = torch.tensor(dots, dtype=torch.float32)
+            for kinds in ((R.STEP_CG,), (R.STEP_BICG1, R.STEP_BICG2)):
+                fs_k, is_k = state(over, dev)
+                fs_p, is_p = state(over, "cpu")
+                for kind in kinds:
+                    KS.step_kernel_call(kind, fs_k, is_k, d.to(dev))
+                    R.krylov_step_ref(kind, fs_p, is_p, d)
+                    err = max(err, compare(fs_k, is_k, fs_p, is_p,
+                                           f"kind {kind} {dots} {over}"))
+                    n += 1
+    for start in ([4.0, 16.0], [0.0, 0.0], [1e-40, 1e-39],
+                  [float("nan"), 1.0], [1.0, float("inf")], [-0.0, 2.0]):
+        for tol, maxiter in ((1e-5, 100), (0.0, 100), (1e-5, 0)):
+            fs_k, is_k = state(dict(since=400, k=17, flag=2, done=1), dev)
+            fs_p, is_p = state(dict(since=400, k=17, flag=2, done=1), "cpu")
+            d = torch.tensor(start, dtype=torch.float32)
+            KS.step_kernel_call(R.STEP_INIT, fs_k, is_k, d.to(dev), tol=tol,
+                                maxiter=maxiter)
+            R.krylov_step_ref(R.STEP_INIT, fs_p, is_p, d, tol=tol,
+                              maxiter=maxiter)
+            err = max(err, compare(fs_k, is_k, fs_p, is_p, f"init {start}"))
+            n += 1
+    return err, n
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -87,7 +170,10 @@ def main() -> int:
     from repro_torch.core import matrices as TM
     from repro_torch.core import formats as TF
     from repro_torch.core import solvers as S
+    from repro_torch.api import SolveFailure, _fused_dots_of
+    from repro_torch.core.operator import _device_diagonal
     from repro_torch.kernels import _build
+    from repro_torch.kernels import krylov_step as KS
     from repro_torch.kernels import ops as TO
     from repro_torch.kernels import ref as R
     from repro_torch.kernels.cmrs_spmv import cmrs_matvec_kernel_call
@@ -106,7 +192,9 @@ def main() -> int:
                "fused_iter": fused_spmv_dots_kernel_call,
                "ellr_spmv": ell_matvec_kernel_call,
                "pjds_spmm": pjds_matmat_kernel_call,
-               "cmrs_spmv": cmrs_matvec_kernel_call}
+               "cmrs_spmv": cmrs_matvec_kernel_call,
+               "krylov_step": KS.step_kernel_call,
+               "krylov_update": KS.update_kernel_call}
     plains = R._COUNTED
 
     def reset_counts():
@@ -347,10 +435,57 @@ def main() -> int:
     require(e_rel <= Y_TOL, f"fused_iter y vs plain: {e_rel}")
     require(max(dot_rel) <= DOT_TOL, f"fused_iter dots vs plain: {dot_rel}")
     errs["fused_iter"] = (e_abs, e_rel)
+    # the fused loop's done latch: clear, K3 writes the bits of a launch
+    # without it; set, it writes nothing
+    done = torch.zeros(1, dtype=torch.int32, device=dev)
+    y_d, dots_d = torch.empty_like(y_k), torch.empty_like(dots_k)
+    fused_matvec_dots(d_s, xp, w1, w2, y=y_d, dots=dots_d, done=done)
+    require(torch.equal(y_d, y_k) and torch.equal(dots_d, dots_k),
+            "fused_iter: a clear done latch changed y or the dots")
+    done.fill_(1)
+    y_d.fill_(7.0)
+    dots_d.fill_(7.0)
+    fused_matvec_dots(d_s, xp, w1, w2, y=y_d, dots=dots_d, done=done)
+    require(bool((y_d == 7).all()) and bool((dots_d == 7).all()),
+            "fused_iter: wrote with the done latch set")
+    del y_d, dots_d
     emit("fused:fused_iter", max_abs_err_vs_plain=e_abs,
          max_rel_err_vs_plain=e_rel, dots=dk.tolist(),
          dots_rel_err_vs_plain=dot_rel, y_equal_to_k2=True,
-         derived_equal_to_full_walk=True)
+         derived_equal_to_full_walk=True, done_clear_same_bits=True,
+         done_set_writes_nothing=True)
+
+    # ---- 4b. the fused loop's scalar step and vector updates against
+    #          their plain versions -------------------------------------
+    step_err, n_cases = step_vs_plain(torch, np, R, KS, dev, require)
+    n_pad = d_s.n_rows_pad
+    upd = {}
+    for kind, (nu, nv) in ((R.UPDATE_CG, (3, 1)), (R.UPDATE_BICG_P, (1, 2)),
+                           (R.UPDATE_BICG_S, (1, 2)),
+                           (R.UPDATE_BICG_XR, (2, 3))):
+        for flag in (0, 1):
+            g = torch.Generator(device=dev).manual_seed(SEED + kind)
+            vecs = [torch.randn(n_pad, device=dev, generator=g)
+                    for _ in range(nu + nv)]
+            fs_u, _ = KS.new_state(dev)
+            fs_u[R.FS_ALPHA], fs_u[R.FS_BETA] = -0.375, 1.25
+            fs_u[R.FS_OMEGA] = 0.625
+            f_u = torch.tensor([flag], dtype=torch.int32, device=dev)
+            us_k = [v.clone() for v in vecs[:nu]]
+            us_p = [v.cpu() for v in vecs[:nu]]
+            KS.update_kernel_call(kind, f_u, fs_u, us_k, vecs[nu:])
+            R.krylov_update_ref(kind, f_u.cpu(), fs_u.cpu(), us_p,
+                                [v.cpu() for v in vecs[nu:]])
+            for a, b_ in zip(us_k, us_p):
+                require(torch.equal(a.cpu(), b_),
+                        f"krylov_update kind {kind} flag {flag} differs "
+                        f"from its plain version")
+            upd[f"kind{kind}_flag{flag}"] = True
+    del vecs, us_k, us_p
+    errs["krylov_step"] = (step_err, step_err)
+    errs["krylov_update"] = (0.0, 0.0)
+    emit("step:vs_plain", step_cases=n_cases, step_max_abs_err=step_err,
+         step_same_bits=True, update_n=n_pad, update_same_bits=upd)
 
     # ---- 5. fused-CG solve on sAMG --------------------------------------
     b_np = rng.standard_normal(n).astype(np.float32)
@@ -371,8 +506,62 @@ def main() -> int:
     require(res.diagnostics["true_residual"] <= 1e-6, "certified residual")
     require(sci_res <= 1e-5, f"scipy residual {sci_res}")
     require(launched["fused_iter"] >= res.iters + 1, "K3 launches")
+    require(launched["krylov_step"] >= res.iters + 1
+            and launched["krylov_update"] >= res.iters,
+            "the fused loop's step and update kernels were not launched")
     plain_free(plain_calls, "solve:samg:fused")
-    main_launches["fused_iter"] = launched["fused_iter"]
+    for k in ("fused_iter", "krylov_step", "krylov_update"):
+        main_launches[k] = launched[k]
+
+    def scipy_residual(a, bv, xv):
+        r = bv.astype(np.float64) - a @ xv.double().cpu().numpy()
+        return float(np.linalg.norm(r) / np.linalg.norm(bv))
+
+    # ---- 5b. fused BiCGStab on sAMG: two K3 passes per iteration ------
+    reset_counts()
+    t0 = time.perf_counter()
+    resb = repro_torch.solve(m, b_np, method="bicgstab", tune="off")
+    launched, plain_calls = counts()
+    sci_b = scipy_residual(a64, b_np, resb.x)
+    emit("solve:samg:bicgstab", status=resb.status,
+         strategy=resb.info["strategy"], iters=resb.iters,
+         true_residual=resb.diagnostics["true_residual"],
+         scipy_f64_residual=sci_b, host_syncs=resb.info["host_syncs"],
+         chunk=resb.info["chunk"],
+         graph_capture_s=resb.info["graph_capture_s"],
+         ladder=resb.info["ladder"], launches=launched,
+         plain_calls=plain_calls, seconds=time.perf_counter() - t0)
+    require(resb.status == "converged", f"fused BiCGStab: {resb.status}")
+    require(resb.info["strategy"] == "fused", "BiCGStab strategy not fused")
+    require(sci_b <= 1e-5, f"BiCGStab scipy residual {sci_b}")
+    require(launched["fused_iter"] >= 2 * resb.iters + 1, "K3 launches")
+    plain_free(plain_calls, "solve:samg:bicgstab")
+
+    # ---- 5c. Jacobi-preconditioned CG over K6, the format="auto" pick --
+    diag = op_c.diagonal()
+    require(np.array_equal(diag.cpu().numpy(),
+                           a64.diagonal().astype(np.float32)),
+            "diagonal() differs from scipy's A.diagonal() in float32")
+    require(torch.equal(diag, _device_diagonal(op_c.dev)),
+            "diagonal() does not repeat bit for bit")
+    reset_counts()
+    t0 = time.perf_counter()
+    resj = repro_torch.solve(m, b_np, precond="jacobi", tune="off")
+    launched, plain_calls = counts()
+    sci_j = scipy_residual(a64, b_np, resj.x)
+    emit("solve:samg:pcg_jacobi", status=resj.status,
+         strategy=resj.info["strategy"], iters=resj.iters,
+         true_residual=resj.diagnostics["true_residual"],
+         scipy_f64_residual=sci_j, host_syncs=resj.info["host_syncs"],
+         diagonal_equal_to_scipy=True, diagonal_repeats=True,
+         launches=launched, plain_calls=plain_calls,
+         seconds=time.perf_counter() - t0)
+    require(resj.status == "converged", f"PCG: {resj.status}")
+    require(resj.info["strategy"] == "composed", "PCG strategy")
+    require(sci_j <= 1e-5, f"PCG scipy residual {sci_j}")
+    require(launched["cmrs_spmv"] >= resj.iters + 1,
+            "PCG did not run K6 (the format='auto' pick)")
+    plain_free(plain_calls, "solve:samg:pcg_jacobi")
 
     # ---- 6. 2-D Poisson 512 x 512: the dispatch picks ELLPACK-R (K4), and
     #         a long fused-CG loop ------------------------------------------
@@ -396,6 +585,12 @@ def main() -> int:
     emit("matvec:auto:poisson512", format=op_pe.fmt, launches=launched,
          plain_calls=plain_calls, max_abs_err_vs_scipy_f64=s_abs,
          max_rel_err_vs_scipy_f64=s_rel)
+    # The first fused solve on this operand captures the chunk's CUDA
+    # graph; the second reuses it and is the one timed.
+    t0 = time.perf_counter()
+    resp0 = repro_torch.solve(mp, bp, tol=1e-5, maxiter=5000, tune="off",
+                              fallback="off")
+    t_first = time.perf_counter() - t0
     reset_counts()
     t0 = time.perf_counter()
     resp = repro_torch.solve(mp, bp, tol=1e-5, maxiter=5000, tune="off",
@@ -403,23 +598,116 @@ def main() -> int:
     launched, plain_calls = counts()
     t_p = time.perf_counter() - t0
     ms_iter = 1e3 * resp.info["phase_s"]["solve"] / max(resp.iters, 1)
-    dp = repro_torch.operator(mp, format="sell").dev.dev
+    op_ps = repro_torch.operator(mp, format="sell")
+    dp = op_ps.dev.dev
     vp = [torch.ones(dp.n_rows_pad, device=dev) for _ in range(3)]
     k3p = lambda: k3_with(dp, dp.warp_len, *vp)
     k3_ms = time_ms(k3p)[0]
     # one launch's host overhead outlasts K3 here, so the burst time is
     # the host's; a CUDA graph of the burst gives the device time
     k3_graph = time_ms(k3p, graph=True)
+    # the drive at chunk 1 against the default chunk: the same x bit for
+    # bit and the same iterations; then ms per iteration against chunk
+    # (each chunk's first solve captures its graph, the second is timed)
+    mvd = _fused_dots_of(op_ps)
+    bpp = torch.zeros(dp.n_rows_pad, device=dev)
+    bpp[: mp.n_rows] = torch.from_numpy(bp).to(dev)
+    r_def = S.fused_cg(mvd, bpp, tol=1e-5, maxiter=5000)
+    r_one = S.fused_cg(mvd, bpp, tol=1e-5, maxiter=5000, chunk=1)
+    require(r_one.iters == r_def.iters and torch.equal(r_one.x, r_def.x),
+            "the fused drive at chunk 1 differs from the default chunk")
+    require(torch.equal(r_def.x[: mp.n_rows], resp.x),
+            "solve() and fused_cg differ on the same operand")
+    sweep = {}
+    for c in (1, 4, 8, 16, 32, 64, 128):
+        first = S.fused_cg(mvd, bpp, tol=1e-5, maxiter=5000, chunk=c)
+        t0 = time.perf_counter()
+        rc = S.fused_cg(mvd, bpp, tol=1e-5, maxiter=5000, chunk=c)
+        dt = time.perf_counter() - t0
+        sweep[c] = {"ms_per_iter": 1e3 * dt / rc.iters, "iters": rc.iters,
+                    "host_syncs": rc.info["host_syncs"],
+                    "graph_capture_s": first.info["graph_capture_s"]}
     emit("solve:poisson512:fused", status=resp.status, iters=resp.iters,
          true_residual=resp.diagnostics["true_residual"],
          restarts=resp.diagnostics["restarts"],
-         host_syncs=resp.info["host_syncs"], launches=launched,
+         host_syncs=resp.info["host_syncs"], chunk=resp.info["chunk"],
+         graph_capture_s=resp0.info["graph_capture_s"],
+         first_solve_seconds=t_first, launches=launched,
          plain_calls=plain_calls, seconds=t_p, ms_per_iter=ms_iter,
+         ms_per_iter_pr15_host_loop=0.1799,
+         chunk_1_same_x_and_iters=True, chunk_sweep=sweep,
          k3_ms_at_this_size=k3_ms, k3_share_of_iteration=k3_ms / ms_iter,
          k3_graph_ms=k3_graph[0], k3_graph_ms_q25_q75=list(k3_graph[1:]),
+         k3_share_of_iteration_graph=k3_graph[0] / ms_iter,
          k3_slots_read=32 * int(dp.warp_len.long().sum()), nnz=mp.nnz)
     require(resp.status == "converged", f"poisson solve: {resp.status}")
+    require(resp.info["graph_capture_s"] == 0.0, "the graph was captured "
+            "again for a second solve on the same operand")
+    runs = resp.diagnostics["restarts"] + 1
+    require(resp.info["host_syncs"] <= -(-resp.iters // resp.info["chunk"])
+            + 3 * runs, f"host syncs {resp.info['host_syncs']}")
     plain_free(plain_calls, "solve:poisson512:fused")
+
+    # ---- 6b. BiCGStab on the 512 x 512 convection operator, fused and
+    #          composed over K1 --------------------------------------------
+    mcv = TM.convection_poisson(512, 512, beta=0.4)
+    bcv = np.random.default_rng(SEED).standard_normal(mcv.n_rows).astype(
+        np.float32)
+    acv64 = sp.csr_matrix((mcv.data.astype(np.float64), mcv.indices,
+                           mcv.indptr), shape=mcv.shape)
+    conv = {}
+    for label, fmt, kern, ref_iters in (("fused", "auto", "fused_iter", 670),
+                                        ("composed", "pjds", "pjds_spmv",
+                                         656)):
+        reset_counts()
+        t0 = time.perf_counter()
+        rcv = repro_torch.solve(mcv, bcv, method="bicgstab", tol=1e-5,
+                                maxiter=5000, format=fmt, tune="off",
+                                fallback="off")
+        launched, plain_calls = counts()
+        sci_cv = scipy_residual(acv64, bcv, rcv.x)
+        conv[label] = {"status": rcv.status,
+                       "strategy": rcv.info["strategy"], "iters": rcv.iters,
+                       "reference_iters_cpu": ref_iters,
+                       "true_residual": rcv.diagnostics["true_residual"],
+                       "scipy_f64_residual": sci_cv,
+                       "host_syncs": rcv.info["host_syncs"],
+                       "seconds": time.perf_counter() - t0,
+                       "ms_per_iter": 1e3 * rcv.info["phase_s"]["solve"]
+                       / max(rcv.iters, 1),
+                       "launches": launched}
+        require(rcv.status == "converged",
+                f"convection512 {label} BiCGStab: {rcv.status}")
+        require(rcv.info["strategy"] == label, f"{label} strategy")
+        require(sci_cv <= 1e-5 * 1.05,
+                f"convection512 {label} scipy residual {sci_cv}")
+        require(launched[kern] >= rcv.iters + 1, f"{kern} launches")
+        plain_free(plain_calls, f"solve:convection512:bicgstab:{label}")
+    emit("solve:convection512:bicgstab", n_rows=mcv.n_rows, nnz=mcv.nnz,
+         **conv)
+
+    # ---- 6c. the degradation ladder on Poisson 128^2 ---------------------
+    ml = TM.poisson_2d(128, 128)
+    bl = np.ones(ml.n_rows, np.float32)
+    want = [("primary", "diverged"), ("fused->composed", "diverged"),
+            ("escalate:fresh-x0+jacobi", "diverged")]
+    reset_counts()
+    ladder = None
+    try:
+        repro_torch.solve(ml, bl, tol=1e-5, tune="off")
+    except SolveFailure as e:
+        ladder = e.ladder
+    require(ladder is not None, "ladder:poisson128: no SolveFailure")
+    got = [(e["rung"], e["status"]) for e in ladder]
+    require(got == want, f"ladder:poisson128: {got}")
+    rl = repro_torch.solve(ml, bl, tol=1e-4, tune="off")
+    launched, plain_calls = counts()
+    require(rl.status == "converged"
+            and [e["rung"] for e in rl.info["ladder"]] == ["primary"],
+            f"ladder:poisson128 at 1e-4: {rl.status} {rl.info['ladder']}")
+    plain_free(plain_calls, "ladder:poisson128")
+    emit("ladder:poisson128", ladder_1e5=ladder, ladder_1e4=rl.info["ladder"],
+         iters_1e4=rl.iters, launches=launched, plain_calls=plain_calls)
 
     # ---- 7. composed CG over K1 -----------------------------------------
     reset_counts()
@@ -758,14 +1046,54 @@ def main() -> int:
                 "library_ms": library_ms(lambda: torch.mv(a_p, xpo),
                                          "torch.mv(csr, x) poisson512")}
 
+    # The fused loop's kernels (no Pallas kernel: XLA fused this work into
+    # the reference's lax.while_loop body, solvers.py:587 for CG, :632
+    # for BiCGStab).  The scalar step, CG kind, on a state that never
+    # exits (tol 0): one thread, 88 bytes of dots and state; timed as a
+    # CUDA graph, beside a step that returns at once (done set): the
+    # launch floor.  The CG update at sAMG's padded length: x, r, p read
+    # and written, Ap read.
+    def step_state(done_):
+        fs_, is_ = KS.new_state(dev)
+        fs_[R.FS_B2], fs_[R.FS_BEST], fs_[R.FS_RS] = 1.0, 1.0, 4.0
+        is_[R.IS_MAXITER], is_[R.IS_DONE] = 2 ** 30, done_
+        return fs_, is_
+
+    fs_t, is_t = step_state(0)
+    fs_m, is_m = step_state(1)
+    dots_t = torch.tensor([3.25, -1.5, 7.0, 2.0, 0.3], device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    xu, ru, pu, apu = (torch.randn(n_pad, device=dev, generator=g)
+                       for _ in range(4))
+    fs_u, _ = KS.new_state(dev)
+    fs_u[R.FS_ALPHA], fs_u[R.FS_BETA] = 1e-3, 0.5
+    f0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    runs["krylov_step"] = (
+        lambda: KS.step_kernel_call(R.STEP_CG, fs_t, is_t, dots_t),
+        lambda: R.krylov_step_ref(R.STEP_CG, fs_t, is_t, dots_t))
+    runs["krylov_update"] = (
+        lambda: KS.update_kernel_call(R.UPDATE_CG, f0, fs_u, (xu, ru, pu),
+                                      (apu,)),
+        lambda: R.krylov_update_ref(R.UPDATE_CG, f0, fs_u, (xu, ru, pu),
+                                    (apu,)))
+    bytes_["krylov_step"] = 88.0
+    bytes_["krylov_update"] = 7.0 * 4 * n_pad
+    flops["krylov_step"] = 20.0
+    flops["krylov_update"] = 6.0 * n_pad
+    library["krylov_step"] = library["krylov_update"] = None
+    sources["krylov_step"] = sources["krylov_update"] = \
+        "src/repro/core/solvers.py:587"
+    graph_timed = {"krylov_step"}
+
     record = []
     for name, (kern, plain) in runs.items():
-        k_ms, k_q25, k_q75 = time_ms(kern)
+        k_ms, k_q25, k_q75 = time_ms(kern, graph=name in graph_timed)
         p_ms = time_ms(plain, reps=20, warm=2, burst=1)[0]
         t_bytes = bytes_[name] / HBM_BYTES_PER_S
         t_ops = flops[name] / F32_FLOPS
+        src = "krylov_step" if name.startswith("krylov") else name
         rec = {"name": name, "route": "cuda",
-               "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+               "source": f"src/repro_torch/kernels/csrc/{src}.cu",
                "replaces": sources[name],
                "launches": main_launches[name],
                "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
@@ -775,7 +1103,13 @@ def main() -> int:
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "library_ms": library[name], "bytes": bytes_[name],
                "gbps": bytes_[name] / (k_ms * 1e-3) / 1e9}
-        rec["stored_bytes"] = stored_bytes[name]
+        if name in stored_bytes:
+            rec["stored_bytes"] = stored_bytes[name]
+        if name == "krylov_step":
+            lf = time_ms(lambda: KS.step_kernel_call(R.STEP_CG, fs_m, is_m,
+                                                     dots_t), graph=True)
+            rec["timing"] = "cuda graph"
+            rec["launch_floor_ms"] = lf[0]
         if name in slots_read:
             rec["slots_read"] = slots_read[name]
             rec["slots_read_over_nnz"] = slots_read[name] / m.nnz

@@ -93,7 +93,7 @@ def _variants(parent_csrc: pathlib.Path) -> dict:
 
 # pointer arguments between (val, kind, col, kind) and the int tail, for
 # this tree (False) and the parent (True)
-_N_PTRS = {("fused_iter", False): 10, ("fused_iter", True): 9,
+_N_PTRS = {("fused_iter", False): 11, ("fused_iter", True): 9,
            ("pjds_spmm", False): 5, ("pjds_spmm", True): 4,
            ("pjds_spmv", False): 4, ("pjds_spmv", True): 4,
            ("sell_spmv", False): 6, ("sell_spmv", True): 6}
@@ -230,6 +230,8 @@ def main() -> int:
         ptrs = [t.data_ptr() for t in ptrs]
         if kern in ("fused_iter", "sell_spmv"):
             ptrs.append(None)                  # slab path: no scratch
+        if kern == "fused_iter" and not old:
+            ptrs.append(None)                  # no done latch
         vk, ik = kind_codes(d.val, d.col_idx)
         rc = fns[label](d.val.data_ptr(), vk, d.col_idx.data_ptr(), ik,
                         *ptrs, *tail, stream_of(d.val))

@@ -9,9 +9,6 @@ from __future__ import annotations
 __all__ = ["ROADMAP_ITEMS", "not_ported"]
 
 ROADMAP_ITEMS = {
-    "bicgstab": "1.4 (BiCGStab, fused BiCGStab, preconditioned CG)",
-    "precond": "1.4 (BiCGStab, fused BiCGStab, preconditioned CG)",
-    "fallback": "1.5 (the degradation ladder)",
     "refine": "1.6 (mixed-precision refinement)",
     "block_cg": "1.7 (Lanczos, block Lanczos, power iteration)",
     "transpose": "1.8 (rmatvec, .T and transpose='device')",

@@ -1,6 +1,7 @@
 """Synthetic test matrices: a copy of the reference package's
 ``repro.core.matrices`` restricted to the generators the port's main
-path runs (the sAMG analogue and the 2-D Poisson operator), so both
+path runs (the sAMG analogue, the 2-D Poisson operator and its
+non-symmetric convection variant, BiCGStab's test operator), so both
 packages generate identical host matrices from the same seed.
 
 ``samg(scale=1.0)`` is the paper's sAMG at its published dimension
@@ -13,7 +14,7 @@ import numpy as np
 
 from .formats import CSRMatrix, csr_from_coo
 
-__all__ = ["samg", "poisson_2d"]
+__all__ = ["samg", "poisson_2d", "convection_poisson"]
 
 # Published statistics (paper §1.3) -- dimension, avg nnz/row.
 _PUBLISHED = {
@@ -70,3 +71,19 @@ def poisson_2d(nx: int = 64, ny: int = 64) -> CSRMatrix:
     rows = np.concatenate(rows_l); cols = np.concatenate(cols_l)
     vals = np.concatenate(vals_l)
     return csr_from_coo(rows, cols, vals, (n, n))
+
+
+def convection_poisson(nx: int = 64, ny: int = 64,
+                       beta: float = 0.5) -> CSRMatrix:
+    """Poisson + upwind convection skew on the fast-axis neighbours
+    (entries at col == row +- 1, which in ``poisson_2d`` exist only for
+    true grid neighbours): non-symmetric, with a positive-definite
+    symmetric part for |beta| < 1 -- the BiCGStab test operator.  Values
+    are stored float32, as the reference stores them."""
+    m = poisson_2d(nx, ny)
+    rows = np.repeat(np.arange(m.n_rows), np.diff(m.indptr))
+    cols = m.indices.astype(np.int64)
+    data = m.data.astype(np.float64).copy()
+    data[cols == rows + 1] += beta
+    data[cols == rows - 1] -= beta
+    return CSRMatrix(m.indptr, m.indices, data.astype(np.float32), m.shape)

@@ -1,17 +1,31 @@
-"""Krylov solvers: composed CG over any operator, the fused CG whose
-iteration is one K3 pass, and block CG over ``matmat`` (K5).
+"""Krylov solvers: composed CG (optionally preconditioned) and BiCGStab
+over any operator, the fused CG and BiCGStab whose iterations are K3
+passes, and block CG over ``matmat`` (K5).
 
-Port of the CG part of ``repro/core/solvers.py``.  PyTorch has no
-``lax.while_loop``, so each loop runs on the host over device-resident
-carriers: the vector work (spMV, axpys) stays on the device, and the
-few scalars the exit test needs are read back once per iteration (the
-fused loop: the five dots of its K3 pass in ONE transfer; the composed
-loop: two; block CG: one).  Every scalar recurrence -- alpha, beta, the
-look-ahead residual clamped at 0, the failure flags -- is evaluated in
-float32 on the host exactly as the reference evaluates it in float32 on
-the device, so the exit contract matches the reference's:
+Port of ``repro/core/solvers.py`` (all but refinement and the
+eigensolvers).  Two loop structures:
 
-* the same iteration count ``k`` at exit;
+* The COMPOSED loops (``cg``, ``bicgstab``, ``block_cg``) run on the
+  host over device-resident carriers: the vector work (spMV, axpys,
+  the preconditioner) stays on the device, and the few scalars the
+  recurrences and the exit test need are read back through
+  :class:`_HostReads` -- CG two transfers per iteration, preconditioned
+  CG two, BiCGStab three, block CG one -- and evaluated in float32 on
+  the host exactly as the reference evaluates them in float32 on the
+  device.
+* The FUSED loops (``fused_cg``, ``fused_bicgstab``) run on the device
+  as the reference's ``lax.while_loop`` does: carriers and every scalar
+  live in fixed device buffers, each iteration is K3 passes, a one-thread
+  scalar step and vector updates (``kernels.krylov_step``), and a
+  ``done`` latch masks every launch after the exit.  On CUDA a chunk of
+  ``chunk`` iterations is captured once as a CUDA graph and replayed;
+  on the CPU the same chunk runs eagerly through the plain versions.
+  The host reads ``(k, flag, done)`` once per chunk.
+
+Either way the exit contract matches the reference's:
+
+* the same iteration count ``k`` at exit (masked iterations after the
+  exit change nothing);
 * ``tol <= 0`` runs to ``maxiter`` (fixed-length probes);
 * breakdown / diverged / non-finite statuses, gated on ``tol > 0``.
 
@@ -22,12 +36,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Callable
 
 import numpy as np
 import torch
 
-__all__ = ["SolveResult", "STATUS_NAMES", "cg", "fused_cg", "block_cg"]
+from repro_torch.kernels import fused_iter as FI
+from repro_torch.kernels import krylov_step as KS
+from repro_torch.kernels import ref as R
+
+__all__ = ["SolveResult", "STATUS_NAMES", "FUSED_CHUNK", "cg", "bicgstab",
+           "jacobi", "fused_cg", "fused_bicgstab", "block_cg"]
 
 F32 = np.float32
 
@@ -51,6 +71,10 @@ _STAG_RTOL = 0.01
 _TINY = F32(1e-30)
 # Smallest normal float32: the host reads flush anything smaller to 0.
 _F32_TINY_NORMAL = np.finfo(np.float32).tiny
+
+# Iterations per host read of the fused loops (one CUDA graph replay on
+# the card); PERF.md says how it was chosen.
+FUSED_CHUNK = 32
 
 
 @dataclasses.dataclass
@@ -119,6 +143,11 @@ class _HostReads:
         a = np.where(np.abs(a) < _F32_TINY_NORMAL, F32(0), a)
         return [F32(v) for v in a]
 
+    def ints(self, t: torch.Tensor) -> list:
+        """An integer tensor, in one transfer."""
+        self.n += 1
+        return [int(v) for v in t.cpu().tolist()]
+
 
 def _not_done(res2, tol) -> bool:
     """Loop-exit test on the squared relative residual (or, for block
@@ -172,19 +201,73 @@ def _nz(d):
     return _TINY if d == 0 else d
 
 
+def _safe(d):
+    """BiCGStab's guard: a denominator at or below 1e-30 in magnitude
+    (or NaN) becomes 1e-30."""
+    return d if abs(d) > _TINY else _TINY
+
+
 # --------------------------------------------------------------------------
-# Composed CG
+# Preconditioners
+# --------------------------------------------------------------------------
+def jacobi(a) -> Callable:
+    """Jacobi (diagonal) preconditioner ``z = D^{-1} r`` from an
+    operator's ``diagonal()``, cached on the operator.  Zero diagonal
+    entries pass through unscaled."""
+    d = getattr(a, "diagonal", None)
+    if d is None:
+        raise TypeError(
+            "jacobi needs a SparseOperator with .diagonal(); got "
+            f"{type(a).__name__} -- pass M as an explicit callable instead")
+    cached = getattr(a, "_jacobi_precond", None)
+    if cached is not None:
+        return cached
+    diag = d()
+    nonzero = diag != 0
+    inv = torch.where(nonzero, 1.0 / torch.where(nonzero, diag,
+                                                 torch.ones_like(diag)),
+                      torch.ones_like(diag)).to(diag.dtype)
+
+    def precond(r: torch.Tensor) -> torch.Tensor:
+        return r * (inv if r.dim() == 1 else inv[:, None])
+
+    a._jacobi_precond = precond
+    return precond
+
+
+def _identity(r: torch.Tensor) -> torch.Tensor:
+    """The no-op preconditioner."""
+    return r
+
+
+def _precond_of(M, a) -> Callable | None:
+    if M is None:
+        return None
+    if isinstance(M, str) and M == "jacobi":
+        return jacobi(a)
+    if callable(M):
+        return M
+    raise TypeError(f"M must be None, 'jacobi' or a callable; got {M!r}")
+
+
+# --------------------------------------------------------------------------
+# Composed CG and BiCGStab
 # --------------------------------------------------------------------------
 def cg(a, b: torch.Tensor, *, x0: torch.Tensor | None = None,
-       maxiter: int = 500, tol: float = 1e-6) -> SolveResult:
-    """Conjugate gradients for SPD A (unpreconditioned).
+       maxiter: int = 500, tol: float = 1e-6, M=None) -> SolveResult:
+    """(Preconditioned) conjugate gradients for SPD A.
 
-    ``a``: a SparseOperator or a matvec closure.  Convergence is checked
-    on ||r|| / ||b||."""
+    ``a``: a SparseOperator or a matvec closure.  ``M``: ``None``,
+    ``"jacobi"`` (from ``a.diagonal()``) or a callable ``z = M(r)`` on
+    tensors.  Convergence is checked on ||r|| / ||b||."""
     matvec = _matvec_of(a)
+    pre = _precond_of(M, a)
     x0 = torch.zeros_like(b) if x0 is None else x0.clone()
     with np.errstate(all="ignore"):
-        x, k, res, flag, syncs = _cg(matvec, b, x0, maxiter, tol)
+        if pre is None:
+            x, k, res, flag, syncs = _cg(matvec, b, x0, maxiter, tol)
+        else:
+            x, k, res, flag, syncs = _pcg(matvec, pre, b, x0, maxiter, tol)
     return _result("cg", x, k, res, tol, flag=flag, strategy="composed",
                    host_syncs=syncs)
 
@@ -216,53 +299,287 @@ def _cg(matvec, b, x, maxiter, tol):
     return x, k, np.sqrt(rs / b2), flag, reads.n
 
 
+def _pcg(matvec, precond, b, x, maxiter, tol):
+    """Preconditioned CG: the same recurrence with z = M r directions.
+    Two reads per iteration: p.Ap, then <r,z> and <r,r>."""
+    reads = _HostReads()
+    r = b - matvec(x)
+    z = precond(r)
+    p = z.clone()
+    rz, rs, bb = reads.dots((r, z), (r, r), (b, b))
+    b2 = np.maximum(bb, _TINY)
+    check = F32(tol) > 0
+    flag, best, since = _health_init(rs / b2, tol)
+    k = 0
+    while flag == 0 and _not_done(rs / b2, tol) and k < maxiter:
+        ap = matvec(p)
+        (pap,) = reads.dots((p, ap))
+        bad = check and bool(pap <= 0 or not np.isfinite(pap))
+        alpha = F32(0) if bad else rz / _nz(pap)
+        x.add_(p, alpha=float(alpha))
+        r.add_(ap, alpha=-float(alpha))
+        z = precond(r)
+        rz_new, rs_new = reads.dots((r, z), (r, r))
+        flag, best, since = _health(flag, rs_new / b2, best, since,
+                                    breakdown=bad, check=check)
+        p = z + float(rz_new / _nz(rz)) * p
+        rz, rs = rz_new, rs_new
+        k += 1
+    return x, k, np.sqrt(rs / b2), flag, reads.n
+
+
+def bicgstab(a, b: torch.Tensor, *, x0: torch.Tensor | None = None,
+             maxiter: int = 1000, tol: float = 1e-6, M=None) -> SolveResult:
+    """BiCGStab (van der Vorst 1992) for general (non-symmetric) A.
+
+    ``M`` as in :func:`cg` (right preconditioning: A M z-directions).
+    Three reads per iteration: <rhat,v>; <t,s> and <t,t>; <r,r> and the
+    next <rhat,r>."""
+    matvec = _matvec_of(a)
+    pre = _precond_of(M, a) or _identity
+    x0 = torch.zeros_like(b) if x0 is None else x0.clone()
+    with np.errstate(all="ignore"):
+        x, k, res, flag, syncs = _bicgstab(matvec, pre, b, x0, maxiter, tol)
+    return _result("bicgstab", x, k, res, tol, flag=flag,
+                   strategy="composed", host_syncs=syncs)
+
+
+def _bicgstab(matvec, precond, b, x, maxiter, tol):
+    reads = _HostReads()
+    r = b - matvec(x)
+    rhat = r.clone()                       # shadow residual, fixed
+    rs, bb, rho_new = reads.dots((r, r), (b, b), (rhat, r))
+    b2 = np.maximum(bb, _TINY)
+    check = F32(tol) > 0
+    flag, best, since = _health_init(rs / b2, tol)
+    p, v = torch.zeros_like(b), torch.zeros_like(b)
+    rho = alpha = omega = F32(1)
+    k = 0
+    while flag == 0 and _not_done(rs / b2, tol) and k < maxiter:
+        beta = (rho_new / _safe(rho)) * (alpha / _safe(omega))
+        p = r + float(beta) * (p - float(omega) * v)
+        p_hat = precond(p)
+        v = matvec(p_hat)
+        (rhat_v,) = reads.dots((rhat, v))
+        alpha = rho_new / _safe(rhat_v)
+        s = r - float(alpha) * v
+        s_hat = precond(s)
+        t = matvec(s_hat)
+        t_s, tt = reads.dots((t, s), (t, t))
+        omega = t_s / _safe(tt)
+        x = x + float(alpha) * p_hat + float(omega) * s_hat
+        r = s - float(omega) * t
+        rs, rho_next = reads.dots((r, r), (rhat, r))
+        # rho -> 0 (r orthogonal to the shadow residual) or a vanishing
+        # <rhat, v> / <t, t>: the _safe guards keep the carriers finite,
+        # the flag makes it a typed failure
+        bad = bool(abs(rho_new) <= _TINY or abs(rhat_v) <= _TINY
+                   or abs(tt) <= _TINY)
+        flag, best, since = _health(flag, rs / b2, best, since,
+                                    breakdown=bad, check=check)
+        rho, rho_new = rho_new, rho_next
+        k += 1
+    return x, k, np.sqrt(rs / b2), flag, reads.n
+
+
 # --------------------------------------------------------------------------
-# Fused CG (one K3 pass per iteration)
+# Fused CG and BiCGStab: K3 passes, the loop on the device
 # --------------------------------------------------------------------------
 def fused_cg(matvec_dots, b: torch.Tensor, *,
              x0: torch.Tensor | None = None, maxiter: int = 500,
-             tol: float = 1e-6) -> SolveResult:
-    """CG whose iteration is ONE fused spMV+dots pass and three axpys.
+             tol: float = 1e-6, chunk: int | None = None) -> SolveResult:
+    """CG whose iteration is ONE K3 pass, a scalar step and one vector
+    update.
 
-    ``matvec_dots(v, w1, w2)`` (``kernels.fused_iter.make_matvec_dots``)
-    returns ``(Av, [<Av,w1>, <Av,w2>, <Av,Av>, <w2,w2>, <w1,w2>])``.
-    Each pass ``matvec_dots(p, p, r)`` gives Ap with <Ap,p>, <Ap,r>,
-    <Ap,Ap> and the EXACT <r,r>; only the exit test's look-ahead
-    ``<r',r'> = <r,r> - 2 alpha <Ap,r> + alpha^2 <Ap,Ap>`` is a
-    recurrence (clamped at 0).  ``_fused_drive`` then certifies the TRUE
-    residual with one more pass and warm-restarts if the look-ahead
+    ``matvec_dots``: the operand's ``kernels.fused_iter.MatVecDots``
+    (``make_matvec_dots``).  Each pass ``(p, p, r)`` gives Ap with
+    <Ap,p>, <Ap,r>, <Ap,Ap> and the EXACT <r,r>; only the exit test's
+    look-ahead ``<r',r'> = <r,r> - 2 alpha <Ap,r> + alpha^2 <Ap,Ap>`` is
+    a recurrence (clamped at 0).  ``_fused_drive`` then certifies the
+    TRUE residual with one more pass and warm-restarts if the look-ahead
     exited optimistically.  Carriers live at the operand's padded
-    length; ``x0`` is copied, not modified."""
-    return _fused_drive(_fused_cg, "cg", matvec_dots, b, x0, maxiter, tol)
+    length; ``x0`` is copied, not modified.  ``chunk``: iterations per
+    host read (default :data:`FUSED_CHUNK`)."""
+    return _fused_drive("cg", matvec_dots, b, x0, maxiter, tol, chunk)
 
 
-def _fused_drive(loop_fn, method, matvec_dots, b, x0, maxiter, tol):
-    """Run the loop, certify the true residual, warm-restart while it
-    still improves.  Certification is the arbiter: a loop that claims
-    convergence whose true residual stays above tol is demoted to
-    ``status="diverged"``."""
-    x = torch.zeros_like(b) if x0 is None else x0.clone()
-    total, restarts, syncs = 0, 0, 0
+def fused_bicgstab(matvec_dots, b: torch.Tensor, *,
+                   x0: torch.Tensor | None = None, maxiter: int = 1000,
+                   tol: float = 1e-6,
+                   chunk: int | None = None) -> SolveResult:
+    """BiCGStab over the fused pass, two per iteration.
+
+    Pass one ``(p, rhat, r)`` yields v = Ap and <v,rhat>; pass two
+    ``(s, rhat, s)`` yields t = As with <t,rhat>, <t,s>, <t,t>, the
+    exact ||s||^2 and the exact <rhat,s>.  The scalars with no direct
+    dot follow as in the reference: rho' = <rhat,s> - omega <t,rhat>
+    (the measured <rhat,s>, not the textbook zero) and the look-ahead
+    ||r'||^2 = ||s||^2 - 2 omega <t,s> + omega^2 <t,t>.  Same drive as
+    :func:`fused_cg`."""
+    return _fused_drive("bicgstab", matvec_dots, b, x0, maxiter, tol, chunk)
+
+
+def _loop_kernels() -> tuple:
+    """Every wrapper a fused loop launches through (the launch counts of
+    a graph replay are added to theirs)."""
+    return (FI.fused_spmv_dots_kernel_call, KS.step_kernel_call,
+            KS.update_kernel_call)
+
+
+class _FusedLoop:
+    """The device loop of one fused method over one operand at one chunk
+    size: carriers at the padded length, the scalar state (``fs`` /
+    ``is_``, slots in ``kernels.ref``) and, on CUDA, ``chunk``
+    iterations captured once as a CUDA graph.  Built at the first solve
+    and kept on the operand's ``MatVecDots`` (``loops``), so restarts
+    and later solves replay the same graph.  Nothing here catches an
+    error: a failed build, capture or launch raises."""
+
+    def __init__(self, mvd, method: str, chunk: int, device):
+        self.mvd, self.method, self.chunk = mvd, method, chunk
+        names = (("x", "r", "p", "ap") if method == "cg"
+                 else ("x", "r", "p", "v", "s", "t", "rhat"))
+        self.vec = {nm: torch.zeros(mvd.n_pad, dtype=torch.float32,
+                                    device=device) for nm in names}
+        self.fs, self.is_ = KS.new_state(device)
+        self.d0 = torch.zeros(2, dtype=torch.float32, device=device)
+        self.d1 = torch.zeros(5, dtype=torch.float32, device=device)
+        self.d2 = torch.zeros(5, dtype=torch.float32, device=device)
+        self.done = self.is_[R.IS_DONE:R.IS_DONE + 1]
+        self.skip = self.is_[R.IS_SKIP:R.IS_SKIP + 1]
+        self.graph = None
+        self.per_replay = ()
+
+    def start(self, b: torch.Tensor, maxiter: int, tol: float) -> None:
+        """(Re)start from the current x: r = b - A x, the start dots and
+        the init step (eager launches)."""
+        v = self.vec
+        y, _ = self.mvd(v["x"], v["x"], b)
+        torch.sub(b, y, out=v["r"])
+        torch.stack([torch.dot(v["r"], v["r"]), torch.dot(b, b)],
+                    out=self.d0)
+        KS.krylov_step(R.STEP_INIT, self.fs, self.is_, self.d0, tol=tol,
+                       maxiter=maxiter)
+        if self.method == "cg":
+            v["p"].copy_(v["r"])
+        else:
+            v["rhat"].copy_(v["r"])
+            v["p"].zero_()
+            v["v"].zero_()
+
+    def iteration(self) -> None:
+        """One iteration's launches; every one is a no-op once ``done``
+        is set."""
+        v, mvd, fs, is_ = self.vec, self.mvd, self.fs, self.is_
+        if self.method == "cg":
+            mvd.into(v["p"], v["p"], v["r"], v["ap"], self.d1, self.done)
+            KS.krylov_step(R.STEP_CG, fs, is_, self.d1)
+            KS.krylov_update(R.UPDATE_CG, self.skip, fs,
+                             (v["x"], v["r"], v["p"]), (v["ap"],))
+            return
+        KS.krylov_update(R.UPDATE_BICG_P, self.done, fs, (v["p"],),
+                         (v["r"], v["v"]))
+        mvd.into(v["p"], v["rhat"], v["r"], v["v"], self.d1, self.done)
+        KS.krylov_step(R.STEP_BICG1, fs, is_, self.d1)
+        KS.krylov_update(R.UPDATE_BICG_S, self.done, fs, (v["s"],),
+                         (v["r"], v["v"]))
+        mvd.into(v["s"], v["rhat"], v["s"], v["t"], self.d2, self.done)
+        KS.krylov_step(R.STEP_BICG2, fs, is_, self.d2)
+        KS.krylov_update(R.UPDATE_BICG_XR, self.skip, fs,
+                         (v["x"], v["r"]), (v["p"], v["s"], v["t"]))
+
+    def capture(self) -> float:
+        """Capture ``chunk`` iterations as one CUDA graph; returns the
+        seconds it took.  One masked iteration first (``done`` set: every
+        kernel launches and returns at once) loads the kernels and K3's
+        work buffers outside the capture.  The launch counts of the
+        captured calls are taken back and added at each replay."""
+        t0 = time.perf_counter()
+        saved = self.is_.clone()
+        self.is_[R.IS_DONE] = 1
+        self.is_[R.IS_SKIP] = 1
+        self.iteration()
+        torch.cuda.synchronize(self.is_.device)
+        self.is_.copy_(saved)
+        kernels = _loop_kernels()
+        before = [k.launches for k in kernels]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(self.chunk):
+                self.iteration()
+        self.per_replay = tuple(k.launches - n
+                                for k, n in zip(kernels, before))
+        for k, n in zip(kernels, before):
+            k.launches = n
+        self.graph = graph
+        return time.perf_counter() - t0
+
+    def run_chunk(self) -> None:
+        if self.graph is None:
+            for _ in range(self.chunk):
+                self.iteration()
+            return
+        self.graph.replay()
+        for k, n in zip(_loop_kernels(), self.per_replay):
+            k.launches += n
+
+    def run(self, b, maxiter: int, tol: float, reads: "_HostReads"):
+        """One loop run from the current x: start, then chunks until the
+        host reads ``done``.  Returns ``(k, flag)``."""
+        self.start(b, maxiter, tol)
+        while True:
+            self.run_chunk()
+            st = reads.ints(self.is_[:R.IS_DONE + 1])
+            if st[R.IS_DONE]:
+                return st[R.IS_K], st[R.IS_FLAG]
+
+
+def _loop_of(mvd, method: str, chunk: int, device):
+    """The operand's fused loop for (method, chunk), built (and on CUDA
+    captured) at first use.  Returns ``(loop, capture seconds of this
+    call)``."""
+    loop = mvd.loops.get((method, chunk))
+    if loop is not None:
+        return loop, 0.0
+    loop = _FusedLoop(mvd, method, chunk, device)
+    t_cap = loop.capture() if device.type == "cuda" else 0.0
+    mvd.loops[(method, chunk)] = loop
+    return loop, t_cap
+
+
+def _fused_drive(method, mvd, b, x0, maxiter, tol, chunk):
+    """Run the device loop, certify the true residual, warm-restart
+    while it still improves.  Certification is the arbiter: a loop that
+    claims convergence whose true residual stays above tol is demoted
+    to ``status="diverged"``.  Host reads: per run, one per chunk and
+    one to certify."""
+    chunk = FUSED_CHUNK if chunk is None else int(chunk)
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1; got {chunk}")
+    loop, t_cap = _loop_of(mvd, method, chunk, b.device)
+    x = loop.vec["x"]
+    if x0 is None:
+        x.zero_()
+    else:
+        x.copy_(x0)
+    reads = _HostReads()
+    total, restarts = 0, 0
     rn_prev = float("inf")
     flag, demoted = 0, False
-    with np.errstate(all="ignore"):
-        while True:
-            x, k, _, lflag, n = loop_fn(matvec_dots, b, x, maxiter - total,
-                                        tol)
-            total += int(k)
-            flag = int(lflag)
-            rn, n_rn = _true_residual(matvec_dots, b, x)
-            syncs += n + n_rn
-            if not math.isfinite(rn):
-                flag = flag or STATUS_NON_FINITE
-                break
-            if (tol > 0 and rn <= tol) or flag != 0 or total >= maxiter:
-                break
-            if int(k) == 0 or rn >= rn_prev:
-                demoted = tol > 0
-                break
-            rn_prev = rn
-            restarts += 1
+    while True:
+        k, flag = loop.run(b, maxiter - total, tol, reads)
+        total += k
+        rn = _true_residual(mvd, b, x, reads)
+        if not math.isfinite(rn):
+            flag = flag or STATUS_NON_FINITE
+            break
+        if (tol > 0 and rn <= tol) or flag != 0 or total >= maxiter:
+            break
+        if k == 0 or rn >= rn_prev:
+            demoted = tol > 0
+            break
+        rn_prev = rn
+        restarts += 1
     if demoted and flag == 0:
         flag = STATUS_DIVERGED
     diagnostics = {"true_residual": rn, "restarts": restarts,
@@ -270,42 +587,19 @@ def _fused_drive(loop_fn, method, matvec_dots, b, x0, maxiter, tol):
                                      and rn <= tol)}
     if demoted:
         diagnostics["demoted"] = True
-    return _result(method, x, total, rn, tol, flag=flag,
-                   diagnostics=diagnostics, strategy="fused",
-                   restarts=restarts, host_syncs=syncs)
+    with np.errstate(all="ignore"):
+        return _result(method, x.clone(), total, rn, tol, flag=flag,
+                       diagnostics=diagnostics, strategy="fused",
+                       restarts=restarts, host_syncs=reads.n, chunk=chunk,
+                       graph_capture_s=t_cap)
 
 
-def _true_residual(matvec_dots, b, x):
-    """(||b - A x|| / ||b|| through one fused pass, host reads)."""
-    reads = _HostReads()
-    r = b - matvec_dots(x, x, x)[0]
+def _true_residual(mvd, b, x, reads: _HostReads) -> float:
+    """||b - A x|| / ||b|| through one fused pass, one host read."""
+    r = b - mvd(x, x, x)[0]
     rr, bb = reads.dots((r, r), (b, b))
-    return float(np.sqrt(rr / np.maximum(bb, _TINY))), reads.n
-
-
-def _fused_cg(matvec_dots, b, x, maxiter, tol):
-    reads = _HostReads()
-    r = b - matvec_dots(x, x, b)[0]
-    rs, bb = reads.dots((r, r), (b, b))         # exact, once per (re)start
-    b2 = np.maximum(bb, _TINY)
-    check = F32(tol) > 0
-    flag, best, since = _health_init(rs / b2, tol)
-    p = r.clone()
-    k = 0
-    while flag == 0 and _not_done(rs / b2, tol) and k < maxiter:
-        ap, dots = matvec_dots(p, p, r)
-        pap, r_ap, apap, rr, _ = reads.read(dots)   # rr exact
-        bad = check and bool(pap <= 0 or not np.isfinite(pap))
-        alpha = F32(0) if bad else rr / _nz(pap)
-        x.add_(p, alpha=float(alpha))
-        r.add_(ap, alpha=-float(alpha))
-        rs = np.maximum(rr - F32(2) * alpha * r_ap + alpha * alpha * apap,
-                        F32(0))
-        flag, best, since = _health(flag, rs / b2, best, since,
-                                    breakdown=bad, check=check)
-        p.mul_(float(rs / np.maximum(rr, _TINY))).add_(r)
-        k += 1
-    return x, k, np.sqrt(rs / b2), flag, reads.n
+    with np.errstate(all="ignore"):
+        return float(np.sqrt(rr / np.maximum(bb, _TINY)))
 
 
 # --------------------------------------------------------------------------

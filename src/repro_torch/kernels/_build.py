@@ -24,7 +24,7 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "build_all", "build_log",
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("pjds_spmv", "sell_spmv", "fused_iter", "ellr_spmv",
-           "cmrs_spmv", "pjds_spmm")
+           "cmrs_spmv", "pjds_spmm", "krylov_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -143,14 +143,17 @@ __device__ __forceinline__ void window_spmv(const V* __restrict__ val,
 
 // The device-memory path of K2 and K3 (the slab would not fit): one CTA
 // per row block, one thread per lane, the same walk into the sorted
-// scratch vector ys, which a gather pass then unpermutes.
+// scratch vector ys, which a gather pass then unpermutes.  done: K3's
+// loop latch (nullptr for K2); when set the CTA returns at once.
 template <typename V, typename I>
 __global__ void sell_block_kernel(const V* __restrict__ val,
                                   const I* __restrict__ col,
                                   const int* __restrict__ block_start,
                                   const int* __restrict__ warp_len,
                                   const float* __restrict__ x,
-                                  float* __restrict__ ys, int b_r) {
+                                  float* __restrict__ ys, int b_r,
+                                  const int* __restrict__ done) {
+  if (done != nullptr && *done) return;
   const int b = blockIdx.x, r = threadIdx.x;
   ys[(size_t)b * b_r + r] =
       lane_sum(val, col, block_start, warp_len, x, b, b_r, r);

@@ -24,6 +24,12 @@
 // device memory as in K2 (K2's repro::sell_block_kernel into a scratch
 // vector), and the dots ride the gather pass instead.
 //
+// The fused solvers' device loop (core/solvers.py) passes a `done` flag:
+// once the loop's exit has latched it, every CTA of every stage returns
+// before touching the matrix, the vectors or the dots, so an iteration
+// after the exit costs near-empty launches.  With `done` clear (or
+// null) nothing else changes: y and the dots keep their bits.
+//
 // Bound on an H100: bytes -- K2's traffic (the walked slots, 1.05 x nnz
 // on sAMG, plus x, inv_perm, warp_len and y) plus w1 and w2 read once
 // and the (n_part, 5) partials written and read once.
@@ -43,7 +49,8 @@ __global__ void __launch_bounds__(1024)
                         const float* __restrict__ w1,
                         const float* __restrict__ w2, float* __restrict__ y,
                         float* __restrict__ part, int n_blocks, int b_r,
-                        int w_b) {
+                        int w_b, const int* __restrict__ done) {
+  if (done != nullptr && *done) return;
   extern __shared__ float slab[];
   float acc[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
   repro::window_spmv(val, col, block_start, warp_len, inv_perm, x, y, slab,
@@ -63,7 +70,9 @@ __global__ void unpermute_dots_kernel(const float* __restrict__ ys,
                                       const float* __restrict__ w1,
                                       const float* __restrict__ w2,
                                       float* __restrict__ y,
-                                      float* __restrict__ part, int n) {
+                                      float* __restrict__ part, int n,
+                                      const int* __restrict__ done) {
+  if (done != nullptr && *done) return;
   const int row0 = blockIdx.x * kGatherRows;
   const int rows = min(kGatherRows, n - row0);
   float acc[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
@@ -84,7 +93,9 @@ __global__ void unpermute_dots_kernel(const float* __restrict__ ys,
 // Stage two: dot d = sum over rows p of part[p, d], one CTA of 256
 // threads per dot, f64 partial sums, fixed-order tree.
 __global__ void dots_finish_kernel(const float* __restrict__ part,
-                                   int n_part, float* __restrict__ out) {
+                                   int n_part, float* __restrict__ out,
+                                   const int* __restrict__ done) {
+  if (done != nullptr && *done) return;
   __shared__ double red[256];
   const int d = blockIdx.x;
   double s = 0.0;
@@ -108,14 +119,17 @@ extern "C" int fused_iter_gather_rows() { return kGatherRows; }
 // warp_len: (n_blocks * b_r / 32,) int32 diagonals to walk per warp.
 // scratch == nullptr: shared-memory slab path, part holds n_win rows of
 // five; otherwise scratch holds n_blocks * b_r floats and part
-// ceil(n / kGatherRows) rows.  dots receives the five scalars.
+// ceil(n / kGatherRows) rows.  dots receives the five scalars.  done:
+// nullptr, or a device int that, when set, makes every stage return at
+// once.
 extern "C" int fused_spmv_dots(const void* val, int val_kind,
                                const void* col, int idx_kind,
                                const int* block_start, const int* inv_perm,
                                const int* warp_len, const float* x,
                                const float* w1, const float* w2, float* y,
                                float* part, float* dots, float* scratch,
-                               int n_blocks, int b_r, int w_b, void* stream) {
+                               const int* done, int n_blocks, int b_r,
+                               int w_b, void* stream) {
   if (n_blocks <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int n_part;
@@ -126,17 +140,18 @@ extern "C" int fused_spmv_dots(const void* val, int val_kind,
     REPRO_DISPATCH(val_kind, idx_kind,
                    fused_window_kernel<V, I><<<n_part, threads, slab, s>>>(
                        (const V*)val, (const I*)col, block_start, warp_len,
-                       inv_perm, x, w1, w2, y, part, n_blocks, b_r, w_b));
+                       inv_perm, x, w1, w2, y, part, n_blocks, b_r, w_b,
+                       done));
   } else {
     const int n = n_blocks * b_r;
     n_part = (n + kGatherRows - 1) / kGatherRows;
     REPRO_DISPATCH(val_kind, idx_kind,
                    repro::sell_block_kernel<V, I><<<n_blocks, b_r, 0, s>>>(
                        (const V*)val, (const I*)col, block_start, warp_len,
-                       x, scratch, b_r));
+                       x, scratch, b_r, done));
     unpermute_dots_kernel<<<n_part, 256, 0, s>>>(scratch, inv_perm, w1, w2,
-                                                 y, part, n);
+                                                 y, part, n, done);
   }
-  dots_finish_kernel<<<5, 256, 0, s>>>(part, n_part, dots);
+  dots_finish_kernel<<<5, 256, 0, s>>>(part, n_part, dots, done);
   return (int)cudaGetLastError();
 }

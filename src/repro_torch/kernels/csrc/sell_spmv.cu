@@ -91,7 +91,7 @@ extern "C" int sell_spmv(const void* val, int val_kind, const void* col,
     REPRO_DISPATCH(val_kind, idx_kind,
                    repro::sell_block_kernel<V, I><<<n_blocks, b_r, 0, s>>>(
                        (const V*)val, (const I*)col, block_start, warp_len,
-                       x, scratch, b_r));
+                       x, scratch, b_r, nullptr));
     unpermute_kernel<<<(n + 255) / 256, 256, 0, s>>>(scratch, inv_perm, y,
                                                       n);
   }

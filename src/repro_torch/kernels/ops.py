@@ -73,6 +73,7 @@ __all__ = [
     "cmrs_matvec",
     "csr_matvec",
     "select_format",
+    "choose_x_tiles",
     "as_device",
     "clear_device_cache",
 ]
@@ -532,6 +533,22 @@ def select_format(
     return min(candidates, key=candidates.get)
 
 
+def choose_x_tiles(n_cols_pad: int, itemsize: int,
+                   vmem_limit: Optional[int] = None) -> int:
+    """The reference's column-tile count, kept as a dispatch decision:
+    the smallest power of two whose x tile fits a quarter of the TPU
+    v5e's VMEM (``perf_model.TPU_V5E``), 1 while x fits whole.  It
+    decides the format pick (``select_format`` drops ELLPACK-R past 1)
+    and fused eligibility exactly as in the reference; the CUDA kernels
+    read x whole through L2 and ignore it."""
+    if vmem_limit is None:
+        vmem_limit = PM.TPU_V5E.vmem_bytes // 4
+    t = 1
+    while n_cols_pad * itemsize > t * vmem_limit and t < 4096:
+        t *= 2
+    return t
+
+
 @dataclasses.dataclass
 class SparseDevice:
     """A matrix ready for ``y = A x``: one chosen format, converted once.
@@ -547,6 +564,10 @@ class SparseDevice:
     # SELL / pJDS on the card: K5's row map, built at the first matmat
     _out_row: Optional[torch.Tensor] = dataclasses.field(
         default=None, repr=False, compare=False)
+    # SELL: the fused solvers' pass and device loops, per backend, built
+    # at the first fused solve (``api._fused_dots_of``)
+    fused: dict = dataclasses.field(default_factory=dict, repr=False,
+                                    compare=False)
 
     @property
     def n_rows(self) -> int:
@@ -705,8 +726,10 @@ def as_device(
     current CUDA card and raises when there is none; pass
     ``device="cpu"`` for the plain versions.  ``dtype`` sets the stored
     value dtype (f32 or bf16), ``index_dtype`` the stored index dtype
-    (``"auto"``: int16 when the column span fits).  ``x_tiles`` is
-    accepted for parity (``"auto"`` is 1).  ``tune`` other than
+    (``"auto"``: int16 when the column span fits).  ``x_tiles`` is the
+    reference's column tiling (``"auto"``: :func:`choose_x_tiles`); it
+    steers the format pick and fused eligibility as there, and the
+    kernels ignore it.  ``tune`` other than
     ``"off"`` and ``reorder`` other than ``"off"`` are not ported yet and
     raise ``NotImplementedError``.
     """
@@ -739,9 +762,11 @@ def as_device(
     if validate != "off":
         a, _report = F.validate_csr(a, repair=(validate == "repair"))
 
-    # The reference budgets x against a TPU's VMEM; on a GPU x is read
-    # through L2 whatever its size, so "auto" is one tile.
-    x_tiles = 1 if x_tiles == "auto" else int(x_tiles)
+    # Sized by the runtime vector width (>= f32), not the stored value
+    # width, as in the reference.
+    if x_tiles == "auto":
+        x_tiles = choose_x_tiles(a.shape[1], max(4, a.data.dtype.itemsize))
+    x_tiles = int(x_tiles)
     if x_tiles < 1:
         raise ValueError(f"x_tiles must be >= 1; got {x_tiles}")
 

@@ -2,8 +2,11 @@
 device="cpu") @ x`` (and ``@ X`` for a block of right-hand sides)
 equals ``repro``'s ``operator(m) @ x`` for every format, ``"auto"``
 included; ``convert.py`` carries a reference ``as_device`` container
-across to the same y; the entry points refuse to run on the CPU
-unasked and raise ``NotImplementedError`` for what is not ported.
+across to the same y; ``diagonal()`` equals the reference's bit for
+bit, and the dispatch's ``x_tiles="auto"`` rule picks the reference's
+format and fused eligibility past 8,388,608 columns; the entry points
+refuse to run on the CPU unasked and raise ``NotImplementedError`` for
+what is not ported.
 
 Tolerance: y within 1e-5 * max|y| -- the same stored values, f32
 accumulation on both sides, a different summation order.
@@ -287,3 +290,127 @@ def test_operator_on_card_matches_cpu(fmt):
     _close((op @ x.cuda()).cpu().numpy(), y_cpu.numpy())
     _close((op @ xk.cuda()).cpu().numpy(), yk_cpu.numpy())
     assert not any(f.calls for f in TR._COUNTED)      # kernels only
+
+
+# ---- diagonal() (the Jacobi preconditioner) -----------------------------
+_DIAG_MATS = dict(_MATS, convection=lambda: TM.convection_poisson(
+    17, 19, beta=0.4))
+
+
+@pytest.mark.parametrize("fmt", ["pjds", "sell", "csr", "ellpack_r", "cmrs"])
+@pytest.mark.parametrize("name", sorted(_DIAG_MATS))
+def test_diagonal_matches_reference(name, fmt):
+    # the same stored values, one diagonal entry per row (or none): the
+    # port's diagonal equals the reference's bit for bit
+    _, F, _, joperator, _ = _jax()
+    tm = _DIAG_MATS[name]()
+    d_ref = np.asarray(joperator(_jax_matrix(F, tm), format=fmt).diagonal())
+    op = repro_torch.operator(tm, fmt, device="cpu")
+    d = op.diagonal()
+    assert d.shape == (tm.n_rows,) and d.dtype == torch.float32
+    np.testing.assert_array_equal(d.numpy(), d_ref)
+    assert op.diagonal() is d                       # cached on the operator
+
+
+def test_diagonal_sums_duplicate_entries_in_storage_order():
+    # a row may store its diagonal more than once (CSR duplicates); the
+    # port sums them without float atomics, in storage order, as the
+    # reference's segment_sum does
+    indptr = np.array([0, 3, 4, 6])
+    indices = np.array([0, 0, 2, 1, 2, 2])
+    data = np.array([1.5, 2.25, 7.0, 3.0, -1.0, 1e-8], np.float32)
+    tm = TF.CSRMatrix(indptr, indices, data, (3, 3))
+    d = repro_torch.operator(tm, "csr", device="cpu").diagonal()
+    want = np.array([np.float32(1.5) + np.float32(2.25), 3.0,
+                     np.float32(-1.0) + np.float32(1e-8)], np.float32)
+    np.testing.assert_array_equal(d.numpy(), want)
+
+
+def test_diagonal_needs_a_square_operator():
+    tm = TF.csr_from_dense(np.ones((4, 6), np.float32))
+    with pytest.raises(ValueError, match="square"):
+        repro_torch.operator(tm, "csr", device="cpu").diagonal()
+    with pytest.raises(NotImplementedError):
+        repro_torch.core.operator.SparseOperator().diagonal()
+
+
+def test_convection_poisson_matches_reference():
+    _, F, M, _, _ = _jax()
+    for nx, ny, beta in ((17, 19, 0.4), (8, 8, 0.5), (512, 4, -0.3)):
+        tm, jm = TM.convection_poisson(nx, ny, beta=beta), \
+            M.convection_poisson(nx, ny, beta=beta)
+        for f in ("indptr", "indices", "data"):
+            a, b = getattr(tm, f), np.asarray(getattr(jm, f))
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        assert tm.shape == jm.shape
+
+
+# ---- x_tiles="auto": the reference's rule --------------------------------
+def test_choose_x_tiles_matches_reference():
+    _, _, _, _, jops = _jax()
+    for n, item in ((8_388_608, 4), (8_388_609, 4), (4_194_304, 8),
+                    (4_194_305, 8), (1, 4), (33_554_433, 4)):
+        assert TO.choose_x_tiles(n, item) == jops.choose_x_tiles(n, item)
+    assert TO.choose_x_tiles(8_388_608, 4) == 1
+    assert TO.choose_x_tiles(8_388_609, 4) == 2
+
+
+def _wide(n_cols, seed=0):
+    """512 rows of 3 entries over ``n_cols`` columns, float32 values: a
+    short, wide matrix that is cheap to convert at any width."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(512), 3)
+    cols = rng.integers(0, n_cols, size=rows.size)
+    cols[:3] = n_cols - 1                         # the widest column used
+    vals = rng.standard_normal(rows.size).astype(np.float32)
+    return TF.csr_from_coo(rows, cols, vals, (512, n_cols))
+
+
+@pytest.mark.parametrize("n_cols,tiles", [(8_388_608, 1), (8_388_609, 2)])
+def test_x_tiles_auto_picks_the_reference_format(n_cols, tiles):
+    # past 8,388,608 float32 columns the reference tiles x in two, which
+    # drops ELLPACK-R from the pick; the port now decides the same
+    _, F, _, _, jops = _jax()
+    tm = _wide(n_cols)
+    assert tm.data.dtype == np.float32
+    sd = TO.as_device(tm, device="cpu")
+    sd_ref = jops.as_device(_jax_matrix(F, tm))
+    assert sd.x_tiles == sd_ref.x_tiles == tiles
+    assert sd.fmt == sd_ref.fmt
+    assert (sd.fmt == "ellpack_r") == (tiles == 1)
+
+
+@pytest.mark.parametrize("x_tiles", [1, 2])
+def test_fused_eligibility_follows_x_tiles_as_in_the_reference(x_tiles):
+    jnp, F, _, joperator, _ = _jax()
+    from repro import api as japi
+    from repro_torch import api as tapi
+    tm = TM.poisson_2d(16, 16)
+    b = np.ones(tm.n_rows, np.float32)
+    op = repro_torch.operator(tm, "sell", x_tiles=x_tiles, device="cpu")
+    op_ref = joperator(_jax_matrix(F, tm), format="sell", x_tiles=x_tiles)
+    want = japi._fused_eligible(op_ref, "cg", None, jnp.asarray(b))
+    assert want == (x_tiles == 1)
+    for method in ("cg", "bicgstab"):
+        assert tapi._fused_eligible(op, method, None, torch.from_numpy(b)) \
+            == japi._fused_eligible(op_ref, method, None, jnp.asarray(b))
+    res = repro_torch.solve(op, b, tune="off", fallback="off", tol=1e-5)
+    assert res.info["strategy"] == ("fused" if want else "composed")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["pjds", "sell", "csr", "ellpack_r", "cmrs"])
+def test_diagonal_on_card_is_exact_and_repeats(fmt):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import scipy.sparse as sp
+    tm = TM.samg(scale=3e-3)
+    want = sp.csr_matrix((tm.data, tm.indices, tm.indptr),
+                         shape=tm.shape).diagonal().astype(np.float32)
+    d1 = repro_torch.operator(tm, fmt).diagonal()
+    TO.clear_device_cache()
+    d2 = repro_torch.operator(tm, fmt).diagonal()
+    assert d1.device.type == "cuda"
+    assert torch.equal(d1, d2)
+    np.testing.assert_array_equal(d1.cpu().numpy(), want)
