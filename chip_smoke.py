@@ -24,6 +24,14 @@ must equal K2's bit for bit, and the two are timed in turns
 function needs; K4's record adds the floor its unsorted layout sets
 (``layout_bound_ms``) and its time on the Poisson operator, where K3 is
 also timed as a CUDA graph.
+The tuned front door runs last, each phase on a fresh tuning cache under
+a temporary directory: ``operator(m, tune="force")`` on sAMG (the
+measured rows, the winner held against scipy, then a cache hit that
+measures nothing), ``repro_torch.solve(m, b)`` with no keywords on sAMG
+and with the defaults on Poisson 512^2 (where the tuner must pick the
+fused loop), bf16 solves refined against f32 residuals on both, and
+``refine=True`` on an f32 operator whose CUDA graph is captured (the
+graph must stay the f32 operand's own).
 Each main-path phase sets every launch count to 0 before it and reads
 the counts after it.  Each phase prints one JSON line; any failed check
 raises, and the script then exits non-zero without its final line.
@@ -40,9 +48,11 @@ per-kernel record (launches, errors, times and bounds).
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -153,6 +163,7 @@ def nvidia_smi_line() -> str:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1206,7 +1217,222 @@ def main() -> int:
     emit("memory", max_allocated_gib=torch.cuda.max_memory_allocated()
          / 2 ** 30)
 
-    # ---- 10. the record, the card, the verdict ---------------------------
+    # ---- 10. the tuned front door and mixed-precision refinement --------
+    # Each phase tunes into a fresh cache file, and drops the conversions
+    # an earlier phase left in the conversion cache.  Where the tuning
+    # time goes: ``Spent`` wraps the fingerprint, the conversions (every
+    # untuned ``as_device``; a conversion-cache hit adds microseconds)
+    # and the measurement calls (their conversions subtracted).
+    from repro_torch import tune as T
+    from repro_torch.tune import measure as TME
+
+    tune_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_tune_")
+    n_caches = [0]
+
+    def fresh_cache():
+        n_caches[0] += 1
+        os.environ["REPRO_TORCH_TUNE_CACHE"] = str(
+            pathlib.Path(tune_dir.name) / f"tune_{n_caches[0]}.json")
+        TO.clear_device_cache()
+
+    class Spent:
+        """Seconds and calls in the tuner's pieces while a call runs."""
+
+        def __init__(self):
+            self.s = {"fingerprint": 0.0, "convert": 0.0, "measure": 0.0,
+                      "ab_compare": 0.0}
+            self.n = dict.fromkeys(self.s, 0)
+            self.undo = []
+            for key, mod, attr in (
+                    ("fingerprint", TF, "structural_fingerprint"),
+                    ("convert", TO, "as_device"),
+                    ("measure", TME, "measure_candidate"),
+                    ("measure", TME, "measure_solver_candidate"),
+                    ("ab_compare", TME, "ab_compare")):
+                self.wrap(key, mod, attr)
+
+        def wrap(self, key, mod, attr):
+            orig = getattr(mod, attr)
+
+            def fn(*a, **kw):
+                if key == "convert" and kw.get("tune", "off") != "off":
+                    return orig(*a, **kw)      # the tuned call itself
+                t0 = time.perf_counter()
+                conv0 = self.s["convert"]
+                try:
+                    return orig(*a, **kw)
+                finally:
+                    dt = time.perf_counter() - t0
+                    if key != "convert":       # conversions inside
+                        dt -= self.s["convert"] - conv0
+                    self.s[key] += dt
+                    self.n[key] += 1
+            setattr(mod, attr, fn)
+            self.undo.append((mod, attr, orig))
+
+        def close(self, total):
+            for mod, attr, orig in reversed(self.undo):
+                setattr(mod, attr, orig)
+            out = {f"{k}_s": v for k, v in self.s.items()}
+            out.update({f"{k}_calls": v for k, v in self.n.items()})
+            out["rest_s"] = total - sum(self.s.values())
+            return out
+
+    def tuned_solve(phase, mat, a_mat, bv, **kw):
+        """A tuned solve twice on one fresh cache: cold (measured) and
+        warm (a hit); returns (cold result, its record)."""
+        fresh_cache()
+        spent = Spent()
+        reset_counts()
+        t0 = time.perf_counter()
+        r1 = repro_torch.solve(mat, bv, **kw)
+        t1 = time.perf_counter() - t0
+        launched, plain_calls = counts()
+        where = spent.close(t1)
+        plain_free(plain_calls, phase)
+        st = T.tune_solver(mat, device=dev)
+        require(st.cached and st.strategy == r1.info["tune"]["strategy"],
+                f"{phase}: the tuner's record does not match the solve")
+        t0 = time.perf_counter()
+        r2 = repro_torch.solve(mat, bv, **kw)
+        t2 = time.perf_counter() - t0
+        require(r2.info["tune"]["cached"], f"{phase}: second call not cached")
+        sci = scipy_residual(a_mat, bv, r1.x)
+        rec = {"status": r1.status, "strategy": r1.info["strategy"],
+               "tune": r1.info["tune"], "iters": r1.iters,
+               "true_residual": r1.diagnostics["true_residual"],
+               "scipy_f64_residual": sci, "seconds": t1,
+               "phase_s": r1.info["phase_s"], "tuning_breakdown": where,
+               "host_syncs": r1.info["host_syncs"],
+               "solver_rows": [{k: r[k] for k in ("label",
+                                                  "seconds_per_iter")}
+                               for r in st.rows],
+               "cached_call": {"tune": r2.info["tune"], "seconds": t2,
+                               "phase_s": r2.info["phase_s"],
+                               "status": r2.status, "iters": r2.iters},
+               "launches": launched, "plain_calls": plain_calls}
+        if "refine" in r1.info:
+            rec["refine"] = r1.info["refine"]
+        require(r1.status == "converged" and r2.status == "converged",
+                f"{phase}: {r1.status} / {r2.status}")
+        require(sci <= 1e-5, f"{phase}: scipy residual {sci}")
+        emit(phase, **rec)
+        return r1, rec
+
+    # Poisson 512^2 (tol 1e-5 as above: the default maxiter 500 is short
+    # of its 1116 iterations): the tuner must pick the fused loop.
+    rpd, _ = tuned_solve("solve:poisson512:default", mp, ap64, bp, tol=1e-5,
+                         maxiter=5000)
+    require(rpd.info["tune"]["strategy"] == "fused"
+            and rpd.info["strategy"] == "fused",
+            f"poisson512 tuned {rpd.info['tune']}, not fused")
+    rpb, rec = tuned_solve("solve:poisson512:bf16", mp, ap64, bp, tol=1e-5,
+                           maxiter=5000, dtype=torch.bfloat16)
+    require(rpb.info["strategy"].endswith("+refined")
+            and rec["launches"]["fused_iter"] >= 1,
+            f"poisson512 bf16: {rpb.info['strategy']}")
+
+    # refine=True on the f32 Poisson operator whose graphs phase 6
+    # captured: the bf16 clone gets its own fused loop, and the f32
+    # operand's loops, graphs and results stay as they were.
+    mvd_p = _fused_dots_of(op_ps)
+    fused_before = dict(op_ps.dev.fused)
+    loops_before = {k: (lp, lp.graph, lp.per_replay)
+                    for k, lp in mvd_p.loops.items()}
+    require(all(g is not None for _, g, _ in loops_before.values()),
+            "refine:cast: the f32 operand has no captured graph")
+    reset_counts()
+    t0 = time.perf_counter()
+    rcast = repro_torch.solve(op_ps, bp, tol=1e-5, maxiter=5000, refine=True)
+    t_cast = time.perf_counter() - t0
+    launched, plain_calls = counts()
+    plain_free(plain_calls, "refine:cast")
+    same = (op_ps.dev.fused.keys() == fused_before.keys()
+            and all(op_ps.dev.fused[k] is v for k, v in fused_before.items())
+            and mvd_p.loops.keys() == loops_before.keys()
+            and all(mvd_p.loops[k] is lp and lp.graph is g
+                    and lp.per_replay == pr
+                    for k, (lp, g, pr) in loops_before.items()))
+    require(same, "refine:cast: the f32 operand's fused loops changed")
+    r_after = S.fused_cg(mvd_p, bpp, tol=1e-5, maxiter=5000)
+    require(torch.equal(r_after.x, r_def.x)
+            and r_after.info["graph_capture_s"] == 0.0,
+            "refine:cast: the f32 fused solve changed after refinement")
+    sci_cast = scipy_residual(ap64, bp, rcast.x)
+    emit("refine:cast", status=rcast.status, strategy=rcast.info["strategy"],
+         iters=rcast.iters, refine=rcast.info["refine"],
+         true_residual=rcast.diagnostics["true_residual"],
+         scipy_f64_residual=sci_cast, seconds=t_cast,
+         host_syncs=rcast.info["host_syncs"], f32_loops_untouched=True,
+         f32_solve_same_bits_after=True, launches=launched,
+         plain_calls=plain_calls)
+    require(rcast.status == "converged"
+            and rcast.info["strategy"] == "fused+refined",
+            f"refine:cast: {rcast.status} {rcast.info['strategy']}")
+    require(sci_cast <= 1e-5, f"refine:cast: scipy residual {sci_cast}")
+    require(launched["fused_iter"] >= 1 and launched["sell_spmv"] >= 1,
+            "refine:cast: K3 (inner) or K2 (f32 residual) not launched")
+
+    # sAMG: operator(m, tune="force") measures the kernel-static space;
+    # a second, tune="auto", call must be a hit that measures nothing.
+    fresh_cache()
+    t0 = time.perf_counter()
+    TF.structural_fingerprint(m)
+    t_fp = time.perf_counter() - t0
+    spent = Spent()
+    reset_counts()
+    t0 = time.perf_counter()
+    op_t = repro_torch.operator(m, tune="force")
+    t_cold = time.perf_counter() - t0
+    launched_t, plain_t = counts()
+    where = spent.close(t_cold)
+    plain_free(plain_t, "tune:samg:autotune")
+    spent = Spent()
+    reset_counts()
+    t0 = time.perf_counter()
+    op_h = repro_torch.operator(m, tune="auto")
+    t_hit = time.perf_counter() - t0
+    launched_h, _ = counts()
+    where_hit = spent.close(t_hit)
+    require(where_hit["measure_calls"] == 0 and where_hit["ab_compare_calls"]
+            == 0 and not any(launched_h.values()),
+            f"tune:samg: the tune='auto' call measured: {where_hit}")
+    tr = T.autotune(m, device=dev)
+    require(tr.cached and op_h.fmt == op_t.fmt == tr.best.fmt,
+            "tune:samg: the cached pick differs from the forced one")
+    reset_counts()
+    y_t = op_t @ x
+    launched, plain_calls = counts()
+    plain_free(plain_calls, "tune:samg:autotune winner")
+    require(sum(launched.values()) >= 1, "tune:samg: no kernel launched")
+    s_abs, s_rel = rel_err(y_t, y64_t)
+    require(tuple(y_t.shape) == (n,) and bool(torch.isfinite(y_t).all()),
+            "tune:samg: bad output")
+    require(s_rel <= SCIPY_TOL, f"tune:samg winner vs scipy f64: {s_rel}")
+    emit("tune:samg:autotune", winner=tr.best.label(),
+         heuristic=tr.heuristic_row["label"],
+         winner_is_heuristic=tr.best.label() == tr.heuristic_row["label"],
+         rows=[{k: r[k] for k in ("label", "heuristic", "model_s",
+                                  "measured_s")} for r in tr.rows],
+         device_kind=tr.key.split("/")[1], seconds_cold=t_cold,
+         tuning_breakdown=where, seconds_hit=t_hit, hit_breakdown=where_hit,
+         fingerprint_s=t_fp, nnz=m.nnz, launches_tuning=launched_t,
+         launches_product=launched, max_abs_err_vs_scipy_f64=s_abs,
+         max_rel_err_vs_scipy_f64=s_rel)
+    del op_t, op_h, y_t
+
+    # repro_torch.solve(m, b) with no keywords, then bf16 with refinement
+    tuned_solve("solve:samg:default", m, a64, b_np)
+    rsb, _ = tuned_solve("solve:samg:bf16", m, a64, b_np,
+                         dtype=torch.bfloat16)
+    require(rsb.info["strategy"].endswith("+refined"),
+            f"samg bf16: {rsb.info['strategy']}")
+    TO.clear_device_cache()
+    tune_dir.cleanup()
+    emit("memory:tuned", max_allocated_gib=torch.cuda.max_memory_allocated()
+         / 2 ** 30, seconds_since_start=time.perf_counter() - t_start)
+
+    # ---- 11. the record, the card, the verdict ---------------------------
     print(json.dumps({"kernels": record}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

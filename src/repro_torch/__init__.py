@@ -6,12 +6,17 @@ heavy and builds no kernel::
 
     import repro_torch
     op = repro_torch.operator(m, format="sell")        # on CUDA
+    op = repro_torch.operator(m, tune="auto")          # measured statics
     y = op @ x
-    res = repro_torch.solve(m, b, tune="off", fallback="off")
+    res = repro_torch.solve(m, b)                      # tuned CG
+    res = repro_torch.solve(m, b, dtype=torch.bfloat16)   # bf16, refined
 
 Entry points run on CUDA unless given ``device="cpu"``; with no CUDA
-and no device they raise.  The package imports neither JAX nor the
-``repro`` package: ``core/`` holds its own copies of the host code.
+and no device they raise.  Tuned decisions are measured on that device
+and kept in a JSON cache (``$REPRO_TORCH_TUNE_CACHE``, else
+``~/.cache/repro-torch-spmv/tune_cache.json``; ``repro_torch.tune``).
+The package imports neither JAX nor the ``repro`` package: ``core/``
+holds its own copies of the host code.
 """
 from __future__ import annotations
 

@@ -9,12 +9,11 @@ from __future__ import annotations
 __all__ = ["ROADMAP_ITEMS", "not_ported"]
 
 ROADMAP_ITEMS = {
-    "refine": "1.6 (mixed-precision refinement)",
     "block_cg": "1.7 (Lanczos, block Lanczos, power iteration)",
     "transpose": "1.8 (rmatvec, .T and transpose='device')",
     "autograd": "1.9 (the autograd Function)",
     "reorder": "1.10 (RCM preprocessing and Matrix-Market I/O)",
-    "tune": "1.12 (the autotuner)",
+    "dist": "1.11 (the distributed layer)",
 }
 
 

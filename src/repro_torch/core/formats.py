@@ -21,6 +21,7 @@ values.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Tuple
 
 import numpy as np
@@ -45,6 +46,7 @@ __all__ = [
     "windowed_sort_perm",
     "windowed_block_lengths",
     "estimate_storage_elements",
+    "structural_fingerprint",
     "PAD_COL",
     "min_index_dtype",
     "resolve_index_dtype",
@@ -752,3 +754,20 @@ def estimate_storage_elements(
              for c in strip_nnz], dtype=np.int64)
         return int(su.sum()) * b_r
     raise ValueError(f"unknown format {fmt!r}")
+
+
+def structural_fingerprint(m: CSRMatrix) -> str:
+    """sha1 digest of the matrix STRUCTURE: shape + indptr + indices,
+    deliberately excluding the stored values (the tuner's cache key).
+
+    Every quantity the tuner's search space and the perf model depend on
+    -- row lengths, padding, column spans -- is a function of the
+    structure alone, so tuned kernel statics transfer across value
+    updates, while any structural edit (new entry, reorder, resize)
+    changes the digest and invalidates the cached decision.
+    """
+    h = hashlib.sha1()
+    h.update(np.asarray(m.shape, dtype=np.int64).tobytes())
+    h.update(np.ascontiguousarray(m.indptr, dtype=np.int64).tobytes())
+    h.update(np.ascontiguousarray(m.indices, dtype=np.int64).tobytes())
+    return h.hexdigest()

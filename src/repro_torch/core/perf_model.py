@@ -4,8 +4,10 @@ A copy of what ``repro.core.perf_model`` gives ``select_format``: the
 device spec record, the stored-byte model (paper Eq. 1 generalised to
 compressed streams), the out-of-kernel permutation cost, the CMRS
 compute floor, the solver-iteration byte count, and the calibration
-hook those functions read.  ``TPU_V5E`` stays so the port can be held
-to the reference's decisions; :data:`H100` is the port's default spec.
+hook those functions read (``set_calibration`` / ``get_calibration``;
+the tuner's ``tune.calibrate.fit_calibration`` fits one).  ``TPU_V5E``
+stays so the port can be held to the reference's decisions;
+:data:`H100` is the port's default spec.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ __all__ = [
     "H100",
     "Calibration",
     "set_calibration",
+    "get_calibration",
     "clear_calibration",
     "spmvm_bytes",
     "perm_traffic_bytes",
@@ -96,6 +99,11 @@ def set_calibration(cal: Optional[Calibration]) -> None:
     if cal is not None and not isinstance(cal, Calibration):
         raise TypeError(f"expected Calibration or None; got {type(cal)}")
     _CALIBRATION = cal
+
+
+def get_calibration() -> Optional[Calibration]:
+    """The installed process-wide calibration, or None."""
+    return _CALIBRATION
 
 
 def clear_calibration() -> None:

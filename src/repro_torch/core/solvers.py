@@ -2,8 +2,9 @@
 over any operator, the fused CG and BiCGStab whose iterations are K3
 passes, and block CG over ``matmat`` (K5).
 
-Port of ``repro/core/solvers.py`` (all but refinement and the
-eigensolvers).  Two loop structures:
+Port of ``repro/core/solvers.py`` (all but the eigensolvers), with
+mixed-precision iterative refinement as a host loop over either kind of
+solve.  Two loop structures:
 
 * The COMPOSED loops (``cg``, ``bicgstab``, ``block_cg``) run on the
   host over device-resident carriers: the vector work (spMV, axpys,
@@ -47,7 +48,8 @@ from repro_torch.kernels import krylov_step as KS
 from repro_torch.kernels import ref as R
 
 __all__ = ["SolveResult", "STATUS_NAMES", "FUSED_CHUNK", "cg", "bicgstab",
-           "jacobi", "fused_cg", "fused_bicgstab", "block_cg"]
+           "jacobi", "fused_cg", "fused_bicgstab", "block_cg",
+           "iterative_refinement"]
 
 F32 = np.float32
 
@@ -600,6 +602,56 @@ def _true_residual(mvd, b, x, reads: _HostReads) -> float:
     rr, bb = reads.dots((r, r), (b, b))
     with np.errstate(all="ignore"):
         return float(np.sqrt(rr / np.maximum(bb, _TINY)))
+
+
+# --------------------------------------------------------------------------
+# Mixed-precision iterative refinement
+# --------------------------------------------------------------------------
+def iterative_refinement(residual_of: Callable, inner_solve,
+                         b: torch.Tensor, *, x0: torch.Tensor | None = None,
+                         tol: float = 1e-6, max_rounds: int = 10):
+    """Outer f32 correction loop over a low-precision inner solve, as
+    the reference runs it (a host loop of a handful of rounds).
+
+    ``residual_of(x) -> b - A x`` MUST apply the FULL-precision
+    operator; ``inner_solve(r) -> (dx, iters, inner_residual)`` solves
+    ``A dx = r`` against the low-precision (bf16 + int16) operand to its
+    own looser tolerance.  Each round re-measures the true f32 residual
+    and adds the correction, so bf16 storage limits the rate of
+    convergence, never the final accuracy.  Rounds stop at ``tol`` on
+    the true relative residual (``"converged"``), at ``max_rounds``
+    (``"max_rounds"``), when a round fails to reduce the residual
+    (``"stalled"``: the caller should escalate to a full-precision
+    solve) or on a non-finite residual (``"non_finite"``).
+
+    Returns ``(x, rel_residual, rounds, reason)``, ``rounds`` one dict
+    per correction (inner iterations, residual entering the round,
+    inner residual).  Host reads: one for ||b||, one per residual."""
+    bn = max(float(torch.linalg.vector_norm(b)), 1e-30)
+    x = torch.zeros_like(b) if x0 is None else x0
+    rounds = []
+    rn_prev = float("inf")
+    while True:
+        r = residual_of(x)
+        rn = float(torch.linalg.vector_norm(r)) / bn
+        if not math.isfinite(rn):
+            reason = "non_finite"
+            break
+        if rn <= tol:
+            reason = "converged"
+            break
+        if len(rounds) >= max_rounds:
+            reason = "max_rounds"
+            break
+        if rn >= rn_prev:
+            reason = "stalled"
+            break
+        dx, iters, inner_res = inner_solve(r)
+        x = x + dx.to(x.dtype)
+        rounds.append({"residual_in": rn, "inner_iters": int(iters),
+                       "inner_residual": float(inner_res)})
+        rn_prev = rn
+    return x, rn, rounds, reason
 
 
 # --------------------------------------------------------------------------

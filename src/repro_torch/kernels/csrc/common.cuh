@@ -88,8 +88,12 @@ __device__ __forceinline__ float lane_sum(const V* __restrict__ val,
 // row blocks walked at once as filling it takes.  A row's sum is one
 // thread's walk whatever the shape, so y's bits do not depend on it (K3's
 // dots do, in their rounding, through the per-thread partials: the same
-// card and matrix always give the same shape).
+// card and matrix always give the same shape).  A CTA never exceeds
+// kMaxWindowThreads (the window kernels' __launch_bounds__): a wide
+// window (sigma up to 32 b_r, as the tuner builds them) of a small
+// matrix would otherwise ask for up to w_b * b_r threads.
 constexpr int kWindowThreads = 128;
+constexpr int kMaxWindowThreads = 1024;
 
 inline int window_cta_threads(int b_r, int w_b, int n_win) {
   int per = kWindowThreads / b_r;          // row blocks walked at once
@@ -103,6 +107,7 @@ inline int window_cta_threads(int b_r, int w_b, int n_win) {
   const long fill = ((long)slots * sms + rows - 1) / rows;
   if (fill > per) per = (int)fill;         // too few windows to fill it
   if (per > w_b) per = w_b;
+  if (per * b_r > kMaxWindowThreads) per = kMaxWindowThreads / b_r;
   return per * b_r;
 }
 

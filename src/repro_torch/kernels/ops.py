@@ -456,6 +456,7 @@ def csr_matvec(a: CSRDevice, x: torch.Tensor,
 # Unified dispatch
 # --------------------------------------------------------------------------
 _CSR_MIN_ROWS_FACTOR = 2       # below 2*b_r rows, block padding dominates
+_CSR_IRREGULAR_FACTOR = 4.0    # scalar gather stream can't saturate HBM
 _ELL_OVERHEAD_TOL = 0.05       # near-constant rows: skip sorting entirely
 
 
@@ -729,9 +730,16 @@ def as_device(
     (``"auto"``: int16 when the column span fits).  ``x_tiles`` is the
     reference's column tiling (``"auto"``: :func:`choose_x_tiles`); it
     steers the format pick and fused eligibility as there, and the
-    kernels ignore it.  ``tune`` other than
-    ``"off"`` and ``reorder`` other than ``"off"`` are not ported yet and
-    raise ``NotImplementedError``.
+    kernels ignore it.
+
+    ``tune="auto"`` asks the autotuner (``repro_torch.tune.autotune``)
+    for measured-best statics on ``device`` -- a hit in its persistent
+    cache measures nothing -- and builds exactly ``best.build_kwargs()``
+    (which own ``diag_align``, so a caller's ``diag_align`` is ignored);
+    an explicit ``format`` restricts the search to it.  ``"force"``
+    re-measures and never serves a conversion-cache hit.  ``reorder``
+    other than ``"off"`` is not ported yet and raises
+    ``NotImplementedError``.
     """
     if isinstance(a, SparseDevice):
         if format not in ("auto", a.fmt):
@@ -754,8 +762,6 @@ def as_device(
     if reorder not in ("off", "auto", "rcm"):
         raise ValueError(f"reorder must be 'off', 'auto' or 'rcm'; "
                          f"got {reorder!r}")
-    if tune != "off":
-        raise not_ported(f"tune={tune!r}", "tune")
     if reorder != "off":
         raise not_ported(f"reorder={reorder!r}", "reorder")
     dev = resolve_device(device)
@@ -774,10 +780,24 @@ def as_device(
     key = (id(a), format, b_r, diag_align, sigma, chunk_l,
            None if vdt is None else str(vdt),
            "auto" if index_dtype == "auto" else np.dtype(index_dtype).name,
-           x_tiles, str(dev))
-    hit = _DEVICE_CACHE.get(key)
-    if hit is not None and hit[0]() is a:
-        return hit[1]
+           x_tiles, str(dev), tune)
+    if tune != "force":      # force must re-measure, never serve a hit
+        hit = _DEVICE_CACHE.get(key)
+        if hit is not None and hit[0]() is a:
+            return hit[1]
+
+    if tune != "off":
+        from repro_torch import tune as T   # deferred: tune imports ops
+        best = T.autotune(a, format=format, dtype=dtype,
+                          index_dtype=index_dtype, force=(tune == "force"),
+                          device=dev).best
+        # Rebuild with EXACTLY the geometry the tuner measured
+        # (Candidate.build_kwargs owns diag_align).
+        sd = as_device(a, dtype=dtype, index_dtype=index_dtype, tune="off",
+                       device=dev, **best.build_kwargs())
+        if tune != "force":
+            _cache_put(key, a, sd)
+        return sd
 
     # The kernels need diag_align % chunk_l == 0; raise it once here so
     # the selection pricing sees the same padding the converters produce.

@@ -738,6 +738,35 @@ def test_kernels_match_plain_versions_on_card(scale, sigma, tdt, idt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("factor", [1, 4, 8, 32])
+@pytest.mark.parametrize("b_r", [32, 64, 128])
+def test_k2_k3_every_window_the_tuner_builds_on_card(b_r, factor):
+    # The tuner's SELL space (sigma = factor * b_r) on a 10k-row matrix:
+    # few, wide windows, where the window CTA once asked for w_b * b_r
+    # threads (up to 4096) and K2 failed to launch.
+    _need_cuda()
+    m = TM.samg(scale=0.003)
+    s = TO.as_device(m, "sell", b_r=b_r, sigma=factor * b_r, chunk_l=8,
+                     diag_align=8).dev
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        m.n_rows).astype(np.float32)).cuda()
+    _close(TO.sell_matvec(s, x).cpu(),
+           TR.sell_matvec_ref(s.val, s.col_idx, s.row_block, s.inv_perm, x,
+                              s.n_blocks).cpu())
+    v = [torch.zeros(s.n_rows_pad, device="cuda") for _ in range(3)]
+    for i, t in enumerate(v):
+        t[: m.n_rows] = x * (i + 1) - i
+    y_k, d_k = TFI.fused_matvec_dots(s, *v)
+    y_r, d_r = TR.fused_matvec_dots_ref(s.val, s.col_idx, s.row_block,
+                                        s.inv_perm, *v, s.n_blocks)
+    _close(y_k.cpu(), y_r.cpu())
+    ny = float(y_r.norm())
+    n1, n2 = float(v[1].norm()), float(v[2].norm())
+    _dots_close(d_k.cpu().numpy(), d_r.cpu().numpy(),
+                [ny * n1, ny * n2, ny * ny, n2 * n2, n1 * n2])
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_validate_operands_on_card():
     _need_cuda()
     d = TO.as_device(TM.samg(scale=1e-3), "pjds").dev

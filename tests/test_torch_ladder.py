@@ -8,7 +8,8 @@ primary -> fused->composed -> escalate:fresh-x0+jacobi, all
 typed on every rung.  The port's deliberate differences (ROADMAP.md,
 faults found against the reference): no rung catches an exception, so
 a rung that raises ends the solve with that exception; the kernel->ref
-and bf16->f32 rungs never appear.
+rung never appears.  The bf16->f32 rung of a refined solve is held to
+the reference's in ``tests/test_torch_refine.py``.
 """
 import numpy as np
 import pytest

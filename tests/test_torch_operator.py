@@ -235,11 +235,14 @@ def test_entry_points_refuse_the_cpu_unasked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         repro_torch.solve(tm, np.ones(tm.n_rows), tune="off",
                           fallback="off")
+    # the defaults tune: no device and no card raises before measuring
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        repro_torch.solve(tm, np.ones(tm.n_rows))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        repro_torch.operator(tm, tune="auto")
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda tm: repro_torch.operator(tm, "sell", tune="auto",
-                                     device="cpu"), "autotuner"),
     (lambda tm: repro_torch.operator(tm, "sell", reorder="rcm",
                                      device="cpu"), "RCM"),
     (lambda tm: repro_torch.operator(tm, "sell", transpose="device",

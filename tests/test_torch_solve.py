@@ -281,10 +281,6 @@ def test_composed_cg_accepts_x0():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(), "autotuner"),                                   # tune="auto"
-    (dict(tune="off", fallback="off", refine=True), "refinement"),
-    (dict(tune="off", fallback="off", dtype=torch.bfloat16), "refinement"),
-    (dict(tune="off", fallback="off", dtype="bfloat16"), "refinement"),
     (dict(tune="off", fallback="off", reorder="auto"), "RCM"),
 ])
 def test_unported_options_raise(kw, item):
