@@ -32,6 +32,17 @@ and with the defaults on Poisson 512^2 (where the tuner must pick the
 fused loop), bf16 solves refined against f32 residuals on both, and
 ``refine=True`` on an f32 operator whose CUDA graph is captured (the
 graph must stay the f32 operand's own).
+The distributed layer (paper §3) runs after it: ``dist:samg:p1`` is
+``dist_operator(m, GroupComm())`` on an NCCL process group of one rank
+(``op @ x`` against scipy and against the same body through the plain
+versions, CG against the single-device composed CG, the rank's matvec
+timed beside K1), ``dist:samg:p4`` four ranks of a 1-D partition as
+threads of this process on the one card (``ThreadComm``): every mode x
+halo flavour against P = 1 and scipy with K1's launches counted, a
+4-rank CG, and each rank's local K1, remote K1 and index work timed
+alone beside their nnz byte bounds and the perf model's prediction;
+``dist:grid`` a 2 x 2 grid on a smaller sAMG (the partial-sum
+reduction, ``op @ X`` through K5, ``op.T`` and block CG).
 Each main-path phase sets every launch count to 0 before it and reads
 the counts after it.  Each phase prints one JSON line; any failed check
 raises, and the script then exits non-zero without its final line.
@@ -152,6 +163,352 @@ def step_vs_plain(torch, np, R, KS, dev, require):
             err = max(err, compare(fs_k, is_k, fs_p, is_p, f"init {start}"))
             n += 1
     return err, n
+
+
+def dist_phases(h) -> dict:
+    """The distributed layer (paper §3) on the card: ``dist:samg:p1`` (an
+    NCCL process group of one rank), ``dist:samg:p4`` (four ranks as
+    threads of this process, one stream each, on the one card) and
+    ``dist:grid`` (a 2 x 2 grid on a smaller sAMG).  ``h`` carries the
+    card, the sAMG matrix with its scipy copy and right-hand sides, the
+    single-device composed CG's iterations and ``main``'s helpers.
+    Returns K1's and K5's launches on these phases and the largest
+    kernel-vs-plain errors seen."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    import repro_torch
+    from repro_torch.core import dist_spmv as TD
+    from repro_torch.core import formats as TF
+    from repro_torch.core import matrices as TM
+    from repro_torch.core import perf_model as TPM
+    from repro_torch.core.dist_comm import GroupComm, ThreadComm, run_ranks
+    from repro_torch.core.operator import DistOperator
+    from repro_torch.kernels import ref as R
+
+    dev, m, n, require, emit = h.dev, h.m, h.m.n_rows, h.require, h.emit
+    launches = {"pjds_spmv": 0, "pjds_spmm": 0}
+    worst = {"pjds_spmv": 0.0, "pjds_spmm": 0.0}
+
+    def counted(phase):
+        launched, plain_calls = h.counts()
+        h.plain_free(plain_calls, phase)
+        for k in launches:
+            launches[k] += launched[k]
+        return launched
+
+    def plain_k1(a, v):
+        return R.pjds_matvec_ref(a.val, a.col_idx, a.row_block, v,
+                                 a.n_blocks)
+
+    def vs_plain(a, v, what):
+        """K1 on operand ``a`` against its plain version (relative)."""
+        _, rel = h.rel_err(h.k1(a, v), plain_k1(a, v))
+        require(rel <= h.Y_TOL, f"{what}: K1 vs plain {rel}")
+        worst["pjds_spmv"] = max(worst["pjds_spmv"], rel)
+        return rel
+
+    def nnz_bound_ms(a, n_x):
+        """Bytes the product needs: each stored non-zero (value + index)
+        once, x and y once, the walk lengths and offsets once."""
+        nnz = int((a.val != 0).sum())
+        b = (nnz * (a.val.element_size() + a.col_idx.element_size())
+             + 4 * (n_x + a.n_rows_pad + a.warp_len.numel()
+                    + a.block_start.numel()))
+        return 1e3 * b / h.HBM, nnz
+
+    y64 = h.y64
+    scale = float(np.abs(y64).max())
+
+    def per_call(plan, mode, halo):
+        """K1 (K5) launches of one rank's spMV: the local operand, then
+        the remote one or one per pipeline stage (none without a halo)."""
+        no_halo = (sum(plan.halo_lens) == 0 if halo == "gathered"
+                   else plan.halo_w == 0)
+        if no_halo:
+            return 1
+        return 1 + (len(plan.stage_dists) if mode == "pipeline" else 1)
+
+    def err_vs(y_glob, ref):
+        return float(np.abs(np.asarray(y_glob, np.float64)[:n] - ref).max()
+                     / scale)
+
+    # ---- dist:samg:p1 -- one rank of an NCCL process group -------------
+    store = tempfile.TemporaryDirectory(prefix="chip_smoke_dist_")
+    torch.cuda.set_device(dev)
+    tdist.init_process_group(
+        "nccl", store=tdist.FileStore(os.path.join(store.name, "s"), 1),
+        rank=0, world_size=1)
+    try:
+        comm = GroupComm()
+        t0 = time.perf_counter()
+        op1 = repro_torch.dist_operator(m, comm, transpose=None)
+        t_part1 = time.perf_counter() - t0
+        x1 = op1.shard_vector(h.x_np)
+        h.reset_counts()
+        y1 = op1 @ x1
+        launched = counted("dist:samg:p1")
+        require(launched["pjds_spmv"] == 1,
+                f"dist:samg:p1: K1 launched {launched['pjds_spmv']}")
+        sh = op1.shard
+        y1_plain = plain_k1(sh.loc, x1).index_select(0, sh.seg_pos[0])
+        _, e_plain = h.rel_err(y1, y1_plain)
+        e_sci = err_vs(y1.cpu(), y64)
+        require(e_plain <= h.Y_TOL, f"dist:samg:p1 vs plain body {e_plain}")
+        require(e_sci <= h.SCIPY_TOL, f"dist:samg:p1 vs scipy {e_sci}")
+        require(bool(torch.isfinite(y1).all()) and tuple(y1.shape) ==
+                (op1.n_loc,), "dist:samg:p1: bad output")
+        worst["pjds_spmv"] = max(worst["pjds_spmv"], e_plain)
+        b1 = op1.shard_vector(h.b_np)
+        h.reset_counts()
+        t0 = time.perf_counter()
+        rd = repro_torch.solve(op1, b1)
+        t_solve1 = time.perf_counter() - t0
+        launched_cg = counted("dist:samg:p1 cg")
+        sci_cg = h.scipy_residual(h.a64, h.b_np, rd.x[:n])
+        require(rd.status == "converged" and sci_cg <= 1e-5,
+                f"dist:samg:p1 cg: {rd.status} {sci_cg}")
+        require(abs(rd.iters - h.composed_iters) <= 1,
+                f"dist:samg:p1 cg: {rd.iters} iterations, single-device "
+                f"composed CG {h.composed_iters}")
+        t_mv = h.time_ms(lambda: op1 @ x1)
+        t_k1 = h.time_ms(lambda: h.k1(sh.loc, x1))
+        bound1, nnz1 = nnz_bound_ms(sh.loc, op1.n_loc)
+        emit("dist:samg:p1", comm="GroupComm(nccl), world size 1",
+             partition_s=t_part1, n_global_pad=op1.shape[0],
+             halo_w=op1.dist.halo_w, launches=launched,
+             max_rel_err_vs_plain_body=e_plain,
+             max_rel_err_vs_scipy_f64=e_sci,
+             cg={"status": rd.status, "iters": rd.iters,
+                 "single_device_composed_iters": h.composed_iters,
+                 "host_syncs": rd.info["host_syncs"],
+                 "strategy": rd.info["strategy"], "seconds": t_solve1,
+                 "scipy_f64_residual": sci_cg,
+                 "launches": launched_cg},
+             matvec_ms=t_mv[0], matvec_ms_q25_q75=list(t_mv[1:]),
+             k1_local_ms=t_k1[0], k1_local_ms_q25_q75=list(t_k1[1:]),
+             matvec_over_k1=t_mv[0] / t_k1[0], k1_nnz_bound_ms=bound1,
+             local_nnz=nnz1,
+             model_ms={"h100": 1e3 * TPM.predicted_dist_spmv_seconds(
+                 op1.dist, calibration=None)},
+             p2p_messages=0, note="world size 1, halo_w 0: no message; "
+             "only all_reduce runs")
+        y1_glob = y1.cpu().numpy()
+        del op1, rd, x1, b1, y1_plain
+    finally:
+        tdist.destroy_process_group()
+        store.cleanup()
+
+    # ---- dist:samg:p4 -- four ranks as threads, one card ---------------
+    t0 = time.perf_counter()
+    plan = TD.partition_csr(m, 4)
+    t_part4 = time.perf_counter() - t0
+    comms = ThreadComm.create(4, dev)
+    t0 = time.perf_counter()
+    ops4 = run_ranks(comms, lambda c: DistOperator(plan, c, device=dev))
+    t_shard = time.perf_counter() - t0
+    xs = [op.shard_vector(h.x_np) for op in ops4]
+    bs = [op.shard_vector(h.b_np) for op in ops4]
+    torch.cuda.synchronize()
+
+    runs4 = {}
+    for mode in TD.MODES:
+        for halo in TD.HALOS:
+            def body(c, mode=mode, halo=halo):
+                op = copy.copy(ops4[c.rank])
+                op.mode, op.halo = mode, halo
+                return op @ xs[c.rank]
+
+            h.reset_counts()
+            ys = run_ranks(comms, body)
+            launched = counted(f"dist:samg:p4 {mode} {halo}")
+            want = 4 * per_call(plan, mode, halo)
+            require(launched["pjds_spmv"] == want,
+                    f"dist:samg:p4 {mode} {halo}: K1 launched "
+                    f"{launched['pjds_spmv']}, expected {want}")
+            yg = torch.cat(ys).cpu().numpy()
+            e_p1 = float(np.abs(yg[:n].astype(np.float64)
+                                - y1_glob[:n]).max() / scale)
+            e_sci = err_vs(yg, y64)
+            require(e_p1 <= h.SCIPY_TOL and e_sci <= h.SCIPY_TOL,
+                    f"dist:samg:p4 {mode} {halo}: vs P=1 {e_p1}, "
+                    f"vs scipy {e_sci}")
+            runs4[f"{mode}:{halo}"] = {
+                "k1_launches": launched["pjds_spmv"],
+                "max_rel_err_vs_p1": e_p1, "max_rel_err_vs_scipy_f64": e_sci,
+                "model_ms_h100": 1e3 * TPM.predicted_dist_spmv_seconds(
+                    plan, halo, mode, calibration=None)}
+
+    h.reset_counts()
+    t0 = time.perf_counter()
+    cg4 = run_ranks(comms, lambda c: repro_torch.solve(ops4[c.rank],
+                                                       bs[c.rank]))
+    t_cg4 = time.perf_counter() - t0
+    launched_cg4 = counted("dist:samg:p4 cg")
+    require(len({(r.status, r.iters) for r in cg4}) == 1,
+            "dist:samg:p4 cg: the ranks disagree")
+    x_cg = torch.cat([r.x for r in cg4])[:n]
+    sci4 = h.scipy_residual(h.a64, h.b_np, x_cg)
+    require(cg4[0].status == "converged" and sci4 <= 1e-5
+            and abs(cg4[0].iters - h.composed_iters) <= 2,
+            f"dist:samg:p4 cg: {cg4[0].status} {cg4[0].iters} {sci4}")
+
+    # one rank at a time, no message in flight: its local K1, its remote
+    # K1 on the ext buffer the exchange would fill, and the gathers,
+    # scatters and unpermute of a gathered exchange
+    gr, gc = plan.grid_eff
+    w = plan.halo_w
+    ranks = []
+    for r, op in enumerate(ops4):
+        sh = op.shard
+        i, j = divmod(r, gc)
+        ext = torch.cat([xs[((i + d) % gr) * gc + j] for d in range(-w, w + 1)])
+        e_loc = vs_plain(sh.loc, xs[r], f"p4 rank {r} local")
+        e_rem = vs_plain(sh.rem, ext, f"p4 rank {r} remote")
+        y_loc = h.k1(sh.loc, xs[r])
+        recv = {k: torch.zeros(ln.recv_idx.numel(), device=dev)
+                for k, ln in enumerate(sh.links) if ln.recv_idx.numel()}
+
+        def index_work(sh=sh, x=xs[r], recv=recv, y_loc=y_loc):
+            for ln in sh.links:
+                if ln.send_idx.numel():
+                    x.index_select(0, ln.send_idx)
+            TD._ext_of(sh, x, recv, "gathered")
+            y_loc.index_select(0, sh.seg_pos[0])
+
+        n_send = sum(ln.send_idx.numel() for ln in sh.links)
+        n_recv = sum(ln.recv_idx.numel() for ln in sh.links)
+        # gathers: index + value read, value written; scatter: index +
+        # value read, the ext buffer written; unpermute: index, y read,
+        # y slice written
+        idx_bytes = (4 * (3 * n_send + 2 * n_recv + plan.ext_len)
+                     + 4 * (2 * plan.n_loc + sh.loc.n_rows_pad))
+        t_loc = h.time_ms(lambda: h.k1(sh.loc, xs[r]))
+        t_rem = h.time_ms(lambda sh=sh, ext=ext: h.k1(sh.rem, ext))
+        t_idx = h.time_ms(index_work)
+        # the same as CUDA graphs: device time, without the host's
+        # launch overhead that a burst of short launches can expose
+        g_loc = h.time_ms(lambda: h.k1(sh.loc, xs[r]), graph=True)
+        g_rem = h.time_ms(lambda sh=sh, ext=ext: h.k1(sh.rem, ext),
+                          graph=True)
+        g_idx = h.time_ms(index_work, graph=True)
+        b_loc, nnz_loc = nnz_bound_ms(sh.loc, plan.n_loc)
+        b_rem, nnz_rem = nnz_bound_ms(sh.rem, ext.numel())
+        ranks.append({
+            "rank": r, "local_nnz": nnz_loc, "remote_nnz": nnz_rem,
+            "remote_share": nnz_rem / max(nnz_loc + nnz_rem, 1),
+            "local_diagonals": int(sh.loc.val.shape[0]),
+            "remote_diagonals": int(sh.rem.val.shape[0]),
+            "k1_local_ms": t_loc[0], "k1_local_bound_ms": b_loc,
+            "k1_remote_ms": t_rem[0], "k1_remote_bound_ms": b_rem,
+            "index_ops_ms": t_idx[0],
+            "index_ops_bound_ms": 1e3 * idx_bytes / h.HBM,
+            "graph_ms": {"k1_local": g_loc[0], "k1_remote": g_rem[0],
+                         "index_ops": g_idx[0]},
+            "sent": n_send, "received": n_recv,
+            "k1_local_rel_err_vs_plain": e_loc,
+            "k1_remote_rel_err_vs_plain": e_rem})
+    emit("dist:samg:p4", comm="ThreadComm, 4 ranks on one card",
+         partition_s=t_part4, shard_s=t_shard, grid=list(plan.grid_eff),
+         halo_w=plan.halo_w, halo_lens=list(plan.halo_lens),
+         stage_dists=list(plan.stage_dists),
+         comm_bytes_per_device={hl: plan.comm_bytes_per_device(4, halo=hl)
+                                for hl in TD.HALOS},
+         comm_msgs_per_device={hl: plan.comm_msgs_per_device(hl)
+                               for hl in TD.HALOS},
+         modes=runs4, ranks=ranks,
+         cg={"status": cg4[0].status, "iters": cg4[0].iters,
+             "host_syncs": cg4[0].info["host_syncs"], "seconds": t_cg4,
+             "scipy_f64_residual": sci4, "launches": launched_cg4},
+         model="perf_model.predicted_dist_spmv_seconds, H100 spec: a "
+         "prediction of the link term, not a measurement")
+    del ops4, xs, bs, cg4, plan
+
+    # ---- dist:grid -- a 2 x 2 grid: the y reduction, K5, block CG ------
+    ms = TM.samg(scale=0.05)
+    a_s = h.csr64(ms)
+    t0 = time.perf_counter()
+    pg = TD.partition_csr(ms, 4, grid=(2, 2))
+    pt = TD.partition_csr(TF.csr_transpose(ms), 4, grid=(2, 2))
+    t_part = time.perf_counter() - t0
+    require(pg.red_w >= 1, "dist:grid: no partial-sum reduction")
+    dg = np.zeros(pg.n_global_pad, np.float64)
+    dg[:ms.n_rows] = TF.csr_diagonal(ms)
+    comms = ThreadComm.create(4, dev)
+    opsg = run_ranks(comms, lambda c: DistOperator(pg, c, t_dist=pt,
+                                                   diag=dg, device=dev))
+    rng = np.random.default_rng(h.seed + 7)
+    xg = rng.standard_normal(ms.n_rows).astype(np.float32)
+    Xg = rng.standard_normal((ms.n_rows, 4)).astype(np.float32)
+    xl = [op.shard_vector(xg) for op in opsg]
+    Xl = [op.shard_vector(Xg) for op in opsg]
+    torch.cuda.synchronize()
+    h.reset_counts()
+    outs = run_ranks(comms, lambda c: (opsg[c.rank] @ xl[c.rank],
+                                       opsg[c.rank] @ Xl[c.rank],
+                                       opsg[c.rank].rmatvec(xl[c.rank])))
+    launched = counted("dist:grid")
+    # per rank: A x and A^T x on K1, A X on K5
+    fwd = per_call(pg, opsg[0].mode, opsg[0].halo)
+    want = {"pjds_spmv": 4 * (fwd + per_call(pt, opsg[0].mode,
+                                             opsg[0].halo)),
+            "pjds_spmm": 4 * fwd}
+    require(all(launched[k] == v for k, v in want.items()),
+            f"dist:grid: launches {launched}, expected {want}")
+    ns = ms.n_rows
+    cat = lambda k: torch.cat([o[k] for o in outs]).cpu().double().numpy()[:ns]  # noqa: E731
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    e_y = rel(cat(0), a_s @ xg.astype(np.float64))
+    e_Y = rel(cat(1), a_s @ Xg.astype(np.float64))
+    e_T = rel(cat(2), a_s.T @ xg.astype(np.float64))
+    require(max(e_y, e_Y, e_T) <= h.SCIPY_TOL,
+            f"dist:grid vs scipy: y {e_y}, Y {e_Y}, A^T x {e_T}")
+    # K5 on a rank's local operand against its plain version
+    a0 = opsg[0].shard.loc
+    _, e5 = h.rel_err(h.k5(a0, Xl[0]), R.pjds_matmat_ref(
+        a0.val, a0.col_idx, a0.row_block, Xl[0], a0.n_blocks))
+    require(e5 <= h.Y_TOL, f"dist:grid: K5 vs plain {e5}")
+    worst["pjds_spmm"] = max(worst["pjds_spmm"], e5)
+    vs_plain(a0, xl[0], "grid rank 0 local")
+    Bg = rng.standard_normal((ms.n_rows, 4)).astype(np.float32)
+    Bl = [op.shard_vector(Bg) for op in opsg]
+    torch.cuda.synchronize()
+    h.reset_counts()
+    t0 = time.perf_counter()
+    bcg = run_ranks(comms, lambda c: repro_torch.solve(
+        opsg[c.rank], Bl[c.rank], method="block_cg"))
+    t_bcg = time.perf_counter() - t0
+    launched_b = counted("dist:grid block_cg")
+    require(len({(r.status, r.iters) for r in bcg}) == 1,
+            "dist:grid block CG: the ranks disagree")
+    xb = torch.cat([r.x for r in bcg]).cpu().double().numpy()[:ns]
+    res_b = float(np.max(np.linalg.norm(Bg - a_s @ xb, axis=0)
+                         / np.linalg.norm(Bg, axis=0)))
+    # per rank: the initial residual, one A P per iteration and the
+    # certifying residual, each a local and a remote K5
+    want_b = 4 * fwd * (bcg[0].iters + 2)
+    require(bcg[0].status == "converged" and res_b <= 1e-5
+            and launched_b["pjds_spmm"] == want_b
+            and launched_b["pjds_spmv"] == 0,
+            f"dist:grid block CG: {bcg[0].status} {res_b} {launched_b}, "
+            f"expected {want_b} K5 launches")
+    emit("dist:grid", comm="ThreadComm, 4 ranks on one card", grid=[2, 2],
+         n_rows=ms.n_rows, nnz=ms.nnz, partition_s=t_part,
+         halo_w=pg.halo_w, halo_lens=list(pg.halo_lens), red_w=pg.red_w,
+         red_lens=list(pg.red_lens), launches=launched,
+         max_rel_err_vs_scipy_f64={"y": e_y, "Y_k4": e_Y, "ATx": e_T},
+         k5_rel_err_vs_plain=e5,
+         block_cg={"status": bcg[0].status, "iters": bcg[0].iters,
+                   "scipy_f64_residual": res_b, "seconds": t_bcg,
+                   "host_syncs": bcg[0].info["host_syncs"],
+                   "launches": launched_b})
+    return {"launches": launches, "worst_rel_err_vs_plain": worst}
 
 
 def nvidia_smi_line() -> str:
@@ -1430,6 +1787,28 @@ def main() -> int:
     TO.clear_device_cache()
     tune_dir.cleanup()
     emit("memory:tuned", max_allocated_gib=torch.cuda.max_memory_allocated()
+         / 2 ** 30, seconds_since_start=time.perf_counter() - t_start)
+
+    # ---- 10b. the distributed layer --------------------------------------
+    import types
+    dist_out = dist_phases(types.SimpleNamespace(
+        dev=dev, m=m, a64=a64, x_np=x_np, b_np=b_np, y64=y64, seed=SEED,
+        composed_iters=resc.iters, require=require, emit=emit,
+        counts=counts, reset_counts=reset_counts, plain_free=plain_free,
+        rel_err=rel_err, time_ms=time_ms, scipy_residual=scipy_residual,
+        csr64=lambda mm: sp.csr_matrix((mm.data, mm.indices, mm.indptr),
+                                       shape=mm.shape),
+        k1=lambda a, v: k1_with(a, a.warp_len, v),
+        k5=lambda a, v: k5_with(a, a.warp_len, v),
+        Y_TOL=Y_TOL, SCIPY_TOL=SCIPY_TOL, HBM=HBM_BYTES_PER_S))
+    for rec in record:
+        if rec["name"] in dist_out["launches"]:
+            rec["launches_dist"] = dist_out["launches"][rec["name"]]
+            rec["max_rel_err_dist"] = \
+                dist_out["worst_rel_err_vs_plain"][rec["name"]]
+            require(rec["launches_dist"] >= 1,
+                    f"{rec['name']} not launched on the dist phases")
+    emit("memory:dist", max_allocated_gib=torch.cuda.max_memory_allocated()
          / 2 ** 30, seconds_since_start=time.perf_counter() - t_start)
 
     # ---- 11. the record, the card, the verdict ---------------------------

@@ -10,6 +10,8 @@ heavy and builds no kernel::
     y = op @ x
     res = repro_torch.solve(m, b)                      # tuned CG
     res = repro_torch.solve(m, b, dtype=torch.bfloat16)   # bf16, refined
+    op = repro_torch.dist_operator(m, repro_torch.GroupComm())  # one rank
+    res = repro_torch.solve(op, op.shard_vector(b))    # distributed CG
 
 Entry points run on CUDA unless given ``device="cpu"``; with no CUDA
 and no device they raise.  Tuned decisions are measured on that device
@@ -20,13 +22,18 @@ holds its own copies of the host code.
 """
 from __future__ import annotations
 
-__all__ = ["solve", "SolveResult", "SolveFailure", "operator"]
+__all__ = ["solve", "SolveResult", "SolveFailure", "operator",
+           "dist_operator", "DistOperator", "GroupComm", "ThreadComm"]
 
 _LAZY = {
     "solve": "repro_torch.api",
     "SolveResult": "repro_torch.core.solvers",
     "SolveFailure": "repro_torch.api",
     "operator": "repro_torch.core.operator",
+    "dist_operator": "repro_torch.core.operator",
+    "DistOperator": "repro_torch.core.operator",
+    "GroupComm": "repro_torch.core.dist_comm",
+    "ThreadComm": "repro_torch.core.dist_comm",
 }
 
 

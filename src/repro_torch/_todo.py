@@ -13,7 +13,7 @@ ROADMAP_ITEMS = {
     "transpose": "1.8 (rmatvec, .T and transpose='device')",
     "autograd": "1.9 (the autograd Function)",
     "reorder": "1.10 (RCM preprocessing and Matrix-Market I/O)",
-    "dist": "1.11 (the distributed layer)",
+    "dist_tune": "1.20 (the distributed tuner and link calibration)",
 }
 
 

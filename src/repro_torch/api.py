@@ -47,6 +47,7 @@ and, for a refined solve, the rounds under ``refine``.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 import time
@@ -137,28 +138,42 @@ def _one_solve(op, b, *, method, strategy, maxiter, tol, precond,
     return S.block_cg(op, b, x0=x0, maxiter=maxiter, tol=tol)
 
 
+def _bf16_fields(inner) -> dict:
+    """Every floating tensor of a device container, as bf16."""
+    return {f.name: getattr(inner, f.name).to(torch.bfloat16)
+            for f in dataclasses.fields(inner)
+            if isinstance(getattr(inner, f.name), torch.Tensor)
+            and getattr(inner, f.name).is_floating_point()}
+
+
 def _cast_low_precision(op):
-    """A bf16 clone of an f32 ``DeviceOperator`` for refinement's inner
-    solves: every floating tensor of the device container drops to
-    bf16, and a SELL operand whose column space fits int16 also stores
-    ``col_idx`` as int16 (the 0.50x bytes/nnz layout), as in the
-    reference.  The structure -- index maps, permutations and the walk
-    lengths derived from them -- is shared.  The clone is a new
-    ``SparseDevice``: its fused pass, device loops and CUDA graphs
+    """A bf16 clone of an f32 ``DeviceOperator`` or ``DistOperator`` for
+    refinement's inner solves: every floating tensor of the device
+    container (of each rank operand) drops to bf16, and a single-device
+    SELL operand whose column space fits int16 also stores ``col_idx``
+    as int16 (the 0.50x bytes/nnz layout), as in the reference.  The
+    structure -- index maps, permutations, halo sets and the walk
+    lengths derived from them -- is shared.  A single-device clone is a
+    new ``SparseDevice``: its fused pass, device loops and CUDA graphs
     (``fused``) and K5's row map start empty, so an inner fused solve
-    never replays the f32 operand's graph."""
-    from repro_torch.core.operator import DeviceOperator
+    never replays the f32 operand's graph.  A distributed clone keeps
+    the diagonal and drops the transpose partition, as the
+    reference's does."""
+    from repro_torch.core.operator import DeviceOperator, DistOperator
     from repro_torch.kernels.ops import SparseDevice
 
+    if isinstance(op, DistOperator):
+        lo = copy.copy(op)
+        lo.shard = op.shard.with_operands(
+            lambda a: dataclasses.replace(a, **_bf16_fields(a)))
+        lo.t_dist = lo.t_shard = None
+        return lo
     if not isinstance(op, DeviceOperator):
         raise ValueError(
-            "refine=True needs a device operator (or a host matrix) to "
-            f"cast to bf16; got {type(op).__name__}")
+            "refine=True needs a device or distributed operator (or a host "
+            f"matrix) to cast to bf16; got {type(op).__name__}")
     sd, inner = op.dev, op.dev.dev
-    low = {f.name: getattr(inner, f.name).to(torch.bfloat16)
-           for f in dataclasses.fields(inner)
-           if isinstance(getattr(inner, f.name), torch.Tensor)
-           and getattr(inner, f.name).is_floating_point()}
+    low = _bf16_fields(inner)
     if (op.fmt == "sell"
             and op.shape[1] <= torch.iinfo(torch.int16).max):
         low["col_idx"] = inner.col_idx.to(torch.int16)
@@ -193,8 +208,9 @@ def _refined_solve(op, op_lo, b, *, method, maxiter, tol, precond,
         inner_syncs.append(rr.info["host_syncs"])
         return rr.x.to(b.dtype), rr.iters, rr.residual
 
-    x, rn, rounds, reason = S.iterative_refinement(residual_of, inner, b,
-                                                   x0=x0, tol=tol)
+    x, rn, rounds, reason = S.iterative_refinement(
+        residual_of, inner, b, x0=x0, tol=tol,
+        reads=S._HostReads.of(op))
     flag = {"stalled": S.STATUS_DIVERGED,
             "non_finite": S.STATUS_NON_FINITE}.get(reason, 0)
     total = sum(r["inner_iters"] for r in rounds)
@@ -216,14 +232,10 @@ def _refined_solve(op, op_lo, b, *, method, maxiter, tol, precond,
 
 def _true_rel_residual(op, b, x) -> float:
     """Certified relative true residual ||b - A x|| / ||b|| (the largest
-    over the columns of a block RHS)."""
-    r = b - S._matvec_of(op)(x)
-    if b.dim() == 1:
-        nb = torch.clamp(torch.linalg.vector_norm(b), min=1e-30)
-        return float(torch.linalg.vector_norm(r) / nb)
-    num = torch.linalg.vector_norm(r, dim=0)
-    den = torch.clamp(torch.linalg.vector_norm(b, dim=0), min=1e-30)
-    return float(torch.max(num / den))
+    over the columns of a block RHS), summed over the ranks of a
+    distributed operator."""
+    num, den = S._HostReads.of(op).norms(b - S._matvec_of(op)(x), b)
+    return float(torch.max(num / torch.clamp(den, min=1e-30)))
 
 
 def _certify(res: SolveResult, op, b, tol: float) -> SolveResult:
@@ -367,7 +379,9 @@ def solve(a, b, *, method: str = "cg", precond=None, tol: float = 1e-6,
     layout, or with ``format`` / ``dtype`` / ``index_dtype`` /
     ``backend`` and further ``as_device`` keywords when ``tune="off"``;
     ``validate`` survives tuning), an existing ``DeviceOperator`` (used
-    as-is), or a bare matvec closure (composed strategy).  ``b``: a
+    as-is), a ``DistOperator`` (every rank calls ``solve`` with its
+    slice of b; composed strategy, the dots summed over the ranks), or
+    a bare matvec closure (composed strategy).  ``b``: a
     numpy array or tensor (moved to the operator's device; float64
     becomes float32), 1-D for ``"cg"`` and ``"bicgstab"``, (n, k) for
     ``"block_cg"``.  With ``tune="off"`` and ``format="auto"`` a host

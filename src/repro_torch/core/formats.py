@@ -45,6 +45,8 @@ __all__ = [
     "cmrs_to_dense",
     "windowed_sort_perm",
     "windowed_block_lengths",
+    "csr_transpose",
+    "csr_diagonal",
     "estimate_storage_elements",
     "structural_fingerprint",
     "PAD_COL",
@@ -487,6 +489,32 @@ def _pjds_with_perm(
     if PAD_AUDIT:
         assert_padding_invariant(pj)
     return pj
+
+
+# --------------------------------------------------------------------------
+# Transpose and diagonal (the distributed operator's A^T partition and
+# Jacobi diagonal)
+# --------------------------------------------------------------------------
+def csr_transpose(m: CSRMatrix) -> CSRMatrix:
+    """A^T as a host CSR (the CSC view of ``m`` re-read as CSR), so the
+    forward spMV of its partition computes ``A^T x``.  Duplicates stay
+    duplicates, and ``csr_from_coo`` sorts within rows before its
+    ``sum_duplicates`` branch, so rows stay sorted."""
+    rows = np.repeat(np.arange(m.n_rows, dtype=np.int64), m.row_lengths())
+    return csr_from_coo(m.indices.astype(np.int64), rows, m.data,
+                        (m.n_cols, m.n_rows), sum_duplicates=False)
+
+
+def csr_diagonal(m: CSRMatrix) -> np.ndarray:
+    """diag(A) for a square CSR (missing entries are 0); duplicate
+    (i, i) entries add, as they do in a matvec."""
+    if m.shape[0] != m.shape[1]:
+        raise ValueError("diagonal requires a square matrix")
+    d = np.zeros(m.n_rows, dtype=m.data.dtype)
+    rows = np.repeat(np.arange(m.n_rows, dtype=np.int64), m.row_lengths())
+    on_diag = m.indices == rows
+    np.add.at(d, rows[on_diag], m.data[on_diag])
+    return d
 
 
 # --------------------------------------------------------------------------

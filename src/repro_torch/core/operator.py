@@ -5,24 +5,33 @@ Port of ``repro/core/operator.py`` for this slice: callers see
 permutation and the padding stay inside.  ``op @ x`` dispatches a 1-D
 ``x`` to ``matvec`` and a 2-D ``X`` (``shape[1]`` rows, one column per
 right-hand side) to ``matmat``; ``diagonal()`` reads diag(A) straight
-from the device layout (the Jacobi preconditioner).  Transposes, the distributed operator
-and gradients are not ported yet: they raise ``NotImplementedError``
-naming their ROADMAP item, so nothing degrades silently (in particular a
+from the device layout (the Jacobi preconditioner).
+
+:class:`DistOperator` / :func:`dist_operator` run the distributed layer
+(``core.dist_spmv``, paper §3) on one rank: its vectors are the rank's
+slice of the padded global vector, and ``rmatvec`` / ``.T`` run the
+forward body on the partition of A^T.  Single-device transposes and
+gradients are not ported yet: they raise ``NotImplementedError`` naming
+their ROADMAP item, so nothing degrades silently (in particular a
 tensor that requires grad is refused rather than detached).
 """
 from __future__ import annotations
 
+import copy
 from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch._todo import not_ported
+from repro_torch.core import dist_spmv as D
 from repro_torch.core import formats as F
+from repro_torch.core import perf_model as PM
 from repro_torch.kernels import ops
-from repro_torch.kernels._backend import host_tensor
+from repro_torch.kernels._backend import host_tensor, resolve_device
 
-__all__ = ["SparseOperator", "DeviceOperator", "operator"]
+__all__ = ["SparseOperator", "DeviceOperator", "DistOperator", "operator",
+           "dist_operator"]
 
 
 class SparseOperator:
@@ -220,3 +229,240 @@ def operator(
         raise TypeError(f"cannot build an operator from {type(a)}")
     dev = ops.as_device(a, format, device=device, **convert_kwargs)
     return DeviceOperator(dev, backend=backend)
+
+
+class DistOperator(SparseOperator):
+    """One rank's view of a :class:`core.dist_spmv.DistPJDS` partition.
+
+    Vectors are the rank's ``(n_loc,)`` or ``(n_loc, k)`` slice of the
+    padded global vector (:meth:`shard_vector` cuts one, and
+    :meth:`gather_vector` puts the slices back together); ``shape`` is
+    the padded global shape and ``n_rows`` the unpadded count.  ``comm``
+    is the rank's communicator (``core.dist_comm``); every rank of the
+    partition applies the operator together.  ``t_dist``, when present,
+    is the partition of A^T and serves ``rmatvec`` / ``rmatmat`` /
+    ``.T``; ``diag`` is the padded global diagonal, of which
+    ``diagonal()`` returns the rank's slice.  ``all_reduce_sum`` sums a
+    small tensor over the ranks: the solvers reduce their dots through
+    it, so every rank sees the same scalars."""
+
+    def __init__(self, dist: D.DistPJDS, comm, *,
+                 t_dist: Optional[D.DistPJDS] = None,
+                 diag: Optional[np.ndarray] = None, mode: str = "overlap",
+                 backend: str = "auto", halo: str = "gathered",
+                 device=None):
+        if comm.size != dist.n_dev:
+            raise ValueError(f"the partition has {dist.n_dev} ranks; the "
+                             f"communicator {comm.size}")
+        if mode not in D.MODES:
+            raise ValueError(f"mode must be one of {D.MODES}; got {mode!r}")
+        if halo not in D.HALOS:
+            raise ValueError(f"halo must be one of {D.HALOS}; got {halo!r}")
+        dev = resolve_device(device)
+        self.dist, self.t_dist, self.comm = dist, t_dist, comm
+        self.mode, self.backend, self.halo = mode, backend, halo
+        self.shard = dist.shard(comm.rank, dev)
+        self.t_shard = (None if t_dist is None
+                        else t_dist.shard(comm.rank, dev))
+        self._diag = None
+        if diag is not None:
+            lo = comm.rank * dist.n_loc
+            self._diag = host_tensor(diag[lo:lo + dist.n_loc], dev)
+
+    @property
+    def shape(self):
+        n = self.dist.n_global_pad
+        return (n, n)
+
+    @property
+    def n_rows(self) -> int:
+        """Unpadded global row count (rows past it are zero)."""
+        return self.dist.n_rows
+
+    @property
+    def n_loc(self) -> int:
+        """Rows of x and y this rank owns."""
+        return self.dist.n_loc
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shard.loc.val.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.shard.device
+
+    def _apply(self, shard, x, fn):
+        _refuse_grad(x)
+        return fn(shard, x, self.comm, mode=self.mode, halo=self.halo,
+                  backend=self.backend)
+
+    def matvec(self, x):
+        """y = A x on this rank's slice; a 2-D x goes to :meth:`matmat`."""
+        if x.dim() == 2:
+            return self.matmat(x)
+        return self._apply(self.shard, x, D.dist_matvec)
+
+    def matmat(self, x):
+        return self._apply(self.shard, x, D.dist_matmat)
+
+    def _t_shard(self):
+        if self.t_shard is None:
+            raise ValueError(
+                "this DistOperator was built without a transpose partition; "
+                "use dist_operator(m, comm, transpose='device')")
+        return self.t_shard
+
+    def rmatvec(self, y):
+        return self._apply(self._t_shard(), y, D.dist_matvec)
+
+    def rmatmat(self, y):
+        return self._apply(self._t_shard(), y, D.dist_matmat)
+
+    @property
+    def T(self) -> "DistOperator":
+        """A^T as an operator: the two partitions swapped (shared, not
+        rebuilt)."""
+        self._t_shard()
+        t = copy.copy(self)
+        t.dist, t.t_dist = self.t_dist, self.dist
+        t.shard, t.t_shard = self.t_shard, self.shard
+        return t
+
+    def diagonal(self) -> torch.Tensor:
+        """The rank's slice of diag(A)."""
+        if self._diag is None:
+            raise ValueError("this DistOperator carries no diagonal; "
+                             "build it with dist_operator(m, comm)")
+        return self._diag
+
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        return self.comm.all_reduce_sum(t)
+
+    def shard_vector(self, v) -> torch.Tensor:
+        """This rank's slice of a global vector (``(n_rows,)`` or padded
+        ``(n_global_pad,)``, optionally with a trailing k), zero-padded,
+        on the operator's device."""
+        v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+            else np.asarray(v)
+        n, n_pad = self.n_rows, self.shape[0]
+        if v.shape[0] not in (n, n_pad):
+            raise ValueError(f"a global vector has {n} or {n_pad} rows; "
+                             f"got {v.shape[0]}")
+        lo = self.comm.rank * self.n_loc
+        out = np.zeros((self.n_loc,) + v.shape[1:], v.dtype)
+        part = v[lo:min(lo + self.n_loc, v.shape[0])]
+        out[:part.shape[0]] = part
+        return host_tensor(out, self.device)
+
+    def gather_vector(self, v_local: torch.Tensor) -> torch.Tensor:
+        """The padded global vector from every rank's slice, on every
+        rank (one ``all_reduce_sum`` of a vector of global length)."""
+        if v_local.shape[0] != self.n_loc:
+            raise ValueError(f"expected this rank's {self.n_loc} rows; got "
+                             f"{v_local.shape[0]}")
+        full = v_local.new_zeros((self.shape[0],) + v_local.shape[1:])
+        lo = self.comm.rank * self.n_loc
+        full[lo:lo + self.n_loc] = v_local
+        return self.comm.all_reduce_sum(full)
+
+
+def dist_operator(
+    m: Union[F.CSRMatrix, D.DistPJDS],
+    comm=None,
+    *,
+    mode: str = "overlap",
+    backend: str = "auto",
+    halo: str = "gathered",
+    transpose: Optional[str] = "device",
+    b_r: int = 128,
+    diag_align: int = 8,
+    chunk_l: int = 8,
+    halo_w: Optional[int] = None,
+    sigma: Optional[int] = None,
+    index_dtype="auto",
+    tune: str = "off",
+    grid=None,
+    build_stages: bool = True,
+    reorder: str = "off",
+    device=None,
+) -> DistOperator:
+    """Partition ``m`` over ``comm``'s ranks and return this rank's
+    :class:`DistOperator` (every rank calls it with the same ``m``).
+
+    ``comm`` defaults to :class:`core.dist_comm.GroupComm` on the
+    default process group; a :class:`core.dist_comm.ThreadComm` rank
+    works the same.  ``device`` defaults to the current CUDA card.  With
+    a host CSR the partition of A^T (``transpose="device"``, the
+    default; ``None`` skips it) and the diagonal are built alongside;
+    an existing ``DistPJDS`` is wrapped as it is (no transpose, no
+    diagonal), so threaded ranks can share one partition.
+
+    ``grid=(gr, gc)`` partitions over a 2-D grid, and the transpose
+    partition uses ``(gc, gr)``; ``grid="auto"`` takes the shape of
+    ``dist_spmv.grid_shapes`` that ``perf_model.
+    predicted_dist_spmv_seconds`` prices cheapest.  ``halo="auto"``
+    decides gathered or full by ``perf_model.choose_halo``, and
+    ``mode="auto"`` is ``"overlap"``.  ``tune="auto"|"force"`` and
+    ``reorder`` other than ``"off"`` are not ported yet and raise.
+    """
+    if tune not in ("off", "auto", "force"):
+        raise ValueError(f"tune must be 'off', 'auto' or 'force'; "
+                         f"got {tune!r}")
+    if reorder not in ("off", "auto", "rcm"):
+        raise ValueError(f"reorder must be 'off', 'auto' or 'rcm'; "
+                         f"got {reorder!r}")
+    if tune != "off":
+        raise not_ported(f"dist_operator(tune={tune!r})", "dist_tune")
+    if reorder != "off":
+        raise not_ported(f"dist_operator(reorder={reorder!r})", "reorder")
+    if comm is None:
+        from repro_torch.core.dist_comm import GroupComm
+        comm = GroupComm()
+    if mode == "auto":
+        mode = "overlap"
+    kw = dict(mode=mode, backend=backend, device=device)
+    if isinstance(m, D.DistPJDS):
+        if grid not in (None, "auto"):
+            raise ValueError("grid cannot be changed on an existing "
+                             "DistPJDS; partition the host CSR instead")
+        if halo == "auto":
+            halo = PM.choose_halo(m, mode=mode,
+                                  value_bytes=m.loc_val.dtype.itemsize)
+        return DistOperator(m, comm, halo=halo, **kw)
+    if not isinstance(m, F.CSRMatrix):
+        raise TypeError(f"cannot partition {type(m)}")
+    if transpose not in ("device", None):
+        raise ValueError(f"transpose must be 'device' or None; "
+                         f"got {transpose!r}")
+    n_dev = comm.size
+
+    def _build(mm, g, hw):
+        return D.partition_csr(mm, n_dev, b_r=b_r, diag_align=diag_align,
+                               chunk_l=chunk_l, halo_w=hw, sigma=sigma,
+                               index_dtype=index_dtype, grid=g,
+                               build_stages=build_stages)
+
+    if grid == "auto":
+        # price every grid shape with the perf model, keep the cheapest
+        cands = [_build(m, g if g != (n_dev, 1) else None, halo_w)
+                 for g in D.grid_shapes(n_dev)]
+        hs = ("gathered", "full") if halo == "auto" else (halo,)
+        cost = [min(PM.predicted_dist_spmv_seconds(
+                        d, halo=h, mode=mode,
+                        value_bytes=d.loc_val.dtype.itemsize)
+                    for h in hs) for d in cands]
+        dist = cands[int(np.argmin(cost))]
+    else:
+        dist = _build(m, grid, halo_w)
+    if halo == "auto":
+        halo = PM.choose_halo(dist, mode=mode,
+                              value_bytes=dist.loc_val.dtype.itemsize)
+    t_dist = None
+    if transpose == "device":
+        g = dist.grid
+        t_dist = _build(F.csr_transpose(m), (g[1], g[0]) if g else None,
+                        None)
+    dg = np.zeros(dist.n_global_pad, dtype=m.data.dtype)
+    dg[: m.n_rows] = F.csr_diagonal(m)
+    return DistOperator(dist, comm, t_dist=t_dist, diag=dg, halo=halo, **kw)

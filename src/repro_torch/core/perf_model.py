@@ -3,11 +3,13 @@
 A copy of what ``repro.core.perf_model`` gives ``select_format``: the
 device spec record, the stored-byte model (paper Eq. 1 generalised to
 compressed streams), the out-of-kernel permutation cost, the CMRS
-compute floor, the solver-iteration byte count, and the calibration
-hook those functions read (``set_calibration`` / ``get_calibration``;
-the tuner's ``tune.calibrate.fit_calibration`` fits one).  ``TPU_V5E``
-stays so the port can be held to the reference's decisions;
-:data:`H100` is the port's default spec.
+compute floor, the solver-iteration byte count, the calibration hook
+those functions read (``set_calibration`` / ``get_calibration``; the
+tuner's ``tune.calibrate.fit_calibration`` fits one), and the paper's
+device-vs-link model (Eq. 1-4) with its gathered-halo refinement that
+prices the distributed layer (``predicted_dist_spmv_seconds``,
+``choose_halo``).  ``TPU_V5E`` stays so the port can be held to the
+reference's decisions; :data:`H100` is the port's default spec.
 """
 from __future__ import annotations
 
@@ -22,6 +24,15 @@ __all__ = [
     "set_calibration",
     "get_calibration",
     "clear_calibration",
+    "code_balance",
+    "alpha_range",
+    "t_mvm",
+    "t_link",
+    "t_link_gathered",
+    "predicted_dist_spmv_seconds",
+    "choose_halo",
+    "n_nzr_upper_for_link_penalty",
+    "n_nzr_lower_for_link_penalty",
     "spmvm_bytes",
     "perm_traffic_bytes",
     "CMRS_RIS_BYTES",
@@ -77,15 +88,26 @@ H100 = TPUSpec(
 @dataclasses.dataclass(frozen=True)
 class Calibration:
     """Measured correction to the memory-bound time model:
-    ``predicted = bytes / (spec.hbm_bw * bw_scale) + overhead_s[fmt]``."""
+    ``predicted = bytes / (spec.hbm_bw * bw_scale) + overhead_s[fmt]``.
+
+    ``link_bw_scale`` scales the link rate and ``msg_overhead_s`` is the
+    fixed cost of one point-to-point message per halo flavour (missing
+    keys cost 0), which the distributed model's link term reads
+    (:func:`t_link_gathered`)."""
 
     bw_scale: float
     overhead_s: Mapping[str, float] = dataclasses.field(default_factory=dict)
     source: str = ""
+    link_bw_scale: float = 1.0
+    msg_overhead_s: Mapping[str, float] = dataclasses.field(
+        default_factory=dict)
 
     def __post_init__(self):
         if not (self.bw_scale > 0):
             raise ValueError(f"bw_scale must be > 0; got {self.bw_scale}")
+        if not (self.link_bw_scale > 0):
+            raise ValueError(
+                f"link_bw_scale must be > 0; got {self.link_bw_scale}")
 
 
 _CALIBRATION: Optional[Calibration] = None
@@ -108,6 +130,130 @@ def get_calibration() -> Optional[Calibration]:
 
 def clear_calibration() -> None:
     set_calibration(None)
+
+
+# ---------------------------------------------------------------- Eq. (1)
+def code_balance(alpha: float, n_nzr: float, value_bytes: int = 8,
+                 index_bytes: int = 4) -> float:
+    """Worst-case code balance in bytes/flop (paper Eq. 1, generalised to
+    any value precision).  DP (value_bytes=8):  6 + 4*alpha + 8/N_nzr.
+    SP (value_bytes=4):                          4 + 2*alpha + 4/N_nzr.
+    """
+    # per non-zero: val + col_idx + alpha*RHS element + LHS (read+write)
+    # per row, over 2 flops
+    return (
+        value_bytes + index_bytes + value_bytes * alpha
+        + 2 * value_bytes / n_nzr
+    ) / 2.0
+
+
+def alpha_range(n_nzr: float) -> tuple[float, float]:
+    """Admissible RHS reuse parameter: [1/N_nzr (perfect reuse), 1 (none)]."""
+    return (1.0 / n_nzr, 1.0)
+
+
+# ------------------------------------------------------------- Eq. (2)-(4)
+def t_mvm(n_rows: float, n_nzr: float, alpha: float, dev_bw: float,
+          value_bytes: int = 8) -> float:
+    """Paper Eq. (2) left: wallclock of the on-device spMVM.
+    T = (value_bytes*N / B_dev) * [N_nzr*(alpha + 3/2) + 2]  (DP form)."""
+    return (value_bytes * n_rows / dev_bw) * (n_nzr * (alpha + 1.5) + 2.0)
+
+
+def t_link(n_rows: float, link_bw: float, value_bytes: int = 8) -> float:
+    """Paper Eq. (2) right: moving RHS in and LHS out over the slow link."""
+    return 2 * value_bytes * n_rows / link_bw
+
+
+def t_link_gathered(halo_elems: float, link_bw: float,
+                    value_bytes: int = 8, k: int = 1, *,
+                    msgs: int = 0, halo: str = "gathered",
+                    calibration="default") -> float:
+    """Gathered-halo refinement of the Eq. (2) link term: only the
+    measured per-neighbour halo entries cross the link, not the whole
+    slice.  ``halo_elems`` is the sum of the per-neighbour halo sizes
+    (``DistPJDS.halo_lens`` plus, on a 2-D grid, ``red_lens``); ``k``
+    scales for a block of right-hand sides.  ``msgs`` point-to-point
+    messages (``DistPJDS.comm_msgs_per_device``) each pay the calibrated
+    fixed cost ``msg_overhead_s[halo]``, and the link rate is scaled by
+    ``link_bw_scale``.  Without a calibration (or with ``msgs=0``) the
+    term is bytes over bandwidth alone."""
+    if calibration == "default":
+        calibration = _CALIBRATION
+    scale = calibration.link_bw_scale if calibration is not None else 1.0
+    fixed = (calibration.msg_overhead_s.get(halo, 0.0)
+             if calibration is not None else 0.0)
+    return value_bytes * k * halo_elems / (link_bw * scale) + msgs * fixed
+
+
+def predicted_dist_spmv_seconds(dist, halo: str = "gathered",
+                                mode: str = "overlap", *, k: int = 1,
+                                value_bytes: int = 4, index_bytes: int = 4,
+                                spec: TPUSpec = H100,
+                                calibration="default") -> float:
+    """Per-device time estimate of one distributed spMVM over a
+    ``core.dist_spmv.DistPJDS`` partition (duck-typed).
+
+    compute: the local and remote operands' streams through the
+    single-device model (:func:`predicted_spmv_seconds`) at their
+    stacked extent; comm: :func:`t_link_gathered` over the measured
+    bytes and message count.  Modes ``vector`` / ``naive`` add the
+    exchange to the compute; ``overlap`` / ``pipeline`` hide it behind
+    the local operand (paper §3.1), so only the part that outlasts it is
+    charged.  ``dist_operator(halo="auto")`` decides by this
+    (:func:`choose_halo`)."""
+    if calibration == "default":
+        calibration = _CALIBRATION
+    blk_rows = dist.n_blocks * dist.b_r
+
+    def _t(val_arr):
+        elems = int(val_arr.shape[1]) * int(val_arr.shape[2])
+        if elems == 0:
+            return 0.0
+        return k * predicted_spmv_seconds(
+            elems, blk_rows, elems / blk_rows, spec=spec,
+            value_bytes=value_bytes, index_bytes=index_bytes,
+            fmt="pjds", calibration=calibration)
+
+    t_loc = _t(dist.loc_val)
+    t_rem = _t(dist.rem_val)
+    elems = dist.comm_bytes_per_device(value_bytes=1, k=k, halo=halo)
+    t_comm = t_link_gathered(elems, spec.ici_bw, value_bytes, 1,
+                             msgs=dist.comm_msgs_per_device(halo),
+                             halo=halo, calibration=calibration)
+    if mode in ("overlap", "pipeline"):
+        return max(t_loc, t_comm) + t_rem
+    return t_loc + t_rem + t_comm
+
+
+def choose_halo(dist, mode: str = "overlap", *, k: int = 1,
+                value_bytes: int = 4, spec: TPUSpec = H100,
+                calibration="default") -> str:
+    """The gathered-vs-full exchange decision (``dist_operator(halo=
+    "auto")``): price both flavours with
+    :func:`predicted_dist_spmv_seconds` and return the cheaper; ties
+    (nothing crosses the link either way) go to ``"gathered"``."""
+    t_g = predicted_dist_spmv_seconds(dist, "gathered", mode, k=k,
+                                      value_bytes=value_bytes, spec=spec,
+                                      calibration=calibration)
+    t_f = predicted_dist_spmv_seconds(dist, "full", mode, k=k,
+                                      value_bytes=value_bytes, spec=spec,
+                                      calibration=calibration)
+    return "full" if t_f < t_g else "gathered"
+
+
+def n_nzr_upper_for_link_penalty(dev_bw: float, link_bw: float,
+                                 alpha: float) -> float:
+    """Paper Eq. (3): below this N_nzr the link transfer costs >= 50% extra
+    (T_MVM <= T_link) -> accelerator not worthwhile."""
+    return 2.0 * (dev_bw / link_bw - 1.0) / (alpha + 1.5)
+
+
+def n_nzr_lower_for_link_penalty(dev_bw: float, link_bw: float,
+                                 alpha: float) -> float:
+    """Paper Eq. (4): above this N_nzr the link penalty is < 10%
+    (T_MVM >= 10*T_link)."""
+    return (20.0 * dev_bw / link_bw - 2.0) / (alpha + 1.5)
 
 
 # -------------------------------------------------------------- byte model

@@ -32,6 +32,13 @@ Either way the exit contract matches the reference's:
 
 Each result's ``info["host_syncs"]`` counts the device->host reads of
 the solve.
+
+Over a distributed operator (``core.operator.DistOperator``) the
+vectors are each rank's slice, so every dot, norm and Gram product is a
+partial sum: the composed loops, block CG and refinement reduce it
+through the operator's ``all_reduce_sum`` -- one reduction per host
+read, the partial dots stacked -- so every rank sees the same scalars
+and the ranks' loops stay in step.
 """
 from __future__ import annotations
 
@@ -129,15 +136,42 @@ class _HostReads:
     the host recurrences see enters here, and float32 subnormals are
     flushed to 0 on the way in: XLA does so on the CPU (and the TPU
     does), so a probe run past convergence reaches the reference's exact
-    0 instead of stopping at a denormal."""
+    0 instead of stopping at a denormal.
 
-    def __init__(self):
+    Over a distributed operator every vector is the rank's slice, so a
+    dot, norm or Gram product is a partial sum: :meth:`sum` applies the
+    operator's ``all_reduce_sum`` (the identity for a single-device
+    operator), once per host read, and every rank sees the same
+    scalars."""
+
+    def __init__(self, reduce: Callable | None = None):
         self.n = 0
+        self.reduce = reduce
+
+    @classmethod
+    def of(cls, a) -> "_HostReads":
+        """The reads of a solve over ``a``, summing over its ranks when
+        it is distributed."""
+        return cls(getattr(a, "all_reduce_sum", None))
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks (unchanged on a single device)."""
+        return t if self.reduce is None else self.reduce(t)
+
+    def norms(self, *vs) -> list:
+        """The 2-norm of each v (per column of a block), on the device;
+        over the ranks the squared partial sums of all are summed in one
+        reduction."""
+        if self.reduce is None:
+            return [torch.linalg.vector_norm(v, dim=0) for v in vs]
+        return list(torch.sqrt(self.sum(torch.stack(
+            [(v * v).sum(dim=0) for v in vs]))))
 
     def dots(self, *pairs) -> list:
-        """float32 <a, b> for each (a, b) pair, in one transfer."""
-        vals = torch.stack([torch.dot(a, b) for a, b in pairs])
-        return self.read(vals)
+        """float32 <a, b> for each (a, b) pair, in one transfer (and one
+        sum over the ranks)."""
+        return self.read(self.sum(torch.stack(
+            [torch.dot(a, b) for a, b in pairs])))
 
     def read(self, t: torch.Tensor) -> list:
         self.n += 1
@@ -264,18 +298,19 @@ def cg(a, b: torch.Tensor, *, x0: torch.Tensor | None = None,
     tensors.  Convergence is checked on ||r|| / ||b||."""
     matvec = _matvec_of(a)
     pre = _precond_of(M, a)
+    reads = _HostReads.of(a)
     x0 = torch.zeros_like(b) if x0 is None else x0.clone()
     with np.errstate(all="ignore"):
         if pre is None:
-            x, k, res, flag, syncs = _cg(matvec, b, x0, maxiter, tol)
+            x, k, res, flag, syncs = _cg(matvec, b, x0, maxiter, tol, reads)
         else:
-            x, k, res, flag, syncs = _pcg(matvec, pre, b, x0, maxiter, tol)
+            x, k, res, flag, syncs = _pcg(matvec, pre, b, x0, maxiter, tol,
+                                          reads)
     return _result("cg", x, k, res, tol, flag=flag, strategy="composed",
                    host_syncs=syncs)
 
 
-def _cg(matvec, b, x, maxiter, tol):
-    reads = _HostReads()
+def _cg(matvec, b, x, maxiter, tol, reads):
     r = b - matvec(x)
     p = r.clone()
     rs, bb = reads.dots((r, r), (b, b))
@@ -301,10 +336,9 @@ def _cg(matvec, b, x, maxiter, tol):
     return x, k, np.sqrt(rs / b2), flag, reads.n
 
 
-def _pcg(matvec, precond, b, x, maxiter, tol):
+def _pcg(matvec, precond, b, x, maxiter, tol, reads):
     """Preconditioned CG: the same recurrence with z = M r directions.
     Two reads per iteration: p.Ap, then <r,z> and <r,r>."""
-    reads = _HostReads()
     r = b - matvec(x)
     z = precond(r)
     p = z.clone()
@@ -341,13 +375,13 @@ def bicgstab(a, b: torch.Tensor, *, x0: torch.Tensor | None = None,
     pre = _precond_of(M, a) or _identity
     x0 = torch.zeros_like(b) if x0 is None else x0.clone()
     with np.errstate(all="ignore"):
-        x, k, res, flag, syncs = _bicgstab(matvec, pre, b, x0, maxiter, tol)
+        x, k, res, flag, syncs = _bicgstab(matvec, pre, b, x0, maxiter, tol,
+                                           _HostReads.of(a))
     return _result("bicgstab", x, k, res, tol, flag=flag,
                    strategy="composed", host_syncs=syncs)
 
 
-def _bicgstab(matvec, precond, b, x, maxiter, tol):
-    reads = _HostReads()
+def _bicgstab(matvec, precond, b, x, maxiter, tol, reads):
     r = b - matvec(x)
     rhat = r.clone()                       # shadow residual, fixed
     rs, bb, rho_new = reads.dots((r, r), (b, b), (rhat, r))
@@ -609,7 +643,8 @@ def _true_residual(mvd, b, x, reads: _HostReads) -> float:
 # --------------------------------------------------------------------------
 def iterative_refinement(residual_of: Callable, inner_solve,
                          b: torch.Tensor, *, x0: torch.Tensor | None = None,
-                         tol: float = 1e-6, max_rounds: int = 10):
+                         tol: float = 1e-6, max_rounds: int = 10,
+                         reads: _HostReads | None = None):
     """Outer f32 correction loop over a low-precision inner solve, as
     the reference runs it (a host loop of a handful of rounds).
 
@@ -626,14 +661,21 @@ def iterative_refinement(residual_of: Callable, inner_solve,
 
     Returns ``(x, rel_residual, rounds, reason)``, ``rounds`` one dict
     per correction (inner iterations, residual entering the round,
-    inner residual).  Host reads: one for ||b||, one per residual."""
-    bn = max(float(torch.linalg.vector_norm(b)), 1e-30)
+    inner residual).  Host reads: one for ||b||, one per residual.
+    ``reads`` (:meth:`_HostReads.of` the operator) sums the norms over
+    the ranks of a distributed operator."""
+    reads = reads or _HostReads()
+
+    def norm(v):
+        return float(reads.norms(v)[0])
+
+    bn = max(norm(b), 1e-30)
     x = torch.zeros_like(b) if x0 is None else x0
     rounds = []
     rn_prev = float("inf")
     while True:
         r = residual_of(x)
-        rn = float(torch.linalg.vector_norm(r)) / bn
+        rn = norm(r) / bn
         if not math.isfinite(rn):
             reason = "non_finite"
             break
@@ -690,18 +732,23 @@ def block_cg(a, b: torch.Tensor, *, x0: torch.Tensor | None = None,
     matvec = _matvec_of(a)
     x0 = torch.zeros_like(b) if x0 is None else x0.clone()
     with np.errstate(all="ignore"):
-        x, k, res, flag, syncs = _block_cg(matvec, b, x0, maxiter, tol)
+        x, k, res, flag, syncs = _block_cg(matvec, b, x0, maxiter, tol,
+                                           _HostReads.of(a))
     return _result("block_cg", x, k, res, tol, flag=flag,
                    strategy="composed", host_syncs=syncs)
 
 
-def _block_cg(matvec, b, x, maxiter, tol):
-    reads = _HostReads()
+def _block_cg(matvec, b, x, maxiter, tol, reads):
     n_rhs = b.shape[1]
+
+    def gram(u, v):
+        return reads.sum(u.T @ v)
+
     r = b - matvec(x)
     p = r.clone()
-    rtr = r.T @ r                                          # (k, k)
-    b2_dev = torch.clamp(torch.sum(b * b, dim=0), min=1e-30)   # (k,)
+    rtr = gram(r, r)                                       # (k, k)
+    b2_dev = torch.clamp(reads.sum(torch.sum(b * b, dim=0)),
+                         min=1e-30)                    # (k,)
     got = reads.read(torch.cat([torch.diagonal(rtr), b2_dev]))
     rdiag, b2 = np.array(got[:n_rhs], F32), np.array(got[n_rhs:], F32)
     check = F32(tol) > 0
@@ -709,7 +756,7 @@ def _block_cg(matvec, b, x, maxiter, tol):
     it = 0
     while flag == 0 and _not_done(rdiag / b2, tol) and it < maxiter:
         ap = matvec(p)
-        ptap = p.T @ ap
+        ptap = gram(p, ap)
         alpha = _ridge_solve(ptap, rtr)                    # (k, k)
         # A direction with p_j.Ap_j <= 0 (indefinite A) or a Gram solve
         # gone non-finite is a block breakdown: zero the step so x/r hold
@@ -722,7 +769,7 @@ def _block_cg(matvec, b, x, maxiter, tol):
             alpha = torch.where(bad, torch.zeros_like(alpha), alpha)
         x.add_(p @ alpha)
         r = r - ap @ alpha
-        rtr_new = r.T @ r
+        rtr_new = gram(r, r)
         beta = _ridge_solve(rtr, rtr_new)
         p = r + p @ beta
         got = reads.read(torch.cat([torch.diagonal(rtr_new),

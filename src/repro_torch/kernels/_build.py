@@ -7,7 +7,9 @@ once, one ``nvcc`` process each, on the first kernel launch of a
 process -- or explicitly through :func:`build_all`.  Libraries go under
 ``build/repro_torch_kernels/<hash>/`` at the repository root, keyed by a
 hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused.  Nothing here runs at import time.
+unchanged one is reused.  Nothing here runs at import time.  Loading
+and the launch counts are thread-safe: ranks run as threads
+(``core.dist_comm.ThreadComm``) may launch their first kernel at once.
 """
 from __future__ import annotations
 
@@ -17,10 +19,11 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "build_all", "build_log",
-           "ptxas_usage", "load", "check"]
+           "ptxas_usage", "load", "check", "count_launch"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("pjds_spmv", "sell_spmv", "fused_iter", "ellr_spmv",
@@ -30,6 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: dict = {}          # name -> ctypes.CDLL, per process
 _BUILD_LOG: dict = {}     # name -> nvcc stderr of this process's build
+_LOAD_LOCK = threading.Lock()    # one build and load per process
+_COUNT_LOCK = threading.Lock()   # launch counts
 
 
 def _nvcc() -> str:
@@ -128,17 +133,28 @@ def ptxas_usage(log: str) -> dict:
 
 def load(name: str):
     """The ctypes library of kernel source ``name``, building all
-    sources first if needed."""
+    sources first if needed.  Threads that ask at once wait for one
+    build."""
     lib = _LIBS.get(name)
     if lib is None:
-        import ctypes
-        build_all()
-        lib = ctypes.CDLL(str(build_dir() / f"lib{name}.so"))
-        err = getattr(lib, f"{name}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _LIBS[name] = lib
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                import ctypes
+                build_all()
+                lib = ctypes.CDLL(str(build_dir() / f"lib{name}.so"))
+                err = getattr(lib, f"{name}_error_string")
+                err.argtypes = [ctypes.c_int]
+                err.restype = ctypes.c_char_p
+                _LIBS[name] = lib
     return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a kernel wrapper's count of the
+    launches it made), atomically across threads."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def check(name: str, code: int, what: str) -> None:

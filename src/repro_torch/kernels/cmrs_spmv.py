@@ -76,7 +76,7 @@ def cmrs_matvec_kernel_call(val: torch.Tensor, col_idx: torch.Tensor,
                strip_nnz.data_ptr(), x.data_ptr(), y.data_ptr(), n_strips,
                b_r, stream_of(x))
     _build.check("cmrs_spmv", rc, "cmrs_spmv launch")
-    cmrs_matvec_kernel_call.launches += 1
+    _build.count_launch(cmrs_matvec_kernel_call)
     return y
 
 

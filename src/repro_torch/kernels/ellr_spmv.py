@@ -60,7 +60,7 @@ def ell_matvec_kernel_call(val: torch.Tensor, col_idx: torch.Tensor,
     rc = _fn()(val.data_ptr(), vk, col_idx.data_ptr(), ik, rowlen.data_ptr(),
                x.data_ptr(), y.data_ptr(), n_pad, stream_of(x))
     _build.check("ellr_spmv", rc, "ellr_spmv launch")
-    ell_matvec_kernel_call.launches += 1
+    _build.count_launch(ell_matvec_kernel_call)
     return y
 
 

@@ -131,7 +131,7 @@ def fused_spmv_dots_kernel_call(val: torch.Tensor, col_idx: torch.Tensor,
             None if done is None else done.data_ptr(),
             n_blocks, b_r, w_b, stream_of(x))
     _build.check("fused_iter", rc, "fused_iter launch")
-    fused_spmv_dots_kernel_call.launches += 1
+    _build.count_launch(fused_spmv_dots_kernel_call)
     return y, dots
 
 

@@ -92,7 +92,7 @@ def step_kernel_call(kind: int, fs: torch.Tensor, is_: torch.Tensor,
                             dots.data_ptr(), float(tol), int(maxiter),
                             stream_of(fs))
     _build.check("krylov_step", rc, "krylov_step launch")
-    step_kernel_call.launches += 1
+    _build.count_launch(step_kernel_call)
 
 
 step_kernel_call.launches = 0
@@ -137,7 +137,7 @@ def update_kernel_call(kind: int, flag: torch.Tensor, fs: torch.Tensor,
     rc = _lib().krylov_update(kind, flag.data_ptr(), fs.data_ptr(), *ptrs,
                               n, stream_of(fs))
     _build.check("krylov_step", rc, "krylov_update launch")
-    update_kernel_call.launches += 1
+    _build.count_launch(update_kernel_call)
 
 
 update_kernel_call.launches = 0

@@ -87,7 +87,7 @@ def pjds_matmat_kernel_call(val: torch.Tensor, col_idx: torch.Tensor,
                None if out_row is None else out_row.data_ptr(), y.data_ptr(),
                n_blocks, b_r, k, vec4, stream_of(x))
     _build.check("pjds_spmm", rc, "pjds_spmm launch")
-    pjds_matmat_kernel_call.launches += 1
+    _build.count_launch(pjds_matmat_kernel_call)
     return y
 
 

@@ -69,7 +69,7 @@ def pjds_matvec_kernel_call(val: torch.Tensor, col_idx: torch.Tensor,
                block_start.data_ptr(), warp_len.data_ptr(), x.data_ptr(),
                y.data_ptr(), n_blocks, b_r, stream_of(x))
     _build.check("pjds_spmv", rc, "pjds_spmv launch")
-    pjds_matvec_kernel_call.launches += 1
+    _build.count_launch(pjds_matvec_kernel_call)
     return y
 
 

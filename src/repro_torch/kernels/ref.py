@@ -34,7 +34,7 @@ from ._backend import acc_dtype
 __all__ = ["pjds_matvec_ref", "pjds_matmat_ref", "sell_matvec_ref",
            "fused_matvec_dots_ref", "csr_matvec_ref", "ell_matvec_ref",
            "cmrs_matvec_ref", "krylov_step_ref", "krylov_update_ref",
-           "reset_calls"]
+           "partial_reduce_epilogue", "reset_calls"]
 
 # Slots of the fused loop's scalar state: ``fs`` (float32) and ``is_``
 # (int32); csrc/krylov_step.cu numbers them the same way.
@@ -377,6 +377,25 @@ def krylov_update_ref(kind: int, flag: torch.Tensor, fs: torch.Tensor,
         r.copy_(s - omega * t)
     else:
         raise ValueError(f"unknown update kind {kind}")
+
+
+def partial_reduce_epilogue(y_sorted: torch.Tensor, own_pos: torch.Tensor,
+                            send_pos) -> tuple:
+    """Local half of the distributed layer's 2-D partial-sum reduction
+    (the reference's ``partial_reduce_epilogue_ref``).
+
+    A rank of a 2-D grid holds PARTIAL sums for its whole row block in
+    its sorted row basis.  This gathers its own y slice (``own_pos``,
+    the sorted positions of its segment) and, per grid-row distance, the
+    partial rows it ships (``send_pos[kk]``, 1-D sorted positions, the
+    exact set; ``None`` in the result where it is empty).  The messages
+    and the scatter-add live in ``core.dist_spmv``.  No kernel stands
+    behind it -- the reference computes it outside Pallas too -- so it
+    is the implementation on every device and counts no calls."""
+    y_own = y_sorted.index_select(0, own_pos)
+    bufs = [y_sorted.index_select(0, pos) if pos.numel() else None
+            for pos in send_pos]
+    return y_own, bufs
 
 
 _COUNTED = (pjds_matvec_ref, pjds_matmat_ref, sell_matvec_ref,

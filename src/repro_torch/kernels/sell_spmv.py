@@ -97,7 +97,7 @@ def sell_matvec_kernel_call(val: torch.Tensor, col_idx: torch.Tensor,
                None if scratch is None else scratch.data_ptr(),
                n_blocks, b_r, w_b, stream_of(x))
     _build.check("sell_spmv", rc, "sell_spmv launch")
-    sell_matvec_kernel_call.launches += 1
+    _build.count_launch(sell_matvec_kernel_call)
     return y
 
 

@@ -11,7 +11,7 @@ overheads to the measured rows (``calibrate``).
 Most callers go one level up -- ``operator(m, tune="auto")``,
 ``as_device(m, tune="auto")`` or ``repro_torch.solve(m, b)`` -- which
 route here.  ``tune_partition`` (the distributed driver) raises until
-the distributed layer is ported (ROADMAP.md, item 1.11).
+the distributed tuner is ported (ROADMAP.md, item 1.20).
 """
 from .space import (Candidate, enumerate_candidates, heuristic_candidate,
                     price_candidate, prune_candidates, solver_candidates)

@@ -207,6 +207,6 @@ def tune_solver(
 
 def tune_partition(m: F.CSRMatrix, n_dev: int, **kwargs):
     """The reference's distributed driver (per-operand ``chunk_l`` of a
-    row partition, and the communication sweep).  It needs the
-    distributed layer, which the port does not have yet."""
-    raise not_ported("tune_partition", "dist")
+    row partition, and the communication sweep), with the link
+    calibration it measures; not ported yet."""
+    raise not_ported("tune_partition", "dist_tune")

@@ -13,8 +13,8 @@ overhead_s[fmt]`` by weighted least squares in RELATIVE error (weights
 1/measured), by coordinate descent whose every step is an exact 1-D
 minimiser, so :func:`model_error` never rises from the fit's start.
 Install the result with ``perf_model.set_calibration``.  The link
-calibration of the distributed exchange waits for the distributed
-layer (ROADMAP.md, item 1.11).
+calibration of the distributed exchange (``fit_link_calibration``) is
+not ported yet (ROADMAP.md, item 1.20).
 """
 from __future__ import annotations
 

@@ -365,7 +365,8 @@ def test_validate_csr_matches_reference():
 def _port_files():
     pkg = ROOT / "src" / "repro_torch"
     return sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "kernel_ab.py"]
+                                        ROOT / "kernel_ab.py",
+                                        ROOT / "dist_scaling.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -523,11 +523,11 @@ def test_solve_follows_the_tuned_decision(tmp_path, monkeypatch):
         assert abs(res.iters - int(rj.iters)) <= 2
 
 
-def test_tune_partition_waits_for_the_distributed_layer():
+def test_tune_partition_waits_for_the_distributed_tuner():
     _, tm = _pair("poisson")
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
         TT.tune_partition(tm, 4)
-    assert "1.11" in str(e.value)
+    assert "1.20" in str(e.value)
 
 
 # ------------------------------------------------------------ the card
