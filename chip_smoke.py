@@ -3,7 +3,8 @@
 
 Builds the hand-written kernels (K1 pJDS spMV, K2 SELL-C-sigma spMV, K3
 fused spMV + dots, K4 ELLPACK-R spMV, K5 multi-RHS pJDS, K6 CMRS spMV,
-and the fused Krylov loop's scalar step and vector updates) from
+K7 the transpose product, and the fused Krylov loop's scalar step and
+vector updates) from
 ``src/repro_torch/kernels/csrc``, runs the paper's pipeline on the sAMG
 analogue at its published 3.4 M rows -- ``operator(m) @ x`` with the
 format the dispatch picks or a named one, ``operator(m, format) @ X``
@@ -43,6 +44,17 @@ halo flavour against P = 1 and scipy with K1's launches counted, a
 alone beside their nnz byte bounds and the perf model's prediction;
 ``dist:grid`` a 2 x 2 grid on a smaller sAMG (the partial-sum
 reduction, ``op @ X`` through K5, ``op.T`` and block CG).
+The sixth slice runs last (``slice6_phases``): ``transpose:samg`` is
+``op.T @ y`` and ``op.T @ Y`` through K7 for pJDS, SELL, ELLPACK-R and
+CMRS on sAMG (against the plain version, scipy's float64 A^T y and the
+host's plain version bit for bit; beside the forward kernel on
+``transpose="device"``'s operand and cuSPARSE on a CSR of A^T),
+``grad:samg`` gradients and tangents through the CMRS operator and the
+x-gradient of four ``ThreadComm`` ranks, ``reorder:poisson_shuffled``
+RCM on a shuffled 2048 x 2048 Poisson operator (one device, and four
+ranks with ``reorder="auto"``), and ``eigen:hmep`` Lanczos, power
+iteration and block Lanczos on the symmetrised HMEp analogue at its
+published 6.2 M rows.
 Each main-path phase sets every launch count to 0 before it and reads
 the counts after it.  Each phase prints one JSON line; any failed check
 raises, and the script then exits non-zero without its final line.
@@ -511,6 +523,501 @@ def dist_phases(h) -> dict:
     return {"launches": launches, "worst_rel_err_vs_plain": worst}
 
 
+def slice6_phases(h) -> dict:
+    """Transposes, gradients, RCM preprocessing and the eigensolvers on
+    the card: ``transpose:samg`` (``op.T @ y`` through K7 for pJDS,
+    SELL, ELLPACK-R and CMRS on sAMG, beside the forward kernel on
+    ``transpose="device"``'s operand and cuSPARSE on a CSR of A^T),
+    ``grad:samg`` (``torch.autograd.grad`` and ``torch.func.jvp``
+    through the CMRS operator, and the distributed x-gradient on four
+    ranks as threads), ``reorder:poisson_shuffled`` (RCM on a
+    symmetrically shuffled ``poisson_2d(side, side)``: single device and
+    four ranks) and ``eigen:hmep`` (Lanczos, power iteration and block
+    Lanczos on the symmetrised HMEp analogue).  ``h`` carries the card,
+    the sAMG matrix with its operands and scipy copy, ``main``'s
+    helpers and the sizes (``h.poisson_side``, ``h.hmep_scale``,
+    ``h.power_iters``).  Returns K7's record and the launches of the
+    other kernels these phases drove."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    import repro_torch
+    from repro_torch.core import formats as TF
+    from repro_torch.core import matrices as TM
+    from repro_torch.core import reorder as TRO
+    from repro_torch.core import solvers as S
+    from repro_torch.core.dist_comm import ThreadComm, run_ranks
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.transpose_spmv import \
+        transpose_matvec_kernel_call as k7
+
+    dev, m, n = h.dev, h.m, h.m.n_rows
+    require, emit, time_ms = h.require, h.emit, h.time_ms
+    rng = np.random.default_rng(h.seed + 6)
+    kernel_of = {"pjds": "pjds_spmv", "sell": "sell_spmv",
+                 "cmrs": "cmrs_spmv", "ellpack_r": "ellr_spmv"}
+    k7_launches = 0
+    other = {}
+
+    def counted(phase):
+        launched, plain_calls = h.counts()
+        h.plain_free(plain_calls, phase)
+        for k, v in launched.items():
+            other[k] = other.get(k, 0) + v
+        return launched
+
+    def exact(launched, want, phase):
+        """Every kernel launched exactly as ``want`` says, no other."""
+        got = {k: v for k, v in launched.items() if v}
+        require(got == want, f"{phase}: launched {got}, expected {want}")
+
+    # ---- transpose:samg -- K7 on every blocked format at full size ------
+    y_np = rng.standard_normal(n).astype(np.float32)
+    y = torch.from_numpy(y_np).to(dev)
+    z64 = torch.from_numpy(h.a64.T @ y_np.astype(np.float64))
+    Y4 = torch.from_numpy(rng.standard_normal((n, 4)).astype(
+        np.float32)).to(dev)
+    Z64 = torch.from_numpy(h.a64.T @ Y4.double().cpu().numpy())
+    a_t = TF.csr_transpose(m)
+    at_csr = h.csr_of(a_t)
+    lib_ms = h.library_ms(lambda: torch.mv(at_csr, y),
+                          "torch.mv(csr of A^T, y)")
+    del at_csr
+
+    def stored(sd):
+        """(y in the stored rows' basis, K7's layout keywords, the plain
+        version on tensors ``(val, col, ..., y)``) of operand ``sd``."""
+        d = sd.dev
+        if sd.fmt in ("sell", "pjds"):
+            return (sd._scatter_to_storage(y, d.n_rows_pad),
+                    dict(base=d.row_block, width=d.b_r),
+                    lambda t, v: R.blocked_rmatvec_ref(
+                        t["val"], t["col_idx"], t["row_block"], v, n))
+        yp = sd._pad_rows(y, d.n_rows_pad)
+        if sd.fmt == "ellpack_r":
+            return (yp, dict(width=d.n_rows_pad),
+                    lambda t, v: R.ell_rmatvec_ref(
+                        t["val"], t["col_idx"], t["rowlen"], v, n))
+        return (yp, dict(base=d.strip_map, width=d.b_r,
+                         row_in_strip=d.row_in_strip),
+                lambda t, v: R.cmrs_rmatvec_ref(
+                    t["val"], t["col_idx"], t["row_in_strip"],
+                    t["strip_map"], v, n))
+
+    per_fmt, worst = {}, (0.0, 0.0)
+    for fmt, op in (("pjds", h.op_p), ("sell", h.op_s),
+                    ("ellpack_r", h.op_e), ("cmrs", h.op_c)):
+        sd, d = op.dev, op.dev.dev
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slot, colptr = sd.slot_index()
+        torch.cuda.synchronize()
+        t_index = time.perf_counter() - t0
+        h.reset_counts()
+        z = op.T @ y
+        exact(counted(f"transpose:samg:{fmt}"), {"transpose_spmv": 1},
+              f"transpose:samg:{fmt}")
+        k7_launches += 1
+        require(torch.equal(z, op.T @ y),
+                f"transpose:samg:{fmt}: K7 does not repeat bit for bit")
+        ys, layout, plain = stored(sd)
+        tens = {f: getattr(d, f) for f in ("val", "col_idx", "row_block",
+                                           "rowlen", "row_in_strip",
+                                           "strip_map") if hasattr(d, f)}
+        run_k7 = lambda: k7(d.val, slot, colptr, ys, n_rows=ys.shape[0],
+                            **layout)
+        z_k = run_k7()
+        require(torch.equal(z_k, z), f"transpose:samg:{fmt}: op.T @ y is "
+                f"not K7's z")
+        e_abs, e_rel = h.rel_err(z_k, plain(tens, ys))
+        s_abs, s_rel = h.rel_err(z, z64)
+        require(e_rel <= h.Y_TOL, f"transpose:samg:{fmt} K7 vs plain: "
+                f"{e_rel}")
+        require(s_rel <= h.SCIPY_TOL, f"transpose:samg:{fmt} vs scipy f64: "
+                f"{s_rel}")
+        require(tuple(z.shape) == (n,) and bool(torch.isfinite(z).all()),
+                f"transpose:samg:{fmt}: bad output")
+        if e_rel > worst[1]:
+            worst = (e_abs, e_rel)
+        # the plain version on the host: the slot order XLA's CPU
+        # segment_sum adds in (reported, not required)
+        z_cpu = plain({f: t.cpu() for f, t in tens.items()}, ys.cpu())
+        same_cpu = bool(torch.equal(z_k.cpu(), z_cpu))
+        # a block of right-hand sides, k = 4
+        h.reset_counts()
+        Z = op.T @ Y4
+        exact(counted(f"transpose:samg:{fmt} k=4"), {"transpose_spmv": 1},
+              f"transpose:samg:{fmt} k=4")
+        k7_launches += 1
+        _, sk_rel = h.rel_err(Z, Z64)
+        require(sk_rel <= h.SCIPY_TOL, f"transpose:samg:{fmt} k=4 vs scipy "
+                f"f64: {sk_rel}")
+        # transpose="device": A^T's operand through the forward kernel
+        t0 = time.perf_counter()
+        op_td = repro_torch.operator(m, fmt, transpose="device", device=dev)
+        t_tdev = time.perf_counter() - t0
+        h.reset_counts()
+        z_td = op_td.T @ y
+        exact(counted(f"transpose:samg:{fmt} transpose=device"),
+              {kernel_of[fmt]: 1}, f"transpose:samg:{fmt} transpose=device")
+        _, td_rel = h.rel_err(z_td, z64)
+        require(td_rel <= h.SCIPY_TOL, f"transpose:samg:{fmt} "
+                f"transpose=device vs scipy f64: {td_rel}")
+        td_ms = time_ms(lambda: op_td.T @ y)[0]
+        t_vals = op_td.t_dev.values
+        td_bytes = sum(t.numel() * t.element_size()
+                       for t in vars(op_td.t_dev.dev).values()
+                       if isinstance(t, torch.Tensor))
+        del op_td, z_td, t_vals
+        k_ms = time_ms(run_k7)
+        single_ms = time_ms(run_k7, burst=1)[0]
+        p_ms = time_ms(lambda: plain(tens, ys), reps=20, warm=2, burst=1)[0]
+        op_ms = time_ms(lambda: op.T @ y)[0]
+        k4_ms = time_ms(lambda: op.T @ Y4)[0]
+        nnz = slot.numel()
+        meta = (0 if "base" not in layout else layout["base"].numel() * 4) \
+            + (nnz if "row_in_strip" in layout else 0)
+        nbytes = float(nnz * (4 + d.val.element_size()) + 4 * (n + 1)
+                       + 4 * ys.shape[0] + 4 * n + meta)
+        index_bytes = slot.numel() * 4 + colptr.numel() * 4
+        fwd_bytes = sum(t.numel() * t.element_size()
+                        for t in vars(d).values()
+                        if isinstance(t, torch.Tensor))
+        per_fmt[fmt] = {
+            "k7_ms": k_ms[0], "k7_ms_q25_q75": list(k_ms[1:]),
+            "k7_launch_ms": single_ms,
+            "operator_T_ms": op_ms, "operator_T_k4_ms": k4_ms,
+            "plain_ms": p_ms, "bytes": nbytes,
+            "bound_ms": 1e3 * nbytes / h.HBM,
+            "share_of_bound": 1e3 * nbytes / h.HBM / k_ms[0],
+            "max_abs_err_vs_plain": e_abs, "max_rel_err_vs_plain": e_rel,
+            "max_rel_err_vs_scipy_f64": s_rel, "k4_rel_err_vs_scipy_f64":
+            sk_rel, "bit_equal_to_cpu_plain": same_cpu,
+            "slot_index_build_s": t_index, "slot_index_bytes": index_bytes,
+            "slot_index_bytes_per_nnz": index_bytes / nnz,
+            "operand_bytes": fwd_bytes,
+            "transpose_device_build_s": t_tdev,
+            "transpose_device_ms": td_ms,
+            "transpose_device_bytes": td_bytes,
+            "transpose_device_rel_err_vs_scipy_f64": td_rel}
+    emit("transpose:samg", n_rows=n, nnz=m.nnz, library_ms=lib_ms,
+         library_call="torch.mv(csr of A^T, y)", per_format=per_fmt)
+    k7_rec = {"name": "transpose_spmv", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/transpose_spmv.cu",
+              "replaces": "src/repro/kernels/ref.py:108",
+              "max_abs_err": worst[0], "max_rel_err": worst[1],
+              "ms": per_fmt["cmrs"]["k7_ms"],
+              "ms_q25_q75": per_fmt["cmrs"]["k7_ms_q25_q75"],
+              "samples": 30, "launch_ms": per_fmt["cmrs"]["k7_launch_ms"],
+              "plain_ms": per_fmt["cmrs"]["plain_ms"],
+              "bound_ms": per_fmt["cmrs"]["bound_ms"], "bound_by": "bytes",
+              "library_ms": lib_ms, "bytes": per_fmt["cmrs"]["bytes"],
+              "operand": "cmrs (the format operator(m) picks on sAMG)"}
+
+    # ---- grad:samg -- autograd and jvp through the CMRS operator ------
+    op = h.op_c
+    x = torch.from_numpy(h.x_np).to(dev)
+    w = y
+    v = op.values.clone().requires_grad_()
+    xg = x.clone().requires_grad_()
+    h.reset_counts()
+    gv, gx = torch.autograd.grad((w * (op.with_values(v) @ xg)).sum(),
+                                 (v, xg))
+    kern_c = kernel_of[op.fmt]
+    exact(counted("grad:samg"), {kern_c: 1, "transpose_spmv": 1},
+          "grad:samg")
+    k7_launches += 1
+    require(torch.equal(gx, op.T @ w),
+            "grad:samg: the x-gradient is not K7's A^T w bit for bit")
+    # the value gradient's plain version, in float64: w at each slot's
+    # row (0 for a padded row) times x at its column
+    d = op.dev.dev
+    if op.fmt == "cmrs":
+        rows = d.strip_map.long()[:, None] * d.b_r + d.row_in_strip.long()
+    else:
+        lane = torch.arange(d.b_r, device=dev)[None, :]
+        rows = op.dev.row_map().long()[d.row_block.long()[:, None] * d.b_r
+                                       + lane]
+        rows = torch.where(rows < 0, n, rows)
+    w_ext = torch.cat([w.double(), w.new_zeros(1, dtype=torch.float64)])
+    gv_plain = w_ext[rows.clamp(max=n)] * x.double()[d.col_idx.long()]
+    gv_abs, gv_rel = h.rel_err(gv, gv_plain)
+    require(gv_rel <= h.Y_TOL, f"grad:samg: value gradient vs plain "
+            f"{gv_rel}")
+    g = torch.Generator(device=dev).manual_seed(h.seed)
+    dv = torch.randn(tuple(op.values.shape), device=dev, generator=g)
+    dx = torch.randn(n, device=dev, generator=g)
+    h.reset_counts()
+    yj, tj = torch.func.jvp(lambda vv, xx: op.with_values(vv) @ xx,
+                            (op.values, x), (dv, dx))
+    exact(counted("grad:samg jvp"), {kern_c: 3}, "grad:samg jvp")
+    require(torch.equal(tj, op.with_values(dv) @ x + op @ dx),
+            "grad:samg: the tangent is not A(v') x + A x'")
+    _, yj_rel = h.rel_err(yj, torch.from_numpy(h.y64))
+    require(yj_rel <= h.SCIPY_TOL, f"grad:samg jvp primal vs scipy {yj_rel}")
+    # times: the product alone, recorded for autograd, and forward plus
+    # backward (both gradients; the x-gradient alone)
+    op_v = op.with_values(v)
+    fwd = time_ms(lambda: op @ x)
+    fwd_b = time_ms(lambda: op_v @ xg, reps=20)
+    fb = time_ms(lambda: torch.autograd.grad((w * (op_v @ xg)).sum(),
+                                             (v, xg)), reps=20)
+    fbx = time_ms(lambda: torch.autograd.grad((w * (op @ xg)).sum(), xg),
+                  reps=20)
+    del op_v
+    # four ranks as threads: the x-gradient through the transpose
+    # partition, against the single-device one
+    comms = ThreadComm.create(4, dev)
+    t0 = time.perf_counter()
+    ops4 = run_ranks(comms, lambda c: repro_torch.dist_operator(
+        m, c, device=dev))
+    t_part = time.perf_counter() - t0
+
+    def dist_grad(c):
+        opd = ops4[c.rank]
+        xl = opd.shard_vector(h.x_np).requires_grad_()
+        wl = opd.shard_vector(y_np)
+        (gl,) = torch.autograd.grad((wl * (opd @ xl)).sum(), xl)
+        require(torch.equal(gl, opd.rmatvec(wl)),
+                "grad:samg dist: the x-gradient is not A^T w")
+        return opd.gather_vector(gl)
+
+    h.reset_counts()
+    gd = run_ranks(comms, dist_grad)
+    launched_d = counted("grad:samg dist")
+    require(launched_d["pjds_spmv"] >= 4 * 3,
+            f"grad:samg dist: K1 launched {launched_d['pjds_spmv']}")
+    require(all(torch.equal(t, gd[0]) for t in gd),
+            "grad:samg dist: the ranks disagree")
+    _, gd_rel = h.rel_err(gd[0][:n], gx)
+    require(gd_rel <= h.Y_TOL, f"grad:samg dist vs single device {gd_rel}")
+    del ops4, gd
+    emit("grad:samg", operand=op.fmt, launches={
+             kern_c: 1, "transpose_spmv": 1},
+         x_grad_equal_to_k7=True, value_grad_rel_err_vs_plain=gv_rel,
+         value_grad_abs_err_vs_plain=gv_abs, jvp_tangent_exact=True,
+         forward_ms=fwd[0], forward_ms_q25_q75=list(fwd[1:]),
+         forward_recorded_ms=fwd_b[0], forward_backward_ms=fb[0],
+         forward_backward_ms_q25_q75=list(fb[1:]),
+         forward_backward_x_only_ms=fbx[0],
+         backward_over_forward=(fb[0] - fwd_b[0]) / fwd[0],
+         dist={"ranks": 4, "comm": "ThreadComm on one card",
+               "partition_s": t_part, "rel_err_vs_single_device": gd_rel,
+               "launches": launched_d})
+
+    # ---- reorder:poisson_shuffled -- RCM, single device and 4 ranks ----
+    side = h.poisson_side
+    t0 = time.perf_counter()
+    mp = TM.poisson_2d(side, side)
+    np_ = mp.n_rows
+    ms = TRO.permute_symmetric(mp, np.random.default_rng(h.seed).permutation(
+        np_))
+    t_gen = time.perf_counter() - t0
+    del mp
+    # operator(ms, reorder="rcm") runs preprocess(reorder="rcm"), which
+    # runs the RCM search: both are timed (and the outcome kept) while
+    # the operator is built
+    spent = {}
+    rcm, pre = TRO.rcm_permutation, TRO.preprocess
+
+    def timed(key, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            spent[key] = (time.perf_counter() - t, out)
+            return out
+        return call
+
+    TRO.rcm_permutation = timed("rcm", rcm)
+    TRO.preprocess = timed("preprocess", pre)
+    try:
+        t0 = time.perf_counter()
+        op_r = repro_torch.operator(ms, reorder="rcm", device=dev)
+        t_build_r = time.perf_counter() - t0
+    finally:
+        TRO.rcm_permutation, TRO.preprocess = rcm, pre
+    t_pre, pp = spent["preprocess"]
+    t0 = time.perf_counter()
+    op_0 = repro_torch.operator(ms, device=dev)
+    t_build_0 = time.perf_counter() - t0
+    require(op_r.dev.pre_perm is not None and op_0.dev.pre_perm is None,
+            "reorder:poisson_shuffled: the permutation is not recorded")
+    xi_np = rng.integers(-3, 4, size=np_).astype(np.float32)
+    xi = torch.from_numpy(xi_np).to(dev)
+    h.reset_counts()
+    y_r = op_r @ xi
+    exact(counted("reorder:poisson_shuffled"), {kernel_of[op_r.fmt]: 1},
+          "reorder:poisson_shuffled")
+    y_0 = op_0 @ xi
+    require(torch.equal(y_r, y_0), "reorder:poisson_shuffled: y differs "
+            "from the unreordered operator's")
+    a_s = sp.csr_matrix((ms.data, ms.indices, ms.indptr), shape=ms.shape)
+    require(np.array_equal(y_r.cpu().numpy(), (a_s @ xi_np.astype(
+        np.float64)).astype(np.float32)),
+        "reorder:poisson_shuffled: y differs from scipy's (integer data)")
+    sd_r = op_r.dev
+    xs = sd_r._into_stored(xi)
+    ys_r = sd_r._matvec_stored(xs, "auto")
+    t_r = time_ms(lambda: op_r @ xi)
+    t_0 = time_ms(lambda: op_0 @ xi)
+    t_st = time_ms(lambda: sd_r._matvec_stored(xs, "auto"))
+    t_sw = time_ms(lambda: (sd_r._into_stored(xi),
+                            sd_r._out_of_stored(ys_r)))
+    del ys_r, xs
+    # four ranks as threads: reorder="auto" must apply RCM and cut the
+    # halo; the gathered y equals the unreordered partition's bit for bit
+    comms = ThreadComm.create(4, dev)
+    t0 = time.perf_counter()
+    ops_a = run_ranks(comms, lambda c: repro_torch.dist_operator(
+        ms, c, reorder="auto", transpose=None, device=dev))
+    t_part_a = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ops_0 = run_ranks(comms, lambda c: repro_torch.dist_operator(
+        ms, c, transpose=None, device=dev))
+    t_part_0 = time.perf_counter() - t0
+    h.reset_counts()
+    ya = run_ranks(comms, lambda c: ops_a[c.rank].gather_vector(
+        ops_a[c.rank] @ ops_a[c.rank].shard_vector(xi_np)))
+    launched_a = counted("reorder:poisson_shuffled dist")
+    y0 = run_ranks(comms, lambda c: ops_0[c.rank].gather_vector(
+        ops_0[c.rank] @ ops_0[c.rank].shard_vector(xi_np)))
+    on = ops_a[0].dist.comm_bytes_per_device(value_bytes=4)
+    off = ops_0[0].dist.comm_bytes_per_device(value_bytes=4)
+    require(ops_a[0].pre_perm is not None,
+            "reorder:poisson_shuffled dist: reorder='auto' did not apply")
+    require(on * 10 <= off, f"reorder:poisson_shuffled dist: "
+            f"comm bytes {on} against {off}")
+    require(all(torch.equal(a, b) for a, b in zip(ya, y0))
+            and torch.equal(ya[0][:np_], y_0),
+            "reorder:poisson_shuffled dist: gathered y differs")
+    emit("reorder:poisson_shuffled", n_rows=np_, nnz=ms.nnz,
+         generate_and_shuffle_s=t_gen, preprocess_s=t_pre,
+         rcm_s=spent["rcm"][0], bandwidth_before=pp.bandwidth_before,
+         bandwidth_after=pp.bandwidth_after, reason=pp.reason,
+         build_reordered_s=t_build_r, build_plain_s=t_build_0,
+         applied=pp.applied,
+         format=op_r.fmt, y_equal=True, y_equal_to_scipy=True,
+         reordered_ms=t_r[0], reordered_ms_q25_q75=list(t_r[1:]),
+         plain_ms=t_0[0], plain_ms_q25_q75=list(t_0[1:]),
+         stored_product_ms=t_st[0], sandwich_ms=t_sw[0],
+         dist={"ranks": 4, "reorder": "auto", "applied": True,
+               "partition_auto_s": t_part_a, "partition_plain_s": t_part_0,
+               "comm_bytes_per_device": on,
+               "comm_bytes_per_device_plain": off,
+               "halo_w": ops_a[0].dist.halo_w,
+               "halo_w_plain": ops_0[0].dist.halo_w,
+               "gathered_y_equal": True, "launches": launched_a})
+    del ops_a, ops_0, op_r, op_0, ms, a_s, ya, y0
+
+    # ---- eigen:hmep -- the paper's motivating workload -----------------
+    t0 = time.perf_counter()
+    raw = TM.hmep(scale=h.hmep_scale)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    a_r = sp.csr_matrix((raw.data, raw.indices, raw.indptr), shape=raw.shape)
+    del raw
+    hs = ((a_r + a_r.T) * 0.5).tocsr()
+    del a_r
+    hs.sort_indices()
+    hm = TF.CSRMatrix(hs.indptr.astype(np.int64), hs.indices.astype(
+        np.int32), hs.data.astype(np.float32), hs.shape)
+    t_sym = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op_h = repro_torch.operator(hm, device=dev)
+    t_build = time.perf_counter() - t0
+    nh = hm.n_rows
+    kern = kernel_of[op_h.fmt]
+    v0 = torch.from_numpy(rng.standard_normal(nh).astype(np.float32)).to(dev)
+    S.lanczos(op_h, v0, m=2)                       # warm-up (cuBLAS)
+    h.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lz = S.lanczos(op_h, v0, m=100)
+    t_lz = time.perf_counter() - t0
+    exact(counted("eigen:hmep lanczos"), {kern: 100}, "eigen:hmep lanczos")
+    ritz = S.tridiag_eigvals(*lz)
+    require(lz.info["host_syncs"] == 1 and bool(np.isfinite(ritz).all()),
+            f"eigen:hmep lanczos: {lz.info}")
+    # the plain versions on the same card operand: the first 20 alphas
+    sd, dh = op_h.dev, op_h.dev.dev
+    if op_h.fmt == "sell":
+        plain = lambda u: R.sell_matvec_ref(
+            dh.val, dh.col_idx, dh.row_block, dh.inv_perm, u,
+            dh.n_blocks)[:nh]
+    elif op_h.fmt == "pjds":
+        plain = lambda u: R.pjds_matvec_ref(
+            dh.val, dh.col_idx, dh.row_block, u, dh.n_blocks).index_select(
+            0, sd.inv_perm)
+    elif op_h.fmt == "cmrs":
+        plain = lambda u: R.cmrs_matvec_ref(
+            dh.val, dh.col_idx, dh.row_in_strip, dh.strip_map, u,
+            dh.n_strips)[:nh]
+    else:
+        plain = lambda u: R.ell_matvec_ref(dh.val, dh.col_idx, dh.rowlen,
+                                           u)[:nh]
+    lp = S.lanczos(plain, v0, m=20)
+    al_err = float((lz[0][:20] - lp[0]).abs().max() / lp[0].abs().max())
+    be_err = float((lz[1][:20] - lp[1]).abs().max() / lp[1].abs().max())
+    require(al_err <= 1e-4, f"eigen:hmep: alphas vs plain {al_err}")
+    # power iteration on A - sigma I (sigma the smallest Ritz value): A's
+    # two extremes are close in magnitude, so the shift makes the
+    # largest one dominant
+    sigma = float(ritz.min())
+    h.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pw = S.power_iteration(lambda u: op_h @ u - sigma * u, v0,
+                           iters=h.power_iters)
+    t_pw = time.perf_counter() - t0
+    exact(counted("eigen:hmep power"), {kern: h.power_iters},
+          "eigen:hmep power")
+    lam = float(pw[1]) + sigma
+    lam_err = abs(lam - float(ritz.max())) / abs(float(ritz.max()))
+    require(lam_err <= 1e-3, f"eigen:hmep: power iteration {lam} against "
+            f"the largest Ritz value {ritz.max()}")
+    V0 = torch.from_numpy(rng.standard_normal((nh, 4)).astype(
+        np.float32)).to(dev)
+    S.block_lanczos(op_h, V0, m=2)                 # warm-up (cuSOLVER)
+    h.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bl = S.block_lanczos(op_h, V0, m=25)
+    t_bl = time.perf_counter() - t0
+    want_b = ({"pjds_spmm": 25} if op_h.fmt in ("sell", "pjds")
+              else {kern: 100})
+    exact(counted("eigen:hmep block_lanczos"), want_b,
+          "eigen:hmep block_lanczos")
+    bev = S.block_tridiag_eigvals(*bl)
+    require(bl.info["host_syncs"] == 1 and bool(np.isfinite(bev).all()),
+            f"eigen:hmep block_lanczos: {bl.info}")
+    emit("eigen:hmep", n_rows=nh, nnz_raw=int(hs.nnz), nnz=hm.nnz,
+         n_nzr=hm.n_nzr, format=op_h.fmt, stored_elements=int(
+             sd.storage_elements()), operand_bytes=sum(
+             t.numel() * t.element_size() for t in vars(dh).values()
+             if isinstance(t, torch.Tensor)),
+         generate_s=t_gen, symmetrise_s=t_sym, build_s=t_build,
+         lanczos={"m": 100, "seconds": t_lz, "ms_per_step": 1e3 * t_lz / 100,
+                  "host_syncs": lz.info["host_syncs"],
+                  "launches": {kern: 100},
+                  "ritz_min": float(ritz.min()), "ritz_max": float(ritz.max()),
+                  "alphas_rel_err_vs_plain_20": al_err,
+                  "betas_rel_err_vs_plain_20": be_err},
+         power_iteration={"iters": h.power_iters, "shift": sigma,
+                          "seconds": t_pw,
+                          "ms_per_step": 1e3 * t_pw / h.power_iters,
+                          "host_syncs": pw.info["host_syncs"], "lambda": lam,
+                          "rel_err_vs_ritz_max": lam_err},
+         block_lanczos={"k": 4, "m": 25, "seconds": t_bl,
+                        "ms_per_step": 1e3 * t_bl / 25,
+                        "host_syncs": bl.info["host_syncs"],
+                        "launches": want_b, "ritz_min": float(bev.min()),
+                        "ritz_max": float(bev.max())})
+    del op_h, hm, hs
+    k7_rec["launches"] = k7_launches
+    return {"k7": k7_rec, "launches": other}
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -552,6 +1059,8 @@ def main() -> int:
     from repro_torch.kernels.pjds_spmv import pjds_matvec_kernel_call
     from repro_torch.kernels.sell_spmv import (sell_matvec_kernel_call,
                                                slab_fits, window_blocks)
+    from repro_torch.kernels.transpose_spmv import \
+        transpose_matvec_kernel_call
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -562,7 +1071,8 @@ def main() -> int:
                "pjds_spmm": pjds_matmat_kernel_call,
                "cmrs_spmv": cmrs_matvec_kernel_call,
                "krylov_step": KS.step_kernel_call,
-               "krylov_update": KS.update_kernel_call}
+               "krylov_update": KS.update_kernel_call,
+               "transpose_spmv": transpose_matvec_kernel_call}
     plains = R._COUNTED
 
     def reset_counts():
@@ -1809,6 +2319,23 @@ def main() -> int:
             require(rec["launches_dist"] >= 1,
                     f"{rec['name']} not launched on the dist phases")
     emit("memory:dist", max_allocated_gib=torch.cuda.max_memory_allocated()
+         / 2 ** 30, seconds_since_start=time.perf_counter() - t_start)
+
+    # ---- 10c. transposes, gradients, RCM and the eigensolvers ----------
+    s6 = slice6_phases(types.SimpleNamespace(
+        dev=dev, m=m, a64=a64, x_np=x_np, y64=y64, seed=SEED, op_p=op_p,
+        op_s=op_s, op_c=op_c, op_e=op_e, require=require, emit=emit,
+        counts=counts, reset_counts=reset_counts, plain_free=plain_free,
+        rel_err=rel_err, time_ms=time_ms, csr_of=csr_of,
+        library_ms=library_ms, Y_TOL=Y_TOL, SCIPY_TOL=SCIPY_TOL,
+        HBM=HBM_BYTES_PER_S, poisson_side=2048, hmep_scale=1.0,
+        power_iters=2000))
+    for rec in record:
+        if s6["launches"].get(rec["name"]):
+            rec["launches_slice6"] = s6["launches"][rec["name"]]
+    record.append(s6["k7"])
+    emit("time:transpose_spmv", **s6["k7"])
+    emit("memory:slice6", max_allocated_gib=torch.cuda.max_memory_allocated()
          / 2 ** 30, seconds_since_start=time.perf_counter() - t_start)
 
     # ---- 11. the record, the card, the verdict ---------------------------

@@ -12,6 +12,9 @@ heavy and builds no kernel::
     res = repro_torch.solve(m, b, dtype=torch.bfloat16)   # bf16, refined
     op = repro_torch.dist_operator(m, repro_torch.GroupComm())  # one rank
     res = repro_torch.solve(op, op.shard_vector(b))    # distributed CG
+    z = op.T @ y                                       # A^T y (K7)
+    m = repro_torch.load_mm("matrix.mtx")              # Matrix Market
+    op = repro_torch.operator(m, reorder="rcm")        # RCM preprocessing
 
 Entry points run on CUDA unless given ``device="cpu"``; with no CUDA
 and no device they raise.  Tuned decisions are measured on that device
@@ -23,7 +26,8 @@ holds its own copies of the host code.
 from __future__ import annotations
 
 __all__ = ["solve", "SolveResult", "SolveFailure", "operator",
-           "dist_operator", "DistOperator", "GroupComm", "ThreadComm"]
+           "dist_operator", "DistOperator", "GroupComm", "ThreadComm",
+           "load_mm", "save_mm", "preprocess"]
 
 _LAZY = {
     "solve": "repro_torch.api",
@@ -34,6 +38,9 @@ _LAZY = {
     "DistOperator": "repro_torch.core.operator",
     "GroupComm": "repro_torch.core.dist_comm",
     "ThreadComm": "repro_torch.core.dist_comm",
+    "load_mm": "repro_torch.core.io_mm",
+    "save_mm": "repro_torch.core.io_mm",
+    "preprocess": "repro_torch.core.reorder",
 }
 
 

@@ -9,10 +9,6 @@ from __future__ import annotations
 __all__ = ["ROADMAP_ITEMS", "not_ported"]
 
 ROADMAP_ITEMS = {
-    "block_cg": "1.7 (Lanczos, block Lanczos, power iteration)",
-    "transpose": "1.8 (rmatvec, .T and transpose='device')",
-    "autograd": "1.9 (the autograd Function)",
-    "reorder": "1.10 (RCM preprocessing and Matrix-Market I/O)",
     "dist_tune": "1.20 (the distributed tuner and link calibration)",
 }
 

@@ -124,12 +124,17 @@ def _pad_to(v: torch.Tensor, n_pad: int) -> torch.Tensor:
 def _one_solve(op, b, *, method, strategy, maxiter, tol, precond,
                x0=None) -> SolveResult:
     if strategy == "fused":
+        # The fused loop runs on the stored operand: with a
+        # preprocessing permutation (B = P A P^T) it solves B (P x) = P b,
+        # so b and x0 go into the stored basis and x comes back out.
         mvd = _fused_dots_of(op)
+        sd = op.dev
         n, n_pad = op.shape[0], mvd.n_pad
-        x0p = None if x0 is None else _pad_to(x0, n_pad)
+        x0p = None if x0 is None else _pad_to(sd._into_stored(x0), n_pad)
         fn = S.fused_cg if method == "cg" else S.fused_bicgstab
-        res = fn(mvd, _pad_to(b, n_pad), x0=x0p, maxiter=maxiter, tol=tol)
-        res.x = res.x[:n]
+        res = fn(mvd, _pad_to(sd._into_stored(b), n_pad), x0=x0p,
+                 maxiter=maxiter, tol=tol)
+        res.x = sd._out_of_stored(res.x[:n])
         return res
     if method == "cg":
         return S.cg(op, b, x0=x0, maxiter=maxiter, tol=tol, M=precond)
@@ -179,7 +184,8 @@ def _cast_low_precision(op):
         low["col_idx"] = inner.col_idx.to(torch.int16)
     lo = SparseDevice(fmt=sd.fmt, shape=sd.shape,
                       dev=dataclasses.replace(inner, **low),
-                      inv_perm=sd.inv_perm, x_tiles=sd.x_tiles)
+                      inv_perm=sd.inv_perm, x_tiles=sd.x_tiles,
+                      pre_perm=sd.pre_perm, pre_inv=sd.pre_inv)
     return DeviceOperator(lo, backend=op.backend)
 
 

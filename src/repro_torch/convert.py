@@ -122,10 +122,13 @@ def csr_device(arrays: Mapping[str, np.ndarray], statics: Mapping,
 def sparse_device(fmt: str, shape: Tuple[int, int],
                   arrays: Mapping[str, np.ndarray], statics: Mapping, *,
                   inv_perm: Optional[np.ndarray] = None, x_tiles: int = 1,
+                  pre_perm: Optional[np.ndarray] = None,
+                  pre_inv: Optional[np.ndarray] = None,
                   device=None) -> ops.SparseDevice:
     """The port's ``SparseDevice`` from a reference ``SparseDevice``
     handed over as its format name, shape, inner container arrays and
-    statics, and (pJDS) its global ``inv_perm``."""
+    statics, (pJDS) its global ``inv_perm``, and the preprocessing
+    permutation ``pre_perm`` / ``pre_inv`` when it has one."""
     if fmt == "csr":
         inner = csr_device(arrays, statics, device)
     elif fmt in ("pjds", "sell"):
@@ -143,5 +146,9 @@ def sparse_device(fmt: str, shape: Tuple[int, int],
         inv = tensor_from_numpy(
             np.asarray(inv_perm)[: shape[0]].astype(np.int32),
             inner.val.device)
+    on = (inner.data if fmt == "csr" else inner.val).device
+    pre = {name: tensor_from_numpy(np.asarray(v).astype(np.int32), on)
+           for name, v in (("pre_perm", pre_perm), ("pre_inv", pre_inv))
+           if v is not None}
     return ops.SparseDevice(fmt=fmt, shape=tuple(shape), dev=inner,
-                            inv_perm=inv, x_tiles=int(x_tiles))
+                            inv_perm=inv, x_tiles=int(x_tiles), **pre)

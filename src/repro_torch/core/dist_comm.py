@@ -136,6 +136,9 @@ class _World:
         self.slots = [None] * n
         self.barrier = threading.Barrier(n)
         self.failed = False
+        # host plans the ranks share (core.operator.dist_operator)
+        self.plans = {}
+        self.plan_lock = threading.Lock()
 
     def abort(self) -> None:
         with self.cv:
@@ -257,20 +260,25 @@ class ThreadComm:
 
 def run_ranks(comms: Sequence[ThreadComm], fn: Callable) -> list:
     """Run ``fn(comm)`` for every rank in a thread of its own (inside
-    the rank's CUDA stream when it has one) and return the results in
-    rank order.  If a rank raises, the others are released from their
+    the rank's CUDA stream when it has one, and with multithreaded
+    backward off, so a gradient's backward pass runs on the rank's own
+    thread) and return the results in rank order.  If a rank raises, the others are released from their
     waits and the first failure is raised here."""
     out = [None] * len(comms)
     errors = []
 
     def body(c):
         try:
-            if c.stream is not None:
-                with torch.cuda.stream(c.stream):
+            # a backward pass runs on this thread: the engine's one
+            # worker per card would run the ranks' passes one after
+            # another, and their exchanges wait on each other
+            with torch.autograd.set_multithreading_enabled(False):
+                if c.stream is not None:
+                    with torch.cuda.stream(c.stream):
+                        out[c.rank] = fn(c)
+                    c.stream.synchronize()
+                else:
                     out[c.rank] = fn(c)
-                c.stream.synchronize()
-            else:
-                out[c.rank] = fn(c)
         except BaseException as e:          # re-raised by the caller below
             errors.append(e)
             c.world.abort()

@@ -1,10 +1,11 @@
 """Krylov solvers: composed CG (optionally preconditioned) and BiCGStab
 over any operator, the fused CG and BiCGStab whose iterations are K3
-passes, and block CG over ``matmat`` (K5).
+passes, block CG over ``matmat`` (K5), and the eigensolvers (Lanczos,
+block Lanczos, power iteration).
 
-Port of ``repro/core/solvers.py`` (all but the eigensolvers), with
-mixed-precision iterative refinement as a host loop over either kind of
-solve.  Two loop structures:
+Port of ``repro/core/solvers.py``, with mixed-precision iterative
+refinement as a host loop over either kind of solve.  Two loop
+structures:
 
 * The COMPOSED loops (``cg``, ``bicgstab``, ``block_cg``) run on the
   host over device-resident carriers: the vector work (spMV, axpys,
@@ -56,7 +57,9 @@ from repro_torch.kernels import ref as R
 
 __all__ = ["SolveResult", "STATUS_NAMES", "FUSED_CHUNK", "cg", "bicgstab",
            "jacobi", "fused_cg", "fused_bicgstab", "block_cg",
-           "iterative_refinement"]
+           "iterative_refinement", "EigenResult", "lanczos",
+           "block_lanczos", "power_iteration", "tridiag_eigvals",
+           "block_tridiag_eigvals"]
 
 F32 = np.float32
 
@@ -183,6 +186,11 @@ class _HostReads:
         """An integer tensor, in one transfer."""
         self.n += 1
         return [int(v) for v in t.cpu().tolist()]
+
+    def tensor(self, t: torch.Tensor) -> torch.Tensor:
+        """A device tensor on the host as it is, in one transfer."""
+        self.n += 1
+        return t.cpu()
 
 
 def _not_done(res2, tol) -> bool:
@@ -781,3 +789,134 @@ def _block_cg(matvec, b, x, maxiter, tol, reads):
         rtr = rtr_new
         it += 1
     return x, it, np.sqrt(rdiag / b2), flag, reads.n
+
+
+# --------------------------------------------------------------------------
+# Eigensolvers
+# --------------------------------------------------------------------------
+class EigenResult(tuple):
+    """An eigensolver's result: a tuple, unpacked as the reference's is
+    (``alphas, betas = lanczos(...)``), with ``info["host_syncs"]`` --
+    the device->host reads of the run, one at its end."""
+
+    def __new__(cls, items, info: dict):
+        out = super().__new__(cls, items)
+        out.info = info
+        return out
+
+
+def lanczos(a, v0: torch.Tensor, m: int = 50) -> EigenResult:
+    """m-step Lanczos: ``(alphas, betas)`` of the tridiagonal T_m, whose
+    eigenvalues (:func:`tridiag_eigvals`) approximate the extremal
+    eigenvalues of a symmetric A -- the Holstein-Hubbard (HMEp) workload
+    of the paper's group.
+
+    The reference runs the m steps in ``lax.scan``; here a host loop
+    over device tensors does, writing each alpha and beta into
+    preallocated device buffers, and reads them to the host once, at the
+    end (``info["host_syncs"] == 1``): ``alphas`` and ``betas`` come
+    back as (m,) float32 CPU tensors.  Over a distributed operator the
+    dots and norms are summed over its ranks (``_HostReads.sum``)."""
+    matvec = _matvec_of(a)
+    reads = _HostReads.of(a)
+    v = v0 / reads.norms(v0)[0]
+    v_prev = torch.zeros_like(v)
+    beta = torch.zeros((), dtype=v.dtype, device=v.device)
+    out = torch.empty((2, m), dtype=v.dtype, device=v.device)
+    for j in range(m):
+        w = matvec(v) - beta * v_prev
+        alpha = reads.sum(torch.dot(w, v))
+        w = w - alpha * v
+        # one pass of full reorthogonalisation against the two known
+        # vectors, as in the reference
+        w = w - reads.sum(torch.dot(w, v)) * v
+        beta = reads.norms(w)[0]
+        v_prev, v = v, w / torch.clamp(beta, min=1e-30)
+        out[0, j], out[1, j] = alpha, beta
+    host = reads.tensor(out)
+    return EigenResult((host[0], host[1]), {"host_syncs": reads.n})
+
+
+def _chol_qr(w: torch.Tensor, reads: _HostReads) -> tuple:
+    """CholeskyQR: W = Q R with Q^T Q = I from the k-by-k Gram matrix --
+    matmuls and a k-by-k factorization only, so it stays row-sliced over
+    the ranks of a distributed operator (the Gram matrix is summed over
+    them).  Returns (Q, R upper).  The factorizations are
+    ``torch.linalg`` calls, as the reference leaves them to XLA."""
+    g = reads.sum(w.T @ w)
+    g = g + _ridge(g)
+    l = torch.linalg.cholesky_ex(g)[0]                # G = L L^T
+    # Q = W L^{-T}: each row q of Q solves q L^T = w, the reference's
+    # L Y = W^T column by column, as one right-sided solve (a left-sided
+    # one with W^T's n columns as right-hand sides took seconds on the
+    # card at n = 6.2 M)
+    q = torch.linalg.solve_triangular(l.T, w, upper=True, left=False)
+    return q, l.T
+
+
+def block_lanczos(a, v0: torch.Tensor, m: int = 25) -> EigenResult:
+    """m-step block Lanczos for a symmetric A with block size
+    k = v0.shape[1]: ``(A_blocks (m, k, k), B_blocks (m, k, k))`` of the
+    block tridiagonal T_m,
+    A V_j = V_{j-1} B_{j-1}^T + V_j A_j + V_{j+1} B_j.  Every pass
+    streams the matrix once for k directions (``op @ V``: K5 for SELL /
+    pJDS on the card); :func:`block_tridiag_eigvals` solves T_m.  A host
+    loop over device tensors, read once at the end, as :func:`lanczos`."""
+    matvec = _matvec_of(a)
+    reads = _HostReads.of(a)
+    v, _ = _chol_qr(v0, reads)
+    k = v.shape[1]
+    v_prev = torch.zeros_like(v)
+    b_prev = torch.zeros((k, k), dtype=v.dtype, device=v.device)
+    out = torch.empty((2, m, k, k), dtype=v.dtype, device=v.device)
+    for j in range(m):
+        w = matvec(v) - v_prev @ b_prev.T
+        a_j = reads.sum(v.T @ w)
+        w = w - v @ a_j
+        # one full reorthogonalisation pass against the two known blocks
+        w = w - v @ reads.sum(v.T @ w) - v_prev @ reads.sum(v_prev.T @ w)
+        v_new, b_prev = _chol_qr(w, reads)
+        v_prev, v = v, v_new
+        out[0, j], out[1, j] = a_j, b_prev
+    host = reads.tensor(out)
+    return EigenResult((host[0], host[1]), {"host_syncs": reads.n})
+
+
+def block_tridiag_eigvals(a_blocks, b_blocks) -> np.ndarray:
+    """Eigenvalues of the block-Lanczos block tridiagonal (host, numpy,
+    float64)."""
+    a = np.asarray(a_blocks, dtype=np.float64)
+    b = np.asarray(b_blocks, dtype=np.float64)
+    m, k, _ = a.shape
+    t = np.zeros((m * k, m * k))
+    for j in range(m):
+        s = slice(j * k, (j + 1) * k)
+        t[s, s] = (a[j] + a[j].T) / 2
+        if j + 1 < m:
+            s1 = slice((j + 1) * k, (j + 2) * k)
+            t[s1, s] = b[j]
+            t[s, s1] = b[j].T
+    return np.linalg.eigvalsh(t)
+
+
+def tridiag_eigvals(alphas, betas) -> np.ndarray:
+    """Eigenvalues of the Lanczos tridiagonal (host, numpy, float64)."""
+    a = np.asarray(alphas, dtype=np.float64)
+    b = np.asarray(betas, dtype=np.float64)[:-1]
+    t = np.diag(a) + np.diag(b, 1) + np.diag(b, -1)
+    return np.linalg.eigvalsh(t)
+
+
+def power_iteration(a, v0: torch.Tensor, iters: int = 100) -> EigenResult:
+    """Dominant eigenpair by power iteration: ``(v, lam)``, v the last
+    unit iterate on the device and lam its Rayleigh quotient as a 0-d
+    float32 CPU tensor, read once at the end."""
+    matvec = _matvec_of(a)
+    reads = _HostReads.of(a)
+    v = v0 / reads.norms(v0)[0]
+    lam = torch.zeros((), dtype=v.dtype, device=v.device)
+    for _ in range(iters):
+        w = matvec(v)
+        lam = reads.sum(torch.dot(v, w))
+        v = w / torch.clamp(reads.norms(w)[0], min=1e-30)
+    return EigenResult((v, reads.tensor(lam)), {"host_syncs": reads.n})

@@ -14,12 +14,18 @@ Port of ``repro/kernels/ops.py``:
   ``sell_matvec`` (K2), ``cmrs_matvec`` (K6) and ``pjds_matmat`` (K5)
   launch their kernel for a CUDA tensor and take the plain version for a
   CPU tensor; ``csr_matvec`` is plain torch everywhere, as in the
-  reference (it has no kernel).
+  reference (it has no kernel).  The transposes (``rmatvec`` /
+  ``rmatmat``) of the four blocked and ELLPACK-R formats run K7
+  (``transpose_spmv``) on the card over a slot index built once per
+  operand, and their plain versions on the CPU; CSR's is plain
+  everywhere.
 * **Dispatch** -- ``select_format`` prices the candidate formats with
   ``core.perf_model`` exactly as the reference does (same decision under
   the same spec; the port's default spec is the H100), and ``as_device``
   converts once, caches, and wraps the result in a :class:`SparseDevice`
-  whose ``matvec`` / ``matmat`` work in the ORIGINAL basis.
+  whose ``matvec`` / ``matmat`` / ``rmatvec`` / ``rmatmat`` work in the
+  ORIGINAL basis, ``reorder=`` (RCM, ``core.reorder.preprocess``)
+  included.
 
 Storage widths follow the reference: host float64 values are stored as
 f32 (or bf16 with ``dtype=``), column indices as int32, or int16 when
@@ -36,7 +42,6 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch._todo import not_ported
 from repro_torch.core import formats as F
 from repro_torch.core import perf_model as PM
 from . import ref as R
@@ -46,6 +51,8 @@ from .ellr_spmv import ell_matvec_kernel_call
 from .pjds_spmm import pjds_matmat_kernel_call
 from .pjds_spmv import pjds_matvec_kernel_call
 from .sell_spmv import sell_matvec_kernel_call, window_blocks
+from .transpose_spmv import (padding_mask, slot_index,
+                             transpose_matvec_kernel_call)
 
 __all__ = [
     "ELLDevice",
@@ -569,6 +576,15 @@ class SparseDevice:
     # at the first fused solve (``api._fused_dots_of``)
     fused: dict = dataclasses.field(default_factory=dict, repr=False,
                                     compare=False)
+    # Preprocessing (reorder=): the stored matrix is B = P A P^T with
+    # perm[k] = old index at new position k (core.reorder's convention);
+    # every product sandwiches, y = B(x[pre_perm])[pre_inv], so callers
+    # stay in the ORIGINAL basis.  None: no preprocessing.
+    pre_perm: Optional[torch.Tensor] = None
+    pre_inv: Optional[torch.Tensor] = None
+    # K7's slot index (slot, colptr), built at the first transpose
+    _slots: Optional[tuple] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def n_rows(self) -> int:
@@ -614,6 +630,28 @@ class SparseDevice:
             raise ValueError(f"x is on {x.device}; the operand on "
                              f"{self.device}")
 
+    def _check_y(self, y: torch.Tensor) -> None:
+        if y.dim() not in (1, 2):
+            raise ValueError(f"y must be 1-D or 2-D; got shape "
+                             f"{tuple(y.shape)}")
+        if y.shape[0] < self.shape[0]:
+            raise ValueError(
+                f"y has {y.shape[0]} entries; matrix has {self.shape[0]} "
+                f"rows")
+        if y.device != self.device:
+            raise ValueError(f"y is on {y.device}; the operand on "
+                             f"{self.device}")
+
+    def _into_stored(self, v: torch.Tensor) -> torch.Tensor:
+        """v in the stored (preprocessed) basis: ``v[pre_perm]``."""
+        return v if self.pre_perm is None else v.index_select(
+            0, self.pre_perm)
+
+    def _out_of_stored(self, v: torch.Tensor) -> torch.Tensor:
+        """v back in the original basis: ``v[pre_inv]``."""
+        return v if self.pre_inv is None else v.index_select(
+            0, self.pre_inv)
+
     def matvec(self, x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
         """y = A x, original basis, length shape[0]; a 2-D x goes to
         :meth:`matmat`."""
@@ -622,6 +660,10 @@ class SparseDevice:
         if x.dim() != 1:
             raise ValueError(f"x must be 1-D; got shape {tuple(x.shape)}")
         self._check_x(x)
+        return self._out_of_stored(
+            self._matvec_stored(self._into_stored(x), backend))
+
+    def _matvec_stored(self, x: torch.Tensor, backend: str) -> torch.Tensor:
         if self.fmt == "csr":
             return csr_matvec(self.dev, x, backend)
         if self.fmt == "ellpack_r":
@@ -648,6 +690,10 @@ class SparseDevice:
         if x.dim() != 2:
             raise ValueError(f"X must be 2-D; got shape {tuple(x.shape)}")
         self._check_x(x)
+        return self._out_of_stored(
+            self._matmat_stored(self._into_stored(x), backend))
+
+    def _matmat_stored(self, x: torch.Tensor, backend: str) -> torch.Tensor:
         d = self.dev
         if self.fmt == "csr":
             return csr_matvec(d, x, backend)
@@ -664,6 +710,116 @@ class SparseDevice:
         if self.fmt == "cmrs":
             return cmrs_matvec(d, x, backend)[: self.n_rows]
         raise ValueError(f"unknown format {self.fmt!r}")
+
+    def rmatvec(self, y: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+        """z = A^T y, original basis: (shape[0],) -> (shape[1],); a 2-D
+        y goes to :meth:`rmatmat`."""
+        return self.rmatmat(y, backend)
+
+    def rmatmat(self, y: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+        """Z = A^T Y, original basis: (shape[0][, k]) -> (shape[1][, k]).
+
+        pJDS, SELL, ELLPACK-R and CMRS run K7 on the card over the slot
+        index (:meth:`slot_index`) and their plain scatter versions on
+        the CPU; CSR swaps its gather and its segment ids on every
+        device.  A^T = P^T B^T P, so the transpose wears the forward's
+        sandwich (B = P A P^T is symmetric-permuted)."""
+        self._check_y(y)
+        return self._out_of_stored(
+            self._rmatmat_stored(self._into_stored(y[: self.n_rows]),
+                                 backend))
+
+    def _rmatmat_stored(self, y: torch.Tensor, backend: str) -> torch.Tensor:
+        n_cols = self.shape[1]
+        d = self.dev
+        if self.fmt == "csr":
+            return R.csr_rmatvec_ref(d.data, d.indices, d.row_ids, y, n_cols)
+        kernel = resolve_backend(y, backend) == "kernel"
+        if self.fmt in ("sell", "pjds"):
+            y_p = self._scatter_to_storage(y, d.n_rows_pad)
+            if kernel:
+                return self._k7(y_p, base=d.row_block, width=d.b_r)
+            return R.blocked_rmatvec_ref(d.val, d.col_idx, d.row_block, y_p,
+                                         n_cols)
+        y_pad = self._pad_rows(y, d.n_rows_pad)
+        if self.fmt == "ellpack_r":
+            if kernel:
+                return self._k7(y_pad, width=d.n_rows_pad)
+            return R.ell_rmatvec_ref(d.val, d.col_idx, d.rowlen, y_pad,
+                                     n_cols)
+        if self.fmt == "cmrs":
+            if kernel:
+                return self._k7(y_pad, base=d.strip_map, width=d.b_r,
+                                row_in_strip=d.row_in_strip)
+            return R.cmrs_rmatvec_ref(d.val, d.col_idx, d.row_in_strip,
+                                      d.strip_map, y_pad, n_cols)
+        raise ValueError(f"unknown format {self.fmt!r}")
+
+    def _k7(self, y: torch.Tensor, **layout) -> torch.Tensor:
+        slot, colptr = self.slot_index()
+        return transpose_matvec_kernel_call(self.dev.val, slot, colptr, y,
+                                            n_rows=y.shape[0], **layout)
+
+    def slot_index(self) -> tuple:
+        """K7's ``(slot, colptr)`` for this operand (not CSR): the flat
+        positions of the stored slots that hold more than padding
+        (ELLPACK-R: below ``rowlen``), sorted stably by column, and the
+        column pointer; built once on the operand's device
+        (``transpose_spmv.slot_index``)."""
+        if self._slots is None:
+            d = self.dev
+            if self.fmt == "ellpack_r":
+                j = torch.arange(d.val.shape[0], device=d.val.device)
+                real = j[:, None] < d.rowlen[None, :]
+            elif self.fmt == "cmrs":
+                real = padding_mask(d.val, d.col_idx, d.row_in_strip)
+            elif self.fmt in ("sell", "pjds"):
+                real = padding_mask(d.val, d.col_idx)
+            else:
+                raise ValueError(f"no slot index for format {self.fmt!r}")
+            self._slots = slot_index(d.val, d.col_idx, real, self.shape[1])
+        return self._slots
+
+    def _pad_rows(self, y: torch.Tensor, n_pad: int) -> torch.Tensor:
+        y = y[: self.n_rows]
+        pad = y.new_zeros((n_pad - self.n_rows,) + tuple(y.shape[1:]))
+        return torch.cat([y, pad])
+
+    def _scatter_to_storage(self, y: torch.Tensor, n_pad: int) -> torch.Tensor:
+        """Inverse of the product's unpermute: y's entries at their
+        stored (sorted) positions, zeros in the padded rows (the
+        reference's ``_scatter_to_storage``)."""
+        y_p = y.new_zeros((n_pad,) + tuple(y.shape[1:]))
+        return y_p.index_copy_(0, self.stored_rows().long(),
+                               y[: self.n_rows])
+
+    def with_values(self, val: torch.Tensor) -> "SparseDevice":
+        """The same structure with the stored values replaced by ``val``
+        (the stored value array's shape, on the operand's device).  The
+        walk lengths are derived again from the new values (a slot that
+        was padding may now hold one), and the fused loops, the row map
+        and the slot index start empty."""
+        d = self.dev
+        old = self.values
+        if tuple(val.shape) != tuple(old.shape) or val.device != old.device:
+            raise ValueError(f"values must be {tuple(old.shape)} on "
+                             f"{old.device}; got {tuple(val.shape)} on "
+                             f"{val.device}")
+        fields = {f.name: getattr(d, f.name) for f in dataclasses.fields(d)}
+        if self.fmt == "csr":
+            inner = dataclasses.replace(d, data=val)
+        elif self.fmt == "ellpack_r":
+            inner = dataclasses.replace(d, val=val)
+        elif self.fmt == "cmrs":
+            fields.pop("strip_nnz")
+            inner = cmrs_container(**{**fields, "val": val})
+        else:
+            fields.pop("warp_len")
+            make = pjds_container if self.fmt == "pjds" else sell_container
+            inner = make(**{**fields, "val": val})
+        return SparseDevice(fmt=self.fmt, shape=self.shape, dev=inner,
+                            inv_perm=self.inv_perm, x_tiles=self.x_tiles,
+                            pre_perm=self.pre_perm, pre_inv=self.pre_inv)
 
 
 # Conversion cache: host matrix -> device representation, keyed by the
@@ -737,9 +893,17 @@ def as_device(
     cache measures nothing -- and builds exactly ``best.build_kwargs()``
     (which own ``diag_align``, so a caller's ``diag_align`` is ignored);
     an explicit ``format`` restricts the search to it.  ``"force"``
-    re-measures and never serves a conversion-cache hit.  ``reorder``
-    other than ``"off"`` is not ported yet and raises
-    ``NotImplementedError``.
+    re-measures and never serves a conversion-cache hit.
+
+    ``reorder`` is the preprocessing stage (``core.reorder.preprocess``):
+    ``"rcm"`` applies the reverse Cuthill-McKee symmetric permutation
+    before tuning and conversion, ``"auto"`` only when the perf model
+    (H100 spec) predicts that the bandwidth gain pays for the permute /
+    unpermute sandwich around every product, ``"off"`` (the default)
+    skips it.  The permutation rides on the returned ``SparseDevice``
+    (``pre_perm`` / ``pre_inv``), so every product takes and returns
+    vectors in the ORIGINAL basis.  ``"auto"`` skips a non-square
+    matrix; ``"rcm"`` raises on one.
     """
     if isinstance(a, SparseDevice):
         if format not in ("auto", a.fmt):
@@ -762,8 +926,6 @@ def as_device(
     if reorder not in ("off", "auto", "rcm"):
         raise ValueError(f"reorder must be 'off', 'auto' or 'rcm'; "
                          f"got {reorder!r}")
-    if reorder != "off":
-        raise not_ported(f"reorder={reorder!r}", "reorder")
     dev = resolve_device(device)
     if validate != "off":
         a, _report = F.validate_csr(a, repair=(validate == "repair"))
@@ -780,11 +942,25 @@ def as_device(
     key = (id(a), format, b_r, diag_align, sigma, chunk_l,
            None if vdt is None else str(vdt),
            "auto" if index_dtype == "auto" else np.dtype(index_dtype).name,
-           x_tiles, str(dev), tune)
+           x_tiles, str(dev), reorder, tune)
     if tune != "force":      # force must re-measure, never serve a hit
         hit = _DEVICE_CACHE.get(key)
         if hit is not None and hit[0]() is a:
             return hit[1]
+
+    # The preprocessing stage runs BEFORE tuning, so the reordered
+    # structure is what gets fingerprinted, priced and measured.
+    a_orig = a
+    pre = {}
+    if reorder != "off":
+        from repro_torch.core import reorder as RO
+        pp = RO.preprocess(a, reorder=reorder,
+                           value_bytes=(_itemsize(vdt) if vdt is not None
+                                        else a.data.dtype.itemsize))
+        if pp.applied:
+            a = pp.matrix
+            pre = dict(pre_perm=host_tensor(pp.perm, dev),
+                       pre_inv=host_tensor(pp.inv_perm, dev))
 
     if tune != "off":
         from repro_torch import tune as T   # deferred: tune imports ops
@@ -795,8 +971,10 @@ def as_device(
         # (Candidate.build_kwargs owns diag_align).
         sd = as_device(a, dtype=dtype, index_dtype=index_dtype, tune="off",
                        device=dev, **best.build_kwargs())
+        if pre:
+            sd = dataclasses.replace(sd, **pre)
         if tune != "force":
-            _cache_put(key, a, sd)
+            _cache_put(key, a_orig, sd)
         return sd
 
     # The kernels need diag_align % chunk_l == 0; raise it once here so
@@ -832,6 +1010,6 @@ def as_device(
         raise ValueError(f"unknown format {fmt!r}")
 
     sd = SparseDevice(fmt=fmt, shape=a.shape, dev=d, inv_perm=inv_perm,
-                      x_tiles=x_tiles)
-    _cache_put(key, a, sd)
+                      x_tiles=x_tiles, **pre)
+    _cache_put(key, a_orig, sd)
     return sd

@@ -15,6 +15,12 @@ the reference's does (paper Listing 1), so its padding never reads x.
 The ELLPACK-R and CMRS versions also take a block of right-hand sides,
 ``x`` of shape ``(n, k)``, as the reference's do.
 
+The transposes (``*_rmatvec_ref``, z = A^T y) have no Pallas kernel in
+the reference (they are ``segment_sum`` scatters there); on the CPU they
+are the product, and on the card they are the yardstick of K7
+(``transpose_spmv.py``), which adds each column's slots in the same
+ascending slot order without atomics.
+
 The fused Krylov loop's scalar step and vector updates
 (``krylov_step_ref`` / ``krylov_update_ref``) have no Pallas kernel
 behind them -- XLA fused that work into the reference's device loop --
@@ -33,7 +39,9 @@ from ._backend import acc_dtype
 
 __all__ = ["pjds_matvec_ref", "pjds_matmat_ref", "sell_matvec_ref",
            "fused_matvec_dots_ref", "csr_matvec_ref", "ell_matvec_ref",
-           "cmrs_matvec_ref", "krylov_step_ref", "krylov_update_ref",
+           "cmrs_matvec_ref", "csr_rmatvec_ref", "ell_rmatvec_ref",
+           "blocked_rmatvec_ref", "cmrs_rmatvec_ref", "krylov_step_ref",
+           "krylov_update_ref",
            "partial_reduce_epilogue", "reset_calls"]
 
 # Slots of the fused loop's scalar state: ``fs`` (float32) and ``is_``
@@ -174,6 +182,83 @@ def cmrs_matvec_ref(val: torch.Tensor, col_idx: torch.Tensor,
     y = torch.zeros((n_strips * b_r, *contrib.shape[2:]), dtype=dt,
                     device=val.device)
     return y.index_add_(0, rows, flat)
+
+
+def _scatter_cols(flat: torch.Tensor, cols: torch.Tensor,
+                  n_cols: int) -> torch.Tensor:
+    """``out[c] = sum of flat[s] where cols[s] == c``, added in slot
+    order (``index_add_`` on the CPU is a serial loop in that order, as
+    XLA's CPU ``segment_sum`` is)."""
+    out = torch.zeros((n_cols, *flat.shape[1:]), dtype=flat.dtype,
+                      device=flat.device)
+    return out.index_add_(0, cols.reshape(-1).long(), flat)
+
+
+def csr_rmatvec_ref(data: torch.Tensor, indices: torch.Tensor,
+                    row_ids: torch.Tensor, y: torch.Tensor,
+                    n_cols: int) -> torch.Tensor:
+    """CSR z = A^T y by the swapped gather: read y along rows, add into
+    columns.  The reference has no kernel for CSR either: this is its
+    implementation on every device.  ``y``: (n_rows,) or (n_rows, k)."""
+    csr_rmatvec_ref.calls += 1
+    dt = acc_dtype(data.dtype, y.dtype)
+    yg = y[row_ids].to(dt)                       # (nnz,) or (nnz, k)
+    d = data.to(dt)
+    contrib = yg * (d[:, None] if yg.dim() == 2 else d)
+    return _scatter_cols(contrib, indices, n_cols)
+
+
+def ell_rmatvec_ref(val: torch.Tensor, col_idx: torch.Tensor,
+                    rowlen: torch.Tensor, y: torch.Tensor,
+                    n_cols: int) -> torch.Tensor:
+    """ELLPACK-R z = A^T y: every slot below its row's ``rowlen`` adds
+    ``val * y[row]`` into its column.  ``y``: (n_pad,) or (n_pad, k) in
+    the ORIGINAL row order, padded rows zero; returns (n_cols[, k])."""
+    ell_rmatvec_ref.calls += 1
+    dt = acc_dtype(val.dtype, y.dtype)
+    j = torch.arange(val.shape[0], device=val.device)[:, None]
+    v = val.to(dt).masked_fill(~(j < rowlen[None, :]), 0)
+    yd = y.to(dt)
+    contrib = v[..., None] * yd[None] if y.dim() == 2 else v * yd[None, :]
+    return _scatter_cols(contrib.reshape(-1, *contrib.shape[2:]), col_idx,
+                         n_cols)
+
+
+def blocked_rmatvec_ref(val: torch.Tensor, col_idx: torch.Tensor,
+                        row_block: torch.Tensor, y: torch.Tensor,
+                        n_cols: int) -> torch.Tensor:
+    """pJDS / SELL z = A^T y: each slot reads y at its stored row
+    (``row_block * b_r + lane``) and adds into its column.  ``y``:
+    (n_rows_pad,) or (n_rows_pad, k) in the STORAGE (sorted) basis;
+    returns (n_cols[, k])."""
+    blocked_rmatvec_ref.calls += 1
+    b_r = val.shape[1]
+    dt = acc_dtype(val.dtype, y.dtype)
+    rows = (row_block.long()[:, None] * b_r
+            + torch.arange(b_r, device=val.device)[None, :])
+    yg = y[rows].to(dt)                          # (total_jds, b_r[, k])
+    v = val.to(dt)
+    contrib = yg * (v[..., None] if yg.dim() == 3 else v)
+    return _scatter_cols(contrib.reshape(-1, *contrib.shape[2:]), col_idx,
+                         n_cols)
+
+
+def cmrs_rmatvec_ref(val: torch.Tensor, col_idx: torch.Tensor,
+                     row_in_strip: torch.Tensor, strip_map: torch.Tensor,
+                     y: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """CMRS z = A^T y: each slot reads y at its global row
+    (``strip_map * b_r + row_in_strip``) and adds into its column.
+    ``y``: (n_strips * b_r,) or (n_strips * b_r, k) in the ORIGINAL row
+    order; returns (n_cols[, k])."""
+    cmrs_rmatvec_ref.calls += 1
+    b_r = val.shape[1]
+    dt = acc_dtype(val.dtype, y.dtype)
+    rows = strip_map[:, None].long() * b_r + row_in_strip.long()
+    yg = y[rows].to(dt)                          # (total_su, b_r[, k])
+    v = val.to(dt)
+    contrib = yg * (v[..., None] if yg.dim() == 3 else v)
+    return _scatter_cols(contrib.reshape(-1, *contrib.shape[2:]), col_idx,
+                         n_cols)
 
 
 # ---- the fused Krylov loop: scalar step and vector updates -------------
@@ -400,7 +485,9 @@ def partial_reduce_epilogue(y_sorted: torch.Tensor, own_pos: torch.Tensor,
 
 _COUNTED = (pjds_matvec_ref, pjds_matmat_ref, sell_matvec_ref,
             fused_matvec_dots_ref, csr_matvec_ref, ell_matvec_ref,
-            cmrs_matvec_ref, krylov_step_ref, krylov_update_ref)
+            cmrs_matvec_ref, krylov_step_ref, krylov_update_ref,
+            csr_rmatvec_ref, ell_rmatvec_ref, blocked_rmatvec_ref,
+            cmrs_rmatvec_ref)
 
 
 def reset_calls() -> None:

@@ -458,8 +458,7 @@ def test_operator_errors():
         op.matvec(torch.zeros(plan.n_global_pad))
     with pytest.raises(ValueError, match="grid"):
         dist_operator(plan, c, grid=(1, 2), device="cpu")
-    for kw, item in (({"tune": "auto"}, "1.20"), ({"tune": "force"}, "1.20"),
-                     ({"reorder": "rcm"}, "1.10")):
+    for kw, item in (({"tune": "auto"}, "1.20"), ({"tune": "force"}, "1.20")):
         with pytest.raises(NotImplementedError, match=item):
             dist_operator(M323, c, device="cpu", **kw)
     with pytest.raises(ValueError, match="tune"):

@@ -284,10 +284,19 @@ def test_composed_cg_accepts_x0():
     (dict(tune="off", fallback="off", reorder="auto"), "RCM"),
 ])
 def test_unported_options_raise(kw, item):
+    """``reorder`` raised ``NotImplementedError`` until RCM was ported:
+    now the solve runs, and a forced RCM gives the unreordered x within
+    the solve's tolerance."""
     tm = TM.poisson_2d(8, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-        repro_torch.solve(tm, np.ones(tm.n_rows), device="cpu", **kw)
-    assert item in str(e.value)
+    b = np.ones(tm.n_rows)
+    res = repro_torch.solve(tm, b, device="cpu", **kw)
+    forced = repro_torch.solve(tm, b, device="cpu",
+                               **{**kw, "reorder": "rcm"})
+    plain = repro_torch.solve(tm, b, device="cpu", tune="off",
+                              fallback="off")
+    assert res.status == forced.status == plain.status == "converged"
+    np.testing.assert_allclose(forced.x.numpy(), plain.x.numpy(),
+                               rtol=1e-4, atol=1e-4)
 
 
 def _rhs_block(n, k, seed=0):
