@@ -48,13 +48,18 @@ The sixth slice runs last (``slice6_phases``): ``transpose:samg`` is
 ``op.T @ y`` and ``op.T @ Y`` through K7 for pJDS, SELL, ELLPACK-R and
 CMRS on sAMG (against the plain version, scipy's float64 A^T y and the
 host's plain version bit for bit; beside the forward kernel on
-``transpose="device"``'s operand and cuSPARSE on a CSR of A^T),
-``grad:samg`` gradients and tangents through the CMRS operator and the
-x-gradient of four ``ThreadComm`` ranks, ``reorder:poisson_shuffled``
-RCM on a shuffled 2048 x 2048 Poisson operator (one device, and four
-ranks with ``reorder="auto"``), and ``eigen:hmep`` Lanczos, power
-iteration and block Lanczos on the symmetrised HMEp analogue at its
-published 6.2 M rows.
+``transpose="device"``'s operand and cuSPARSE on a CSR of A^T; with
+K7's mode, index bytes and build times, ``op.T @ y`` less K7 and k = 4
+against k = 1), ``grad:samg`` gradients and tangents through the CMRS
+operator (a training step's ``with_values`` timed with its K7 index
+shared; the x-gradient's backward split into K7, the copy of y, the
+``w * g`` pass and an unattributed remainder, beside a
+``torch.profiler`` trace of it) and the x-gradient of four
+``ThreadComm`` ranks, ``reorder:poisson_shuffled`` RCM on a shuffled
+2048 x 2048 Poisson operator (one device, and four ranks with
+``reorder="auto"``), and ``eigen:hmep`` Lanczos, power iteration and
+block Lanczos on the symmetrised HMEp analogue at its published 6.2 M
+rows.
 Each main-path phase sets every launch count to 0 before it and reads
 the counts after it.  Each phase prints one JSON line; any failed check
 raises, and the script then exits non-zero without its final line.
@@ -523,6 +528,41 @@ def dist_phases(h) -> dict:
     return {"launches": launches, "worst_rel_err_vs_plain": worst}
 
 
+def x_backward_trace(step, n=10, top=12) -> dict:
+    """``torch.profiler``'s host and device times of ``n`` calls of
+    ``step`` (forward plus backward), per call: the operators with the
+    most host time, and the totals.  The profiler's own cost inflates
+    the host times; their shares are what this reads."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    row = lambda e: {"name": e.key, "count": e.count / n,
+                     "host_ms": e.self_cpu_time_total / 1e3 / n,
+                     "device_ms": dev_us(e) / 1e3 / n}
+    by_host = sorted(ev, key=lambda e: e.self_cpu_time_total, reverse=True)
+    # device time once: the kernels' own rows (an operator's row repeats
+    # the time of the kernels it launched)
+    kernels = [e for e in ev if e.self_cpu_time_total == 0 and dev_us(e)]
+    by_dev = sorted(kernels, key=dev_us, reverse=True)
+    return {"calls": n,
+            "host_ms": sum(e.self_cpu_time_total for e in ev) / 1e3 / n,
+            "device_ms": sum(dev_us(e) for e in kernels) / 1e3 / n,
+            "top_by_host": [row(e) for e in by_host[:top]],
+            "top_by_device": [row(e) for e in by_dev[:top // 2]]}
+
+
 def slice6_phases(h) -> dict:
     """Transposes, gradients, RCM preprocessing and the eigensolvers on
     the card: ``transpose:samg`` (``op.T @ y`` through K7 for pJDS,
@@ -549,6 +589,7 @@ def slice6_phases(h) -> dict:
     from repro_torch.core import solvers as S
     from repro_torch.core.dist_comm import ThreadComm, run_ranks
     from repro_torch.kernels import ref as R
+    from repro_torch.kernels import transpose_spmv as K7
     from repro_torch.kernels.transpose_spmv import \
         transpose_matvec_kernel_call as k7
 
@@ -586,34 +627,45 @@ def slice6_phases(h) -> dict:
     del at_csr
 
     def stored(sd):
-        """(y in the stored rows' basis, K7's layout keywords, the plain
-        version on tensors ``(val, col, ..., y)``) of operand ``sd``."""
+        """(y in the stored rows' basis -- padded, or scattered to the
+        sorted rows -- for the plain version, the plain version on
+        tensors ``(val, col, ..., y)``, and the layout metadata bytes of
+        the first K7's bound) of operand ``sd``."""
         d = sd.dev
         if sd.fmt in ("sell", "pjds"):
             return (sd._scatter_to_storage(y, d.n_rows_pad),
-                    dict(base=d.row_block, width=d.b_r),
                     lambda t, v: R.blocked_rmatvec_ref(
-                        t["val"], t["col_idx"], t["row_block"], v, n))
+                        t["val"], t["col_idx"], t["row_block"], v, n),
+                    d.row_block.numel() * 4)
         yp = sd._pad_rows(y, d.n_rows_pad)
         if sd.fmt == "ellpack_r":
-            return (yp, dict(width=d.n_rows_pad),
-                    lambda t, v: R.ell_rmatvec_ref(
-                        t["val"], t["col_idx"], t["rowlen"], v, n))
-        return (yp, dict(base=d.strip_map, width=d.b_r,
-                         row_in_strip=d.row_in_strip),
-                lambda t, v: R.cmrs_rmatvec_ref(
+            return (yp, lambda t, v: R.ell_rmatvec_ref(
+                        t["val"], t["col_idx"], t["rowlen"], v, n), 0)
+        return (yp, lambda t, v: R.cmrs_rmatvec_ref(
                     t["val"], t["col_idx"], t["row_in_strip"],
-                    t["strip_map"], v, n))
+                    t["strip_map"], v, n),
+                d.strip_map.numel() * 4 + int(sd.slot_index()[0].numel()))
+
+    def timed_build(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def nbytes(*ts):
+        return sum(t.untyped_storage().nbytes() for t in ts if t is not None)
 
     per_fmt, worst = {}, (0.0, 0.0)
     for fmt, op in (("pjds", h.op_p), ("sell", h.op_s),
                     ("ellpack_r", h.op_e), ("cmrs", h.op_c)):
         sd, d = op.dev, op.dev.dev
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        slot, colptr = sd.slot_index()
-        torch.cuda.synchronize()
-        t_index = time.perf_counter() - t0
+        (slot, colptr), t_index = timed_build(sd.slot_index)
+        rows, t_rows = timed_build(sd.slot_rows)
+        plan1, t_plan1 = timed_build(lambda: sd.tile_plan(1))
+        plan4, t_plan4 = timed_build(lambda: sd.tile_plan(4))
+        mode = {k: "staged" if K7.staged(k) else "walked" for k in (1, 4)}
+        width = d.n_rows_pad if fmt == "ellpack_r" else d.b_r
         h.reset_counts()
         z = op.T @ y
         exact(counted(f"transpose:samg:{fmt}"), {"transpose_spmv": 1},
@@ -621,13 +673,14 @@ def slice6_phases(h) -> dict:
         k7_launches += 1
         require(torch.equal(z, op.T @ y),
                 f"transpose:samg:{fmt}: K7 does not repeat bit for bit")
-        ys, layout, plain = stored(sd)
+        ys, plain, meta = stored(sd)
         tens = {f: getattr(d, f) for f in ("val", "col_idx", "row_block",
                                            "rowlen", "row_in_strip",
                                            "strip_map") if hasattr(d, f)}
-        run_k7 = lambda: k7(d.val, slot, colptr, ys, n_rows=ys.shape[0],
-                            **layout)
-        z_k = run_k7()
+        run_k7 = lambda v: k7(d.val, slot, colptr, v, n_rows=n, width=width,
+                              rows=rows, plan=plan1 if v.dim() == 1
+                              else plan4, longest=sd.longest_column())
+        z_k = run_k7(y)
         require(torch.equal(z_k, z), f"transpose:samg:{fmt}: op.T @ y is "
                 f"not K7's z")
         e_abs, e_rel = h.rel_err(z_k, plain(tens, ys))
@@ -640,10 +693,11 @@ def slice6_phases(h) -> dict:
                 f"transpose:samg:{fmt}: bad output")
         if e_rel > worst[1]:
             worst = (e_abs, e_rel)
-        # the plain version on the host: the slot order XLA's CPU
-        # segment_sum adds in (reported, not required)
+        # the plain version on the host adds in the slot order XLA's CPU
+        # segment_sum adds in: K7 must give its bits
         z_cpu = plain({f: t.cpu() for f, t in tens.items()}, ys.cpu())
-        same_cpu = bool(torch.equal(z_k.cpu(), z_cpu))
+        require(torch.equal(z_k.cpu(), z_cpu), f"transpose:samg:{fmt}: K7 "
+                f"is not the host plain version bit for bit")
         # a block of right-hand sides, k = 4
         h.reset_counts()
         Z = op.T @ Y4
@@ -653,6 +707,8 @@ def slice6_phases(h) -> dict:
         _, sk_rel = h.rel_err(Z, Z64)
         require(sk_rel <= h.SCIPY_TOL, f"transpose:samg:{fmt} k=4 vs scipy "
                 f"f64: {sk_rel}")
+        require(torch.equal(Z, op.T @ Y4), f"transpose:samg:{fmt} k=4: K7 "
+                f"does not repeat bit for bit")
         # transpose="device": A^T's operand through the forward kernel
         t0 = time.perf_counter()
         op_td = repro_torch.operator(m, fmt, transpose="device", device=dev)
@@ -670,39 +726,66 @@ def slice6_phases(h) -> dict:
                        for t in vars(op_td.t_dev.dev).values()
                        if isinstance(t, torch.Tensor))
         del op_td, z_td, t_vals
-        k_ms = time_ms(run_k7)
-        single_ms = time_ms(run_k7, burst=1)[0]
+        k_ms = time_ms(lambda: run_k7(y))
+        k4_kernel_ms = time_ms(lambda: run_k7(Y4))
+        single_ms = time_ms(lambda: run_k7(y), burst=1)[0]
         p_ms = time_ms(lambda: plain(tens, ys), reps=20, warm=2, burst=1)[0]
         op_ms = time_ms(lambda: op.T @ y)[0]
         k4_ms = time_ms(lambda: op.T @ Y4)[0]
         nnz = slot.numel()
-        meta = (0 if "base" not in layout else layout["base"].numel() * 4) \
-            + (nnz if "row_in_strip" in layout else 0)
-        nbytes = float(nnz * (4 + d.val.element_size()) + 4 * (n + 1)
-                       + 4 * ys.shape[0] + 4 * n + meta)
-        index_bytes = slot.numel() * 4 + colptr.numel() * 4
+        # the first K7's bound: the slot index, values, column pointer, y
+        # at the stored row count, z and the layout's metadata; the
+        # stored rows and the plan are reported beside it, not folded in
+        nbytes_ = float(nnz * (4 + d.val.element_size()) + 4 * (n + 1)
+                        + 4 * d.n_rows_pad + 4 * n + meta)
+        extra = float(0 if rows is None else 4 * nnz)
+        index_bytes = nbytes(slot, colptr)
         fwd_bytes = sum(t.numel() * t.element_size()
                         for t in vars(d).values()
                         if isinstance(t, torch.Tensor))
         per_fmt[fmt] = {
             "k7_ms": k_ms[0], "k7_ms_q25_q75": list(k_ms[1:]),
             "k7_launch_ms": single_ms,
+            "k7_k4_ms": k4_kernel_ms[0],
+            "k7_k4_ms_q25_q75": list(k4_kernel_ms[1:]),
+            "k4_over_k1": k4_kernel_ms[0] / k_ms[0],
             "operator_T_ms": op_ms, "operator_T_k4_ms": k4_ms,
-            "plain_ms": p_ms, "bytes": nbytes,
-            "bound_ms": 1e3 * nbytes / h.HBM,
-            "share_of_bound": 1e3 * nbytes / h.HBM / k_ms[0],
+            "operator_T_minus_k7_ms": op_ms - k_ms[0],
+            "operator_T_k4_minus_k7_ms": k4_ms - k4_kernel_ms[0],
+            "plain_ms": p_ms, "bytes": nbytes_,
+            "bound_ms": 1e3 * nbytes_ / h.HBM,
+            "share_of_bound": 1e3 * nbytes_ / h.HBM / k_ms[0],
+            "stored_rows_bytes": extra,
+            "bound_with_stored_rows_ms": 1e3 * (nbytes_ + extra) / h.HBM,
             "max_abs_err_vs_plain": e_abs, "max_rel_err_vs_plain": e_rel,
             "max_rel_err_vs_scipy_f64": s_rel, "k4_rel_err_vs_scipy_f64":
-            sk_rel, "bit_equal_to_cpu_plain": same_cpu,
+            sk_rel, "bit_equal_to_cpu_plain": True,
             "slot_index_build_s": t_index, "slot_index_bytes": index_bytes,
             "slot_index_bytes_per_nnz": index_bytes / nnz,
+            "slot_rows_build_s": t_rows,
+            "slot_rows_bytes": nbytes(rows),
+            "slot_rows_bytes_per_nnz": nbytes(rows) / nnz,
+            "mode": {f"k={k}": v for k, v in mode.items()},
+            "tile_slots": {f"k={k}": K7.tile_slots(k) for k in mode},
+            "buffer_slots": {f"k={k}": K7.buffer_slots(
+                k, sd.longest_column()) for k in mode},
+            "longest_column": sd.longest_column(),
+            "tile_plan_build_s": {"k=1": t_plan1, "k=4": t_plan4},
+            "tile_plan_bytes": {"k=1": nbytes(plan1), "k=4": nbytes(plan4)},
+            "tiles": {"k=1": plan1.numel() - 1, "k=4": plan4.numel() - 1},
+            "index_bytes_per_nnz_total": nbytes(
+                slot, colptr, rows, *{id(q): q for q in (plan1, plan4)}
+                .values()) / nnz,
             "operand_bytes": fwd_bytes,
             "transpose_device_build_s": t_tdev,
             "transpose_device_ms": td_ms,
             "transpose_device_bytes": td_bytes,
             "transpose_device_rel_err_vs_scipy_f64": td_rel}
     emit("transpose:samg", n_rows=n, nnz=m.nnz, library_ms=lib_ms,
-         library_call="torch.mv(csr of A^T, y)", per_format=per_fmt)
+         library_call="torch.mv(csr of A^T, y)",
+         tile_bytes=K7.TILE_BYTES, stage_cols=K7.STAGE_COLS,
+         long_slots=K7.LONG_SLOTS, tile_cols=K7.TILE_COLS,
+         per_format=per_fmt)
     k7_rec = {"name": "transpose_spmv", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/transpose_spmv.cu",
               "replaces": "src/repro/kernels/ref.py:108",
@@ -759,13 +842,39 @@ def slice6_phases(h) -> dict:
     # times: the product alone, recorded for autograd, and forward plus
     # backward (both gradients; the x-gradient alone)
     op_v = op.with_values(v)
+    require(op_v.dev.slot_index() is op.dev.slot_index(),
+            "grad:samg: new values on the same non-zeros rebuilt K7's index")
     fwd = time_ms(lambda: op @ x)
     fwd_b = time_ms(lambda: op_v @ xg, reps=20)
     fb = time_ms(lambda: torch.autograd.grad((w * (op_v @ xg)).sum(),
                                              (v, xg)), reps=20)
+    # a training step's with_values: a new operand each step, which
+    # compares its padding mask with the base's and shares K7's arrays
+    fb_step = time_ms(lambda: torch.autograd.grad(
+        (w * (op.with_values(v) @ xg)).sum(), (v, xg)), reps=20)
+    with_values_ms = time_ms(lambda: op.with_values(v), reps=20)
+    with_values_index_ms = time_ms(
+        lambda: op.with_values(v).dev.slot_index(), reps=20)
     fbx = time_ms(lambda: torch.autograd.grad((w * (op @ xg)).sum(), xg),
                   reps=20)
     del op_v
+    # the x-gradient's backward in pieces, each timed with CUDA events in
+    # this call: its recorded forward, K7 alone, op.T @ w (K7 plus what
+    # the operator does around it: before this slice, a copy of y), the
+    # w * g pass of the product's backward; what is left is a remainder
+    # of medians timed apart, attributed by no measurement (the host
+    # trace below lists the operators the backward runs)
+    fwd_x = time_ms(lambda: (w * (op @ xg)).sum(), reps=20)
+    ones = torch.ones_like(w)
+    mul_ms = time_ms(lambda: w * ones)[0]
+    k7_c, op_t_c = per_fmt[op.fmt]["k7_ms"], per_fmt[op.fmt]["operator_T_ms"]
+    bwd_x = fbx[0] - fwd_x[0]
+    x_split = {"forward_recorded_ms": fwd_x[0], "backward_ms": bwd_x,
+               "k7_ms": k7_c, "copy_and_dispatch_ms": op_t_c - k7_c,
+               "w_times_g_ms": mul_ms,
+               "unattributed_ms": bwd_x - op_t_c - mul_ms}
+    x_trace = x_backward_trace(
+        lambda: torch.autograd.grad((w * (op @ xg)).sum(), xg))
     # four ranks as threads: the x-gradient through the transpose
     # partition, against the single-device one
     comms = ThreadComm.create(4, dev)
@@ -801,6 +910,13 @@ def slice6_phases(h) -> dict:
          forward_recorded_ms=fwd_b[0], forward_backward_ms=fb[0],
          forward_backward_ms_q25_q75=list(fb[1:]),
          forward_backward_x_only_ms=fbx[0],
+         forward_backward_x_only_ms_q25_q75=list(fbx[1:]),
+         forward_backward_with_values_each_step_ms=fb_step[0],
+         forward_backward_with_values_each_step_ms_q25_q75=list(
+             fb_step[1:]),
+         with_values_ms=with_values_ms[0],
+         with_values_and_shared_index_ms=with_values_index_ms[0],
+         x_only_split=x_split, x_only_host_trace=x_trace,
          backward_over_forward=(fb[0] - fwd_b[0]) / fwd[0],
          dist={"ranks": 4, "comm": "ThreadComm on one card",
                "partition_s": t_part, "rel_err_vs_single_device": gd_rel,

@@ -51,7 +51,8 @@ from .ellr_spmv import ell_matvec_kernel_call
 from .pjds_spmm import pjds_matmat_kernel_call
 from .pjds_spmv import pjds_matvec_kernel_call
 from .sell_spmv import sell_matvec_kernel_call, window_blocks
-from .transpose_spmv import (padding_mask, slot_index,
+from .transpose_spmv import (padding_mask, slot_index, slot_rows, staged,
+                             tile_plan, tile_slots,
                              transpose_matvec_kernel_call)
 
 __all__ = [
@@ -582,8 +583,19 @@ class SparseDevice:
     # stay in the ORIGINAL basis.  None: no preprocessing.
     pre_perm: Optional[torch.Tensor] = None
     pre_inv: Optional[torch.Tensor] = None
-    # K7's slot index (slot, colptr), built at the first transpose
+    # K7's slot index (slot, colptr), tile plans (by staging buffer, 0
+    # for the walked plan) and slot rows, built at the first transpose
     _slots: Optional[tuple] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _plans: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+    # the operand this one's values replaced (with_values): its K7
+    # arrays are shared where the padding masks agree
+    _base: Optional["SparseDevice"] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _longest: Optional[int] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _rows: Optional[torch.Tensor] = dataclasses.field(
         default=None, repr=False, compare=False)
 
     @property
@@ -720,10 +732,13 @@ class SparseDevice:
         """Z = A^T Y, original basis: (shape[0][, k]) -> (shape[1][, k]).
 
         pJDS, SELL, ELLPACK-R and CMRS run K7 on the card over the slot
-        index (:meth:`slot_index`) and their plain scatter versions on
-        the CPU; CSR swaps its gather and its segment ids on every
-        device.  A^T = P^T B^T P, so the transpose wears the forward's
-        sandwich (B = P A P^T is symmetric-permuted)."""
+        index (:meth:`slot_index`), its rows of y (:meth:`slot_rows`) and
+        a tile plan (:meth:`tile_plan`), with y as it is (unpadded,
+        pJDS / SELL unpermuted); on the CPU they run their plain scatter
+        versions on a padded (pJDS / SELL: scattered) y.  CSR swaps its
+        gather and its segment ids on every device.  A^T = P^T B^T P, so
+        the transpose wears the forward's sandwich (B = P A P^T is
+        symmetric-permuted)."""
         self._check_y(y)
         return self._out_of_stored(
             self._rmatmat_stored(self._into_stored(y[: self.n_rows]),
@@ -734,31 +749,29 @@ class SparseDevice:
         d = self.dev
         if self.fmt == "csr":
             return R.csr_rmatvec_ref(d.data, d.indices, d.row_ids, y, n_cols)
-        kernel = resolve_backend(y, backend) == "kernel"
+        if resolve_backend(y, backend) == "kernel":
+            # y as it is: K7 reads a row past y as 0, and ELLPACK-R's
+            # rows are the slots' positions; the others read each slot's
+            # row of y from the index (slot_rows)
+            slot, colptr = self.slot_index()
+            width = d.n_rows_pad if self.fmt == "ellpack_r" else d.b_r
+            k = 1 if y.dim() == 1 else y.shape[1]
+            return transpose_matvec_kernel_call(
+                d.val, slot, colptr, y, width=width, n_rows=y.shape[0],
+                rows=self.slot_rows(), plan=self.tile_plan(k),
+                longest=self.longest_column())
         if self.fmt in ("sell", "pjds"):
-            y_p = self._scatter_to_storage(y, d.n_rows_pad)
-            if kernel:
-                return self._k7(y_p, base=d.row_block, width=d.b_r)
-            return R.blocked_rmatvec_ref(d.val, d.col_idx, d.row_block, y_p,
-                                         n_cols)
+            return R.blocked_rmatvec_ref(
+                d.val, d.col_idx, d.row_block,
+                self._scatter_to_storage(y, d.n_rows_pad), n_cols)
         y_pad = self._pad_rows(y, d.n_rows_pad)
         if self.fmt == "ellpack_r":
-            if kernel:
-                return self._k7(y_pad, width=d.n_rows_pad)
             return R.ell_rmatvec_ref(d.val, d.col_idx, d.rowlen, y_pad,
                                      n_cols)
         if self.fmt == "cmrs":
-            if kernel:
-                return self._k7(y_pad, base=d.strip_map, width=d.b_r,
-                                row_in_strip=d.row_in_strip)
             return R.cmrs_rmatvec_ref(d.val, d.col_idx, d.row_in_strip,
                                       d.strip_map, y_pad, n_cols)
         raise ValueError(f"unknown format {self.fmt!r}")
-
-    def _k7(self, y: torch.Tensor, **layout) -> torch.Tensor:
-        slot, colptr = self.slot_index()
-        return transpose_matvec_kernel_call(self.dev.val, slot, colptr, y,
-                                            n_rows=y.shape[0], **layout)
 
     def slot_index(self) -> tuple:
         """K7's ``(slot, colptr)`` for this operand (not CSR): the flat
@@ -767,18 +780,65 @@ class SparseDevice:
         column pointer; built once on the operand's device
         (``transpose_spmv.slot_index``)."""
         if self._slots is None:
-            d = self.dev
-            if self.fmt == "ellpack_r":
-                j = torch.arange(d.val.shape[0], device=d.val.device)
-                real = j[:, None] < d.rowlen[None, :]
-            elif self.fmt == "cmrs":
-                real = padding_mask(d.val, d.col_idx, d.row_in_strip)
-            elif self.fmt in ("sell", "pjds"):
-                real = padding_mask(d.val, d.col_idx)
+            base, real = self._base, self._real()
+            if base is not None and torch.equal(base._real(), real):
+                self._slots, self._rows = base.slot_index(), base.slot_rows()
+                self._plans = base._plans
+                self._longest = base.longest_column()
             else:
-                raise ValueError(f"no slot index for format {self.fmt!r}")
-            self._slots = slot_index(d.val, d.col_idx, real, self.shape[1])
+                self._slots = slot_index(self.dev.val, self.dev.col_idx,
+                                         real, self.shape[1])
         return self._slots
+
+    def _real(self) -> torch.Tensor:
+        """The mask of the stored slots that hold more than padding
+        (ELLPACK-R: below ``rowlen``), which the slot index lists."""
+        d = self.dev
+        if self.fmt == "ellpack_r":
+            j = torch.arange(d.val.shape[0], device=d.val.device)
+            return j[:, None] < d.rowlen[None, :]
+        if self.fmt == "cmrs":
+            return padding_mask(d.val, d.col_idx, d.row_in_strip)
+        if self.fmt in ("sell", "pjds"):
+            return padding_mask(d.val, d.col_idx)
+        raise ValueError(f"no slot index for format {self.fmt!r}")
+
+    def slot_rows(self) -> Optional[torch.Tensor]:
+        """K7's row of y (original basis, -1 for padding) for each slot
+        of :meth:`slot_index` (``transpose_spmv.slot_rows``), built once;
+        None for ELLPACK-R, whose row is the slot's position."""
+        if self.fmt == "ellpack_r":
+            return None
+        slot = self.slot_index()[0]
+        if self._rows is None:
+            d = self.dev
+            if self.fmt == "cmrs":
+                self._rows = slot_rows(slot, self.n_rows, width=d.b_r,
+                                       base=d.strip_map,
+                                       row_in_strip=d.row_in_strip)
+            else:
+                self._rows = slot_rows(slot, self.n_rows, width=d.b_r,
+                                       base=d.row_block,
+                                       row_map=self.row_map())
+        return self._rows
+
+    def longest_column(self) -> int:
+        """The slot count of :meth:`slot_index`'s longest column (0 for
+        none), read once."""
+        if self._longest is None:
+            colptr = self.slot_index()[1]
+            self._longest = (int((colptr[1:] - colptr[:-1]).max())
+                             if colptr.numel() > 1 else 0)
+        return self._longest
+
+    def tile_plan(self, k: int = 1) -> torch.Tensor:
+        """K7's CTA tiles over :meth:`slot_index` for ``k`` right-hand
+        sides: staged or walked, as ``transpose_spmv.staged`` picks
+        (``transpose_spmv.tile_plan``); each built once and kept."""
+        slots = tile_slots(k) if staged(k) else 0
+        if slots not in self._plans:
+            self._plans[slots] = tile_plan(self.slot_index()[1], slots)
+        return self._plans[slots]
 
     def _pad_rows(self, y: torch.Tensor, n_pad: int) -> torch.Tensor:
         y = y[: self.n_rows]
@@ -797,8 +857,12 @@ class SparseDevice:
         """The same structure with the stored values replaced by ``val``
         (the stored value array's shape, on the operand's device).  The
         walk lengths are derived again from the new values (a slot that
-        was padding may now hold one), and the fused loops, the row map
-        and the slot index start empty."""
+        was padding may now hold one), and the fused loops and the row
+        map start empty.  K7's slot index, rows and plans depend on the
+        structure and on which slots hold more than padding: the new
+        operand shares this one's (or its base's) where that mask is the
+        same, as it is when a training step replaces the values of the
+        same non-zeros, and builds its own otherwise."""
         d = self.dev
         old = self.values
         if tuple(val.shape) != tuple(old.shape) or val.device != old.device:
@@ -819,7 +883,8 @@ class SparseDevice:
             inner = make(**{**fields, "val": val})
         return SparseDevice(fmt=self.fmt, shape=self.shape, dev=inner,
                             inv_perm=self.inv_perm, x_tiles=self.x_tiles,
-                            pre_perm=self.pre_perm, pre_inv=self.pre_inv)
+                            pre_perm=self.pre_perm, pre_inv=self.pre_inv,
+                            _base=self if self._base is None else self._base)
 
 
 # Conversion cache: host matrix -> device representation, keyed by the

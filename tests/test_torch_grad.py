@@ -271,17 +271,16 @@ def test_kernels_never_see_a_functorch_wrapper(fmt, monkeypatch):
         lambda val, col, ris, ss, snnz, x, *, n_strips, max_col:
         TR.cmrs_matvec_ref(val, col, ris, rb(ss, n_strips), x, n_strips)))
 
-    def k7(val, slot, colptr, y, *, width, n_rows, base=None,
-           row_in_strip=None):
+    def k7(val, slot, colptr, y, *, width, n_rows, rows=None, plan=None,
+           longest=None):
         p = slot.long()
-        d = p // width
-        r = (base.long()[d] * width if base is not None else 0) + (
-            row_in_strip.reshape(-1).long()[p] if row_in_strip is not None
-            else p % width)
+        r = rows.long() if rows is not None else p % width
+        ok = (r >= 0) & (r < n_rows)           # y reads 0 past its rows
         cols = torch.repeat_interleave(torch.arange(colptr.numel() - 1),
                                        (colptr[1:] - colptr[:-1]).long())
         z = torch.zeros(colptr.numel() - 1)
-        return z.index_add_(0, cols, val.reshape(-1)[p] * y[r])
+        return z.index_add_(0, cols, val.reshape(-1)[p]
+                            * torch.where(ok, y[torch.where(ok, r, 0)], 0))
 
     monkeypatch.setattr(TO, "transpose_matvec_kernel_call", plain(k7))
     op, _ = _pair(fmt)

@@ -19,6 +19,7 @@ from repro_torch.core import matrices as TM
 from repro_torch.core.operator import TransposeOperator
 from repro_torch.kernels import ops as TO
 from repro_torch.kernels import ref as TR
+from repro_torch.kernels import transpose_spmv as K7
 
 FORMATS = ["csr", "ellpack_r", "sell", "pjds", "cmrs"]
 BLOCKED = ["ellpack_r", "sell", "pjds", "cmrs"]
@@ -226,10 +227,22 @@ def test_plain_versions_match_reference_refs(k):
 
 
 # ------------------------------------------------- K7's index and walk
-def _k7_emulate(sd, y):
-    """K7's walk in numpy, from the slot index and the row formula of
-    ``csrc/transpose_spmv.cu``: each column adds ``val[slot] *
-    y[row(slot)]`` over its slots in index order, in float32."""
+def _k7_emulate(sd, y, slots=None, long_slots=None, rows=None, stage=None):
+    """K7 in numpy, as ``csrc/transpose_spmv.cu`` runs it: the CTAs of
+    the tile plan in turn, for each group of at most 8 right-hand sides.
+    Staged (``stage``: by default ``K7.staged``'s choice), a tile whose
+    slots fit the buffer of S slots x kg stages all its products there
+    and adds each column's from there in slot order; walked, a tile of
+    several columns is walked a column at a time, in rounds of U index
+    entries (from a multiple of 4 for k > 1), the products ``val[slot] *
+    y[row(slot)]`` of the column's own entries added in slot order in
+    float32; a tile of one column longer than S streams through the
+    buffer in chunks and is added in the same order.  ``long_slots``
+    replaces ``K7.LONG_SLOTS`` in a walked plan.  The row is read from
+    ``rows`` (one per slot of the index, original basis) or follows the layout
+    (``row_block`` / ``strip_map`` and ``row_in_strip``: the stored
+    basis, as the first K7 read it; ELLPACK-R's position), and y reads
+    as 0 at a row outside its own, so y may be unpadded."""
     d = sd.dev
     slot, colptr = (t.numpy() for t in sd.slot_index())
     val = d.val.float().numpy().reshape(-1)
@@ -241,15 +254,59 @@ def _k7_emulate(sd, y):
     else:
         base, ris = d.row_block.numpy(), None
     yk = y.reshape(y.shape[0], -1)
-    z = np.zeros((colptr.shape[0] - 1, yk.shape[1]), np.float32)
-    for c in range(z.shape[0]):
-        acc = np.zeros(yk.shape[1], np.float32)
-        for s in range(colptr[c], colptr[c + 1]):
-            p = int(slot[s])
-            r = (int(base[p // width]) * width if base is not None else 0) \
-                + (int(ris[p]) if ris is not None else p % width)
-            acc = (acc + np.float32(val[p]) * yk[r]).astype(np.float32)
-        z[c] = acc
+    k = yk.shape[1]
+    stage = K7.staged(k) if stage is None else stage
+    S = slots or K7.tile_slots(k)
+    keep = K7.LONG_SLOTS
+    try:
+        K7.LONG_SLOTS = keep if long_slots is None else long_slots
+        plan = K7.tile_plan(torch.from_numpy(colptr),
+                            S if stage else 0).numpy()
+    finally:
+        K7.LONG_SLOTS = keep
+    p = slot.astype(np.int64)
+    dd = p // width
+    r = (base[dd].astype(np.int64) * width if base is not None else 0) \
+        + (ris[p].astype(np.int64) if ris is not None else p - dd * width)
+    if rows is not None:
+        r = rows.numpy().astype(np.int64)
+    ok = (r >= 0) & (r < yk.shape[0])
+    yg = np.where(ok[:, None], yk[np.where(ok, r, 0)], np.float32(0))
+    prod = (val[p][:, None] * yg).astype(np.float32)      # (nnz, k)
+
+    def add(acc, rows):
+        for row in rows:
+            acc = (acc + row).astype(np.float32)
+        return acc
+
+    z = np.zeros((colptr.shape[0] - 1, k), np.float32)
+    U = 8 if k == 1 else 4                   # kUnroll's rounds
+    for j0 in range(0, k, K7.MAX_K_PER_CTA):
+        kg = min(k - j0, K7.MAX_K_PER_CTA)
+        buf = np.empty((S, kg), np.float32)
+        zero = np.zeros(kg, np.float32)
+        for c0, c1 in zip(plan[:-1], plan[1:]):
+            s0, s1 = colptr[c0], colptr[c1]
+            if c1 - c0 > 1 and (not stage or s1 - s0 > S):    # walked
+                for c in range(c0, c1):      # rounds of U entries
+                    a, b, acc = colptr[c], colptr[c + 1], zero
+                    for s in range(a if k == 1 else a & ~3, b, U):
+                        mine = [i for i in range(s, s + U) if a <= i < b]
+                        acc = add(acc, prod[mine, j0:j0 + kg])
+                    z[c, j0:j0 + kg] = acc
+                continue
+            if s1 - s0 <= S:                      # staged, summed by column
+                buf[: s1 - s0] = prod[s0:s1, j0:j0 + kg]
+                for c in range(c0, c1):
+                    z[c, j0:j0 + kg] = add(
+                        zero, buf[colptr[c] - s0:colptr[c + 1] - s0])
+                continue
+            acc = zero
+            for cs in range(s0, s1, S):            # one column, in chunks
+                ce = min(cs + S, s1)
+                buf[: ce - cs] = prod[cs:ce, j0:j0 + kg]
+                acc = add(acc, buf[: ce - cs])
+            z[c0, j0:j0 + kg] = acc
     return z.reshape((z.shape[0],) + y.shape[1:])
 
 
@@ -281,6 +338,7 @@ def test_slot_index_walk_equals_plain_version(name, fmt):
     key = cols * slot.numel() * 64 + slot.long()
     assert bool((key[1:] > key[:-1]).all())          # column, then slot
     assert sd.slot_index() is sd.slot_index()          # built once
+    assert K7._is_padded(slot)                          # aligned int4s
     rng = np.random.default_rng(12)
     for shape in ((tm.shape[0],), (tm.shape[0], 3)):
         y = rng.standard_normal(shape).astype(np.float32)
@@ -307,6 +365,212 @@ def test_slot_index_of_an_empty_column_and_an_empty_matrix():
                              device="cpu").dev.slot_index()
 
 
+def _plan_case(name):
+    """colptr of a named case, and the long-column limits to cut it at."""
+    if name == "empty_matrix":
+        return torch.zeros(41, dtype=torch.int32), (0, 128)
+    if name == "no_columns":
+        return torch.zeros(1, dtype=torch.int32), (0, 128)
+    if name == "empty_columns":
+        counts = np.zeros(3000, np.int64)
+        counts[::97] = 5
+    elif name == "power_law":                 # the longest column >> S
+        counts = np.clip(np.random.default_rng(3).zipf(1.5, 2000), 0, 5000)
+    else:                                     # sAMG's columns
+        sd = _build(_pair("samg")[0], "cmrs").dev
+        return sd.slot_index()[1], (4, 16, 128)
+    colptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return torch.from_numpy(colptr), (4, 16, 128)
+
+
+@pytest.mark.parametrize("name", ["samg", "power_law", "empty_columns",
+                                  "empty_matrix", "no_columns"])
+def test_tile_plan_cuts_whole_columns(name, monkeypatch):
+    """The walked plan: every column lies in exactly one tile; a column
+    longer than ``LONG_SLOTS`` is a tile of its own; the other tiles
+    hold at most ``TILE_COLS`` columns and start at a multiple of it or
+    beside a long column."""
+    colptr, limits = _plan_case(name)
+    n_cols = colptr.numel() - 1
+    lens = np.diff(colptr.long().numpy())
+    for long_slots in limits:
+        monkeypatch.setattr(K7, "LONG_SLOTS", long_slots)
+        plan = K7.tile_plan(colptr)
+        assert plan.dtype == torch.int32 and plan.dim() == 1
+        t = plan.long().numpy()
+        assert t[0] == 0 and t[-1] == n_cols
+        assert (np.diff(t) > 0).all()              # whole, disjoint, all
+        assert (np.diff(t) <= K7.TILE_COLS).all()
+        long_ = lens > long_slots
+        starts = set(t[:-1].tolist())
+        for c in np.flatnonzero(long_):
+            assert c in starts and c + 1 in set(t.tolist())
+        for c in t[1:-1]:
+            assert c % K7.TILE_COLS == 0 or long_[c] or long_[c - 1]
+        if name == "power_law":
+            assert long_.any() and lens.max() > K7.tile_slots(1)
+    with pytest.raises(ValueError, match="plan buffer"):
+        K7.tile_plan(colptr, -1)
+
+
+@pytest.mark.parametrize("slots", [16, 256, 4096])
+@pytest.mark.parametrize("name", ["samg", "power_law", "empty_columns",
+                                  "empty_matrix", "no_columns"])
+def test_staged_tile_plan_fits_the_buffer(name, slots):
+    """The staged plan of buffer S: every column lies in exactly one
+    tile; a tile of several columns holds at most S slots and at most
+    ``STAGE_COLS`` columns; a column longer than S / 2 is a tile of its
+    own (the power-law case has columns longer than S, which the kernel
+    streams in chunks)."""
+    colptr, _ = _plan_case(name)
+    n_cols = colptr.numel() - 1
+    cp = colptr.long().numpy()
+    plan = K7.tile_plan(colptr, slots)
+    assert plan.dtype == torch.int32 and plan.dim() == 1
+    t = plan.long().numpy()
+    assert t[0] == 0 and t[-1] == n_cols
+    assert (np.diff(t) > 0).all()                  # whole, disjoint, all
+    assert (np.diff(t) <= K7.STAGE_COLS).all()
+    for c0, c1 in zip(t[:-1], t[1:]):
+        if c1 - c0 > 1:
+            assert cp[c1] - cp[c0] <= slots
+    starts, ends = set(t[:-1].tolist()), set(t[1:].tolist())
+    for c in np.flatnonzero(np.diff(cp) > slots // 2):
+        assert c in starts and c + 1 in ends
+    if name == "power_law":
+        assert np.diff(cp).max() > slots
+    with pytest.raises(ValueError, match="plan buffer"):
+        K7.tile_plan(colptr, 1)
+
+
+def test_tile_slots_fill_the_buffer():
+    """The 16 KB buffer of a staged tile or a long column, in slots of
+    kg float32 products."""
+    assert [K7.tile_slots(k) for k in (1, 2, 4, 8, 32)] == \
+        [4096, 2048, 1024, 512, 512]
+    for k in (1, 3, 4, 8, 100):
+        kg = min(k, K7.MAX_K_PER_CTA)
+        assert K7.tile_slots(k) * kg * 4 <= K7.TILE_BYTES
+
+
+def test_buffer_only_where_a_launch_stages():
+    """A launch reserves the buffer where it stages: at k = 1, or where
+    a column is longer than ``LONG_SLOTS``; a walk-only launch none.
+    The operand reads its longest column once."""
+    L = K7.LONG_SLOTS
+    assert K7.buffer_slots(1, 0) == K7.tile_slots(1)
+    assert K7.buffer_slots(4, L) == 0 and K7.buffer_slots(11, 3) == 0
+    assert K7.buffer_slots(4, L + 1) == K7.tile_slots(4)
+    tm, _ = _pair("zipf")
+    sd = _build(tm, "cmrs").dev
+    longest = int(np.bincount(tm.indices, minlength=tm.shape[1]).max())
+    assert sd.longest_column() == longest and sd._longest == longest
+
+
+def test_staged_at_one_right_hand_side():
+    assert K7.staged(1)
+    assert not K7.staged(2) and not K7.staged(4) and not K7.staged(11)
+
+
+def _y_for(sd, rows, k, seed):
+    rng = np.random.default_rng(seed)
+    shape = (rows,) if k == 1 else (rows, k)
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fmt", BLOCKED)
+def test_k7_tiled_emulation_equals_plain_version(fmt, dtype, k):
+    """K7's tiles and chunks, as the kernel runs them on y as the
+    operator holds it (its rows from ``slot_rows``; ELLPACK-R's the
+    slots' positions), and on the padded (scattered) y of the layout's
+    own rows, give the plain version's z bit for bit, staged and walked:
+    with the default plans (staged tiles of 4096 slots; a thread per
+    column), with staged tiles of 16 slots that the power-law columns
+    stream through in chunks, and with a walked plan whose columns over
+    4 slots are staged through a buffer of 16."""
+    tm = TF.csr_from_dense(_zipf().T)                 # power-law columns
+    sd = _build(tm, fmt, dtype=dtype).dev
+    y = _y_for(sd, tm.shape[0], k, 21)
+    want = sd.rmatmat(torch.from_numpy(y)).numpy()
+    assert int(np.diff(sd.slot_index()[1].numpy()).max()) > 16
+    for stage, slots, long_slots in ((True, None, None), (True, 16, None),
+                                     (False, None, None), (False, 16, 4)):
+        got = _k7_emulate(sd, y, slots=slots, long_slots=long_slots,
+                          rows=sd.slot_rows(), stage=stage)
+        np.testing.assert_array_equal(got, want)
+        got = _k7_emulate(sd, _stored_y(sd, y), slots=slots,
+                          long_slots=long_slots, stage=stage)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("fmt", BLOCKED)
+def test_k7_emulation_in_groups_of_right_hand_sides(fmt):
+    """k = 11: a group of 8 right-hand sides and a narrower one."""
+    tm, _ = _pair("rect")
+    sd = _build(tm, fmt).dev
+    y = _y_for(sd, tm.shape[0], 11, 22)
+    want = sd.rmatmat(torch.from_numpy(y)).numpy()
+    np.testing.assert_array_equal(
+        _k7_emulate(sd, y, rows=sd.slot_rows()), want)
+
+
+@pytest.mark.parametrize("fmt", BLOCKED)
+def test_slot_rows_are_the_computed_rows(fmt):
+    """``slot_rows`` holds, for every slot of the index, the row of y the
+    layout gives it (original basis; -1 for a padded row), built once;
+    ELLPACK-R keeps none (its row is the slot's position)."""
+    tm, _ = _pair("zipf")
+    sd = _build(tm, fmt).dev
+    rows = sd.slot_rows()
+    if fmt == "ellpack_r":
+        assert rows is None
+        return
+    assert rows.dtype == torch.int32 and rows.shape == sd.slot_index()[0].shape
+    assert sd.slot_rows() is rows and K7._is_padded(rows)
+    d = sd.dev
+    p = sd.slot_index()[0].long()
+    if fmt == "cmrs":
+        want = (d.strip_map.long()[p // d.b_r] * d.b_r
+                + d.row_in_strip.reshape(-1).long()[p])
+    else:
+        want = sd.row_map().long()[d.row_block.long()[p // d.b_r] * d.b_r
+                                   + p % d.b_r]
+    want = torch.where((want >= 0) & (want < tm.shape[0]), want, -1)
+    assert torch.equal(rows.long(), want)
+    # every real slot of a real row of A maps to that row
+    cols = d.col_idx.reshape(-1).long()[p]
+    a = np.zeros(tm.shape, np.float32)
+    r_np = rows.long().numpy()
+    keep = r_np >= 0
+    np.add.at(a, (r_np[keep], cols.numpy()[keep]),
+              d.val.reshape(-1).float().numpy()[p.numpy()][keep])
+    dense = np.zeros(tm.shape, np.float32)
+    rr = np.repeat(np.arange(tm.n_rows), tm.row_lengths())
+    dense[rr, tm.indices] = tm.data
+    np.testing.assert_array_equal(a, dense)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("fmt", BLOCKED)
+def test_k7_unpadded_y_gives_the_padded_z(fmt, k):
+    """y in the operator's own basis (unpadded; pJDS / SELL unpermuted,
+    through the slot rows) gives the z of the padded (scattered) y, bit
+    for bit, also where y is 0 or -0."""
+    tm, _ = _pair("int")
+    sd = _build(tm, fmt).dev
+    y = _y_for(sd, tm.shape[0], k, 23)
+    y[::7] = 0.0
+    y[1::7] = -0.0
+    padded = _k7_emulate(sd, _stored_y(sd, y))
+    np.testing.assert_array_equal(
+        _k7_emulate(sd, y, rows=sd.slot_rows()), padded)
+    np.testing.assert_array_equal(
+        padded, sd.rmatmat(torch.from_numpy(y)).numpy())
+    assert sd.tile_plan(k) is sd.tile_plan(k)            # kept
+
+
 def test_with_values_rebuilds_walks_and_slot_index():
     """A slot that was padding may hold a value after ``with_values``:
     the walk lengths and the slot index are derived again, so the
@@ -328,6 +592,39 @@ def test_with_values_rebuilds_walks_and_slot_index():
         assert op2.dev.slot_index()[0].numel() > op.dev.slot_index()[0].numel()
         with pytest.raises(ValueError, match="values"):
             op.with_values(torch.zeros(3))
+
+
+@pytest.mark.parametrize("fmt", BLOCKED)
+def test_with_values_shares_the_index_of_the_same_mask(fmt):
+    """New values on the same non-zeros (a training step) keep the
+    padding mask: the new operand shares the slot index, rows and plans
+    of the operand it came from (built once, by whichever transposes
+    first), and its transpose reads the new values.  A value in a slot
+    that was padding gives it its own index."""
+    tm, _ = _pair("zipf")
+    op = _build(tm, fmt)
+    v = op.values.clone()
+    v[op.values != 0] *= 2.0                 # exact: z doubles
+    y = torch.from_numpy(_y_for(op.dev, tm.shape[0], 1, 26))
+    op2 = op.with_values(v)
+    sd, sd2 = op.dev, op2.dev
+    slot, colptr = sd2.slot_index()                   # built on the base
+    assert sd.slot_index() is sd2.slot_index()
+    assert sd.slot_rows() is sd2.slot_rows()
+    assert sd2.tile_plan(1) is sd.tile_plan(1)
+    assert sd2._base is sd and op2.with_values(v).dev._base is sd
+    np.testing.assert_array_equal(
+        _k7_emulate(sd2, y.numpy(), rows=sd2.slot_rows()),
+        sd2.rmatmat(y).numpy())
+    np.testing.assert_array_equal(
+        sd2.rmatmat(y).numpy(), (2.0 * sd.rmatmat(y)).numpy())
+    if fmt == "ellpack_r":
+        return                        # the mask is the row lengths alone
+    w = op.values.clone()
+    w[(op.values == 0) & (op.dev.dev.col_idx == TF.PAD_COL)] = 1.0
+    sd3 = op.with_values(w).dev
+    assert sd3.slot_index()[0].numel() > slot.numel()
+    assert sd3.slot_index() is not sd.slot_index()
 
 
 # ------------------------------------------------------------ the card
@@ -387,13 +684,60 @@ def test_k7_refuses_bad_operands_on_card():
     tm = TM.samg(scale=0.001)
     sd = repro_torch.operator(tm, "pjds").dev
     slot, colptr = sd.slot_index()
-    y = torch.zeros(sd.dev.n_rows_pad, device="cuda")
+    rows = sd.slot_rows()
+    y = torch.zeros(tm.n_rows, device="cuda")
+    kw = dict(width=sd.dev.b_r, n_rows=tm.n_rows, rows=rows)
     with pytest.raises(ValueError, match="y must be"):
-        k7(sd.dev.val, slot, colptr, y[:-1], width=sd.dev.b_r,
-           n_rows=sd.dev.n_rows_pad, base=sd.dev.row_block)
+        k7(sd.dev.val, slot, colptr, y[:-1], **kw)
     with pytest.raises(ValueError, match="CUDA"):
-        k7(sd.dev.val, slot, colptr, y.cpu(), width=sd.dev.b_r,
-           n_rows=sd.dev.n_rows_pad, base=sd.dev.row_block)
+        k7(sd.dev.val, slot, colptr, y.cpu(), **kw)
     with pytest.raises(ValueError, match="int32"):
-        k7(sd.dev.val, slot.long(), colptr, y, width=sd.dev.b_r,
-           n_rows=sd.dev.n_rows_pad, base=sd.dev.row_block)
+        k7(sd.dev.val, slot.long(), colptr, y, **kw)
+    with pytest.raises(ValueError, match="plan"):
+        k7(sd.dev.val, slot, colptr, y, plan=sd.tile_plan().long(), **kw)
+    with pytest.raises(ValueError, match="rows must be"):
+        k7(sd.dev.val, slot, colptr, y, width=sd.dev.b_r, n_rows=tm.n_rows,
+           rows=rows[:-1])
+    with pytest.raises(ValueError, match="aligned"):
+        k7(sd.dev.val, slot.clone(), colptr, y, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", BLOCKED)
+def test_k7_long_columns_and_unpadded_y_on_card(fmt):
+    """Columns longer than the buffer stream through it in chunks: at
+    k = 1 staged tiles of 4096 slots, at k = 4 and 11 walked tiles whose
+    columns over ``LONG_SLOTS`` are staged through 1024 and 512 slots;
+    y is unpadded and unpermuted, its rows read from
+    the index (ELLPACK-R: the slots' positions); k = 1, 4 and 11 (two
+    groups of right-hand sides), all equal to the CPU plain version bit
+    for bit, through the operator and through the wrapper."""
+    _need_cuda()
+    from repro_torch.kernels.transpose_spmv import \
+        transpose_matvec_kernel_call as k7
+    rng = np.random.default_rng(24)
+    n_rows, n_cols = 12000, 3000
+    lens = np.clip(rng.zipf(1.6, n_cols), 1, n_rows)
+    lens[:4] = (n_rows, 5000, 1500, 200)
+    cols = np.repeat(np.arange(n_cols), lens)
+    rows = np.concatenate([rng.choice(n_rows, ln, replace=False)
+                           for ln in lens])
+    vals = rng.standard_normal(cols.size).astype(np.float32)
+    tm = TF.csr_from_coo(rows, cols, vals, (n_rows, n_cols))
+    op = repro_torch.operator(tm, fmt, b_r=32)
+    cpu = repro_torch.operator(tm, fmt, b_r=32, device="cpu")
+    sd = op.dev
+    for k in (1, 4, 11):
+        y = torch.from_numpy(_y_for(sd, n_rows, k, 25 + k))
+        k7.launches = 0
+        z = op.T @ y.cuda()
+        assert k7.launches == 1
+        assert torch.equal(z.cpu(), cpu.rmatmat(y))
+        assert torch.equal(z, op.T @ y.cuda())
+        # the kernel called directly, its tile plan built by the wrapper
+        slot, colptr = sd.slot_index()
+        d = sd.dev
+        width = d.n_rows_pad if fmt == "ellpack_r" else d.b_r
+        zp = k7(d.val, slot, colptr, y.cuda(), n_rows=n_rows, width=width,
+                rows=sd.slot_rows())
+        assert torch.equal(zp, z)
