@@ -1134,6 +1134,393 @@ def slice6_phases(h) -> dict:
     return {"k7": k7_rec, "launches": other}
 
 
+def slice7_phases(h) -> dict:
+    """The distributed tuner and solve serving on the card.
+
+    ``dist:tune:samg``: ``tune_partition(m, 4)`` on the sAMG matrix
+    without a communicator (the chunk sweep of the straggler's local
+    and remote operands, K1), then again: a cache hit with no launch.
+    ``dist:tune:sweep``: four ``ThreadComm`` ranks on the one card run
+    ``dist_operator(m, comm, tune="auto", grid="auto", halo="auto",
+    mode="auto")`` on ``samg(h.sweep_scale)`` -- the chunk sweeps of A
+    and A^T and the communication sweep over every candidate -- with
+    one pick on every rank and y against scipy; the link model is fit
+    to the sweep's rows, which on one card time the threads' hand-over,
+    not a link.  ``serve:samg``: an ``OperatorRegistry(tune="auto")``
+    with two tenants (sAMG and ``poisson_2d(h.poisson_side, ...)``),
+    seeded requests through ``SolveScheduler(slots=4)`` and again
+    through ``slots=1`` (one of them non-finite: rejected; one with an
+    expired deadline: shed; every other converged and checked against
+    scipy in float64), a warm admit in a second registry that measures
+    nothing, a value swap of the Poisson tenant through the value map,
+    and the block product ``op @ X`` (k = 4) of sAMG's tuned layout
+    beside a SELL admit of the same matrix (K5).  Returns the launches
+    these phases made."""
+    import dataclasses
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from repro_torch import tune as T
+    from repro_torch.core import matrices as TM
+    from repro_torch.core import perf_model as TPM
+    from repro_torch.core.dist_comm import ThreadComm, run_ranks
+    from repro_torch.core.operator import dist_operator
+    from repro_torch.serve import (OperatorRegistry, SolveRequest,
+                                   SolveScheduler)
+    from repro_torch.tune import measure as TME
+
+    dev, m, n, a64 = h.dev, h.m, h.m.n_rows, h.a64
+    require, emit, time_ms = h.require, h.emit, h.time_ms
+    launches = {}
+    tdir = tempfile.TemporaryDirectory(prefix="chip_smoke_slice7_")
+    tpath = pathlib.Path(tdir.name)
+
+    def counted(phase):
+        launched, plain_calls = h.counts()
+        h.plain_free(plain_calls, phase)
+        for k, v in launched.items():
+            launches[k] = launches.get(k, 0) + v
+        return {k: v for k, v in launched.items() if v}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def row_ms(r):
+        return {**{k: r[k] for k in r if k not in ("measured_s", "rank_s",
+                                                    "group")},
+                "ms": 1e3 * r["measured_s"],
+                **({"rank_ms": [1e3 * v for v in r["rank_s"]]}
+                   if "rank_s" in r else {})}
+
+    # ---- dist:tune:samg -- the chunk sweep at the paper's size --------
+    cache = T.TuneCache(tpath / "partition.json")
+    h.reset_counts()
+    t0 = time.perf_counter()
+    tp = T.tune_partition(m, 4, cache=cache, device=dev)
+    t_cold = time.perf_counter() - t0
+    launched_cold = counted("dist:tune:samg")
+    require(launched_cold.get("pjds_spmv", 0) >= 6 and not tp.cached,
+            f"dist:tune:samg: K1 not launched per candidate: "
+            f"{launched_cold}")
+    h.reset_counts()
+    t0 = time.perf_counter()
+    tp_hit = T.tune_partition(m, 4, cache=cache, device=dev)
+    t_hit = time.perf_counter() - t0
+    launched_hit = counted("dist:tune:samg hit")
+    require(tp_hit.cached and not launched_hit
+            and (tp_hit.chunk_l, tp_hit.rem_chunk_l)
+            == (tp.chunk_l, tp.rem_chunk_l),
+            f"dist:tune:samg: the second call measured: {launched_hit}")
+    emit("dist:tune:samg", n_rows=n, nnz=m.nnz, n_dev=4,
+         rows=[row_ms(r) for r in tp.rows],
+         picks={"chunk_l": tp.chunk_l, "rem_chunk_l": tp.rem_chunk_l},
+         seconds_cold=t_cold, host_s=tp.phase_s,
+         host_s_rest=t_cold - sum(tp.phase_s.values()),
+         seconds_hit=t_hit, launches_cold=launched_cold,
+         launches_hit=launched_hit)
+
+    # ---- dist:tune:sweep -- four ranks on the card, collective picks --
+    ms = TM.samg(scale=h.sweep_scale)
+    a_ms = sp.csr_matrix((ms.data, ms.indices, ms.indptr), shape=ms.shape)
+    rng = np.random.default_rng(h.seed + 7)
+    x_ms = rng.standard_normal(ms.n_rows).astype(np.float32)
+    y64 = a_ms @ x_ms.astype(np.float64)
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = str(tpath / "sweep.json")
+    comms = ThreadComm.create(4, dev)
+
+    def tuned(c):
+        t0 = time.perf_counter()
+        op = dist_operator(ms, c, tune="auto", grid="auto", halo="auto",
+                           mode="auto", device=dev)
+        t_op = time.perf_counter() - t0
+        y = op.gather_vector(op.matvec(op.shard_vector(x_ms)))
+        return op, t_op, y.cpu()
+
+    h.reset_counts()
+    out = run_ranks(comms, tuned)
+    launched_sweep = counted("dist:tune:sweep")
+    picks = [(o.mode, o.halo, o.dist.grid, o.dist.chunk_l,
+              o.dist.rem_chunk_l_eff, o.t_dist.chunk_l,
+              o.t_dist.rem_chunk_l_eff) for o, _, _ in out]
+    require(len(set(picks)) == 1, f"dist:tune:sweep: ranks differ {picks}")
+    require(all(o.dist is out[0][0].dist for o, _, _ in out),
+            "dist:tune:sweep: the ranks built different partitions")
+    err = float(np.abs(out[0][2].double().numpy()[:ms.n_rows] - y64).max()
+                / np.abs(y64).max())
+    require(err <= h.SCIPY_TOL, f"dist:tune:sweep: y vs scipy {err}")
+    require(launched_sweep.get("pjds_spmv", 0) >= 1,
+            f"dist:tune:sweep: K1 not launched: {launched_sweep}")
+    h.reset_counts()
+    recs = run_ranks(comms, lambda c: T.tune_partition(ms, 4, comm=c,
+                                                       device=dev))
+    launched_rec = counted("dist:tune:sweep record")
+    require(all(r.cached for r in recs) and not launched_rec,
+            f"dist:tune:sweep: the record's read measured: {launched_rec}")
+    comm_rows = [r for r in recs[0].rows if r["operand"] == "comm"]
+    require(len(comm_rows) == len(T.dist_candidates(4)),
+            "dist:tune:sweep: a candidate has no row")
+    win = min(comm_rows, key=lambda r: r["measured_s"])
+    op0 = out[0][0]
+    require((win["halo"], win["mode"],
+             tuple(win["grid"]) if win["grid"] else None)
+            == (op0.halo, op0.mode, op0.dist.grid),
+            "dist:tune:sweep: the operator does not run the measured pick")
+    cal = T.fit_link_calibration(comm_rows, source="one card, ThreadComm")
+    emit("dist:tune:sweep", n_rows=ms.n_rows, nnz=ms.nnz, ranks=4,
+         note="ThreadComm: four ranks as threads on one card, so no "
+              "message crosses a link; the fit times the hand-over "
+              "between threads, not a link",
+         pick={"mode": op0.mode, "halo": op0.halo, "grid": op0.dist.grid,
+               "chunk_l": op0.dist.chunk_l,
+               "rem_chunk_l": op0.dist.rem_chunk_l_eff,
+               "transpose_chunk_l": op0.t_dist.chunk_l,
+               "transpose_rem_chunk_l": op0.t_dist.rem_chunk_l_eff},
+         same_pick_all_ranks=True,
+         rows=[row_ms(r) for r in recs[0].rows],
+         dist_operator_s=[t for _, t, _ in out],
+         max_rel_err_vs_scipy_f64=err,
+         link_fit_one_card={
+             "msg_overhead_s": cal.msg_overhead_s,
+             "link_bw_scale": cal.link_bw_scale,
+             "link_model_error_before": T.link_model_error(comm_rows),
+             "link_model_error_after": T.link_model_error(comm_rows, cal)},
+         choose_halo_uncalibrated=TPM.choose_halo(
+             op0.dist, mode=op0.mode, calibration=None),
+         launches=launched_sweep)
+    del out, recs, comms
+
+    # ---- serve:samg -- two tenants, tuned admission, batched groups ----
+    spent = {"measure": 0, "ab_compare": 0}
+    undo = []
+    for attr, key in (("measure_candidate", "measure"),
+                      ("ab_compare", "ab_compare")):
+        orig = getattr(TME, attr)
+
+        def wrapped(*a, _orig=orig, _key=key, **kw):
+            spent[_key] += 1
+            return _orig(*a, **kw)
+        setattr(TME, attr, wrapped)
+        undo.append((attr, orig))
+    try:
+        mp = TM.poisson_2d(h.poisson_side, h.poisson_side)
+        a_p = sp.csr_matrix((mp.data, mp.indices, mp.indptr), shape=mp.shape)
+        scache = tpath / "serve.json"
+        reg = OperatorRegistry(tune="auto", cache=T.TuneCache(scache),
+                               device=dev)
+        admit_s, ents = {}, {}
+        h.reset_counts()
+        for name, mat in (("samg", m), ("poisson", mp)):
+            t0 = time.perf_counter()
+            ents[name] = reg.admit(mat)
+            sync()
+            admit_s[name] = time.perf_counter() - t0
+        counted("serve:samg admit")
+        cold_measure = dict(spent)
+        e_s, e_p = ents["samg"], ents["poisson"]
+        require(cold_measure["measure"] > 0
+                and not e_s.tune_info["cached"]
+                and not e_p.tune_info["cached"],
+                "serve:samg: the cold admit measured nothing")
+
+        tol, slack = h.serve_tol, 10.0
+        brng = np.random.default_rng(h.seed + 8)
+        plan = [("samg", e_s)] * (h.n_requests // 2) + \
+            [("poisson", e_p)] * (h.n_requests - h.n_requests // 2)
+        rhs = [brng.standard_normal(e.shape[0]).astype(np.float32)
+               for _, e in plan]
+        bad = brng.standard_normal(n).astype(np.float32)
+        bad[7] = np.nan
+
+        def serve(slots):
+            sched = SolveScheduler(reg, slots=slots, maxiter=h.maxiter,
+                                   tol=tol, cert_slack=slack)
+            reqs = [SolveRequest(rid=i, b=b, tenant=e.key)
+                    for i, ((_, e), b) in enumerate(zip(plan, rhs))]
+            rej = SolveRequest(rid=len(reqs), b=bad, tenant=e_s.key)
+            shed = SolveRequest(rid=len(reqs) + 1, b=rhs[0].copy(),
+                                tenant=e_s.key, deadline_s=0.0)
+            h.reset_counts()
+            t0 = time.perf_counter()
+            for r in reqs + [rej, shed]:
+                sched.submit(r)
+            ticks = sched.run_until_drained()
+            sync()
+            wall = time.perf_counter() - t0
+            launched = counted(f"serve:samg slots={slots}")
+            require(rej.status == "rejected",
+                    f"serve:samg: the non-finite request is {rej.status}")
+            require(shed.status == "shed",
+                    f"serve:samg: the expired request is {shed.status}")
+            sci = []
+            for (name, _), r in zip(plan, reqs):
+                require(r.status == "converged",
+                        f"serve:samg: request {r.rid} ({name}) is "
+                        f"{r.status}: {r.diagnostics.get('error')}")
+                a = a64 if name == "samg" else a_p
+                res = float(np.linalg.norm(a @ r.x.astype(np.float64)
+                                           - r.b.astype(np.float64))
+                            / np.linalg.norm(r.b.astype(np.float64)))
+                require(res <= tol * slack,
+                        f"serve:samg: request {r.rid} scipy residual {res}")
+                sci.append(res)
+            groups = {}
+            for (name, _), r in zip(plan, reqs):
+                d = r.diagnostics["serve"]
+                groups.setdefault((name, d["solve_s"]), (d["batch_k"],
+                                                         r.iters))
+            snap = sched.metrics.snapshot()
+            require(snap["counters"].get("error", 0) == 0,
+                    f"serve:samg: typed errors {snap['counters']}")
+            return reqs, {
+                "slots": slots, "requests": len(reqs), "ticks": ticks,
+                "wall_s": wall, "requests_per_s": len(reqs) / wall,
+                "groups": [{"tenant": k[0], "ms": 1e3 * k[1],
+                            "batch_k": v[0], "iters": v[1]}
+                           for k, v in groups.items()],
+                "p50_ms": 1e3 * snap["total_s"]["p50_s"],
+                "p99_ms": 1e3 * snap["total_s"]["p99_s"],
+                "solve_p50_ms": 1e3 * snap["solve_s"]["p50_s"],
+                "counters": snap["counters"],
+                "occupancy": snap["occupancy"],
+                "max_scipy_f64_residual": max(sci),
+                "launches": launched}
+
+        reqs4, batched = serve(4)
+        _, sequential = serve(1)
+
+        # where a group's time goes: the group solver's dispatch (staging
+        # the right-hand sides, the block-CG solve, the certification's
+        # product and norms on the host) beside the solve alone on
+        # right-hand sides already on the card
+        import repro_torch
+        split = {}
+        for name, e in (("samg", e_s), ("poisson", e_p)):
+            bs = [b for (nm, _), b in zip(plan, rhs) if nm == name]
+            for k in (1, 4):
+                solver = SolveScheduler(reg, slots=k, maxiter=h.maxiter,
+                                        tol=tol).solver_for(e)
+                batch = [SolveRequest(rid=i, b=b) for i, b in
+                         enumerate(bs[:k])]
+                B = torch.from_numpy(np.stack(bs[:k], 1)).to(dev)
+                h.reset_counts()
+                for _ in range(2):                  # the second is timed
+                    sync()
+                    t0 = time.perf_counter()
+                    solver.dispatch_impl(batch)
+                    t_disp = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    res = repro_torch.solve(e.op, B, method="block_cg",
+                                            maxiter=h.maxiter, tol=tol,
+                                            fallback="off")
+                    sync()
+                    t_solve = time.perf_counter() - t0
+                counted(f"serve:samg split {name} k={k}")
+                split[f"{name}:k={k}"] = {
+                    "dispatch_ms": 1e3 * t_disp, "solve_ms": 1e3 * t_solve,
+                    "host_staging_and_certify_ms": 1e3 * (t_disp - t_solve),
+                    "iters": res.iters, "host_syncs": res.info["host_syncs"],
+                    "solve_ms_per_iter": 1e3 * t_solve / max(res.iters, 1)}
+
+        # a warm admit: a second registry over the same cache file
+        before = dict(spent)
+        reg2 = OperatorRegistry(tune="auto", cache=T.TuneCache(scache),
+                                device=dev)
+        t0 = time.perf_counter()
+        w_s = reg2.admit(m)
+        w_p = reg2.admit(mp)
+        sync()
+        t_warm = time.perf_counter() - t0
+        warm_measure = {k: spent[k] - before[k] for k in spent}
+        require(not any(warm_measure.values())
+                and w_s.tune_info["cached"] and w_p.tune_info["cached"],
+                f"serve:samg: the warm admit measured {warm_measure}")
+        del reg2, w_s, w_p
+    finally:
+        for attr, orig in undo:
+            setattr(TME, attr, orig)
+
+    # a value swap of the Poisson tenant (under the exact-map limit)
+    mp2 = dataclasses.replace(mp, data=mp.data * 2.0)
+    h.reset_counts()
+    t0 = time.perf_counter()
+    reg.admit(mp2)
+    sync()
+    t_swap_first = time.perf_counter() - t0
+    mp3 = dataclasses.replace(mp, data=mp.data * 4.0)
+    t0 = time.perf_counter()
+    reg.admit(mp3)
+    sync()
+    t_swap = time.perf_counter() - t0
+    counted("serve:samg swap")
+    require(e_p.swaps == 2 and e_p._val_map is not None,
+            "serve:samg: the Poisson swap reconverted")
+    sched = SolveScheduler(reg, slots=4, maxiter=h.maxiter, tol=tol,
+                           cert_slack=slack)
+    old = [r for (name, _), r in zip(plan, reqs4) if name == "poisson"][:4]
+    new = [SolveRequest(rid=i, b=r.b, tenant=e_p.key)
+           for i, r in enumerate(old)]
+    for r in new:
+        sched.submit(r)
+    sched.run_until_drained()
+    a_p3 = sp.csr_matrix((mp3.data, mp3.indices, mp3.indptr),
+                         shape=mp3.shape)
+    swap_res, swap_ratio = [], []
+    for r, o in zip(new, old):
+        require(r.status == "converged",
+                f"serve:samg: swapped request {r.status}: "
+                f"{r.diagnostics.get('error')}")
+        res = float(np.linalg.norm(a_p3 @ r.x.astype(np.float64) - r.b)
+                    / np.linalg.norm(r.b))
+        require(res <= tol * slack, f"serve:samg: swapped residual {res}")
+        swap_res.append(res)
+        swap_ratio.append(float(np.abs(r.x * 4.0 - o.x).max()
+                                / np.abs(o.x).max()))
+    counted("serve:samg swapped solves")
+
+    # the block product of sAMG's tuned layout against a SELL admit (K5)
+    X4 = torch.from_numpy(np.random.default_rng(h.seed + 9).standard_normal(
+        (n, 4)).astype(np.float32)).to(dev)
+    Y64 = a64 @ X4.double().cpu().numpy()
+    reg_sell = OperatorRegistry(tune="off", device=dev)
+    e_sell = reg_sell.admit(m, format="sell")
+    block = {}
+    for name, op in (("tuned", e_s.op), ("sell", e_sell.op)):
+        h.reset_counts()
+        Y = op @ X4
+        launched = counted(f"serve:samg block {name}")
+        e_abs, e_rel = h.rel_err(Y, torch.from_numpy(Y64))
+        require(e_rel <= h.SCIPY_TOL,
+                f"serve:samg: block product ({name}) vs scipy {e_rel}")
+        t = time_ms(lambda op=op: op @ X4)
+        block[name] = {"format": op.fmt, "ms": t[0],
+                       "ms_q25_q75": [t[1], t[2]],
+                       "launches_per_call": launched,
+                       "max_rel_err_vs_scipy_f64": e_rel}
+    x1 = X4[:, 0].contiguous()
+    block["tuned"]["k1_ms"] = time_ms(lambda: e_s.op @ x1)[0]
+    block["tuned_over_sell"] = block["tuned"]["ms"] / block["sell"]["ms"]
+    emit("serve:samg", tenants={
+             "samg": {"n_rows": n, "nnz": m.nnz, "format": e_s.op.fmt,
+                      "tuned": e_s.tune_info, "admit_s": admit_s["samg"]},
+             "poisson": {"n_rows": mp.n_rows, "nnz": mp.nnz,
+                         "format": e_p.op.fmt, "tuned": e_p.tune_info,
+                         "admit_s": admit_s["poisson"]}},
+         tol=tol, cert_slack=slack, cold_admit_measurements=cold_measure,
+         batched=batched, sequential=sequential,
+         batched_over_sequential_rps=batched["requests_per_s"]
+         / sequential["requests_per_s"], group_time_split=split,
+         warm_admit={"seconds": t_warm, "measurements": warm_measure},
+         swap={"first_ms": 1e3 * t_swap_first, "ms": 1e3 * t_swap,
+               "map_entries": int(e_p._val_map.size),
+               "max_scipy_f64_residual": max(swap_res),
+               "max_rel_diff_x_times_4_vs_before": max(swap_ratio)},
+         block_rhs_k4=block)
+    tdir.cleanup()
+    return {"launches": launches}
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2452,6 +2839,19 @@ def main() -> int:
     record.append(s6["k7"])
     emit("time:transpose_spmv", **s6["k7"])
     emit("memory:slice6", max_allocated_gib=torch.cuda.max_memory_allocated()
+         / 2 ** 30, seconds_since_start=time.perf_counter() - t_start)
+
+    # ---- 10d. the distributed tuner and solve serving ------------------
+    s7 = slice7_phases(types.SimpleNamespace(
+        dev=dev, m=m, a64=a64, seed=SEED, require=require, emit=emit,
+        counts=counts, reset_counts=reset_counts, plain_free=plain_free,
+        rel_err=rel_err, time_ms=time_ms, SCIPY_TOL=SCIPY_TOL,
+        sweep_scale=0.05, poisson_side=512, n_requests=16, serve_tol=1e-5,
+        maxiter=5000))
+    for rec in record:
+        if s7["launches"].get(rec["name"]):
+            rec["launches_slice7"] = s7["launches"][rec["name"]]
+    emit("memory:slice7", max_allocated_gib=torch.cuda.max_memory_allocated()
          / 2 ** 30, seconds_since_start=time.perf_counter() - t_start)
 
     # ---- 11. the record, the card, the verdict ---------------------------

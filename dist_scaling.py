@@ -18,7 +18,16 @@ exchange (messages only, gathered and full), runs CG through
 ``repro_torch.solve`` (every rank the same status and iterations), and
 times the same product on rank 0's card alone (a one-rank group, the
 P = 1 baseline) in the same run, so the speedup compares one call's
-cards.  What one 1-entry message and one 1-entry ``all_reduce`` cost,
+cards.  The distributed tuner runs over the same four ranks
+(``tune.tune_partition(m, 4, comm=GroupComm())``: the chunk sweep on
+rank 0, then one timed product per communication candidate -- grid x
+halo x mode -- on every rank, the slowest rank's time deciding), and
+rank 0 fits the link model's per-message costs and rate to the sweep's
+rows (``tune.fit_link_calibration``, H100 spec), with
+``link_model_error`` before and after the fit and, per grid, the
+measured best halo flavour beside ``perf_model.choose_halo``'s pick
+with and without the fit.  What one 1-entry message and one 1-entry
+``all_reduce`` cost,
 and the host's time to launch a product and an exchange (calls back to
 back, no synchronisation), say whether the link or the host sets the
 pace, and a ``torch.profiler`` trace of 20 products (rank 0's printed)
@@ -154,7 +163,7 @@ def worker(rank: int, a: dict, store_path: str, out_dir: str) -> None:
                        "red_w": plan2.red_w,
                        "red_lens": list(plan2.red_lens),
                        "modes": run_modes(op2, plan2, "2x2")}
-        del op2, plan2
+        del op2
         # the pieces alone: the local K1, and the messages of one product
         sh = op.shard
         out["k1_local_ms"] = time_ms(lambda: ops.pjds_matvec(sh.loc, xl))
@@ -234,6 +243,43 @@ def worker(rank: int, a: dict, store_path: str, out_dir: str) -> None:
             "ops": [{"name": e.key, "calls_per_product": e.count / n_prof,
                      "self_host_us": e.self_cpu_time_total / n_prof,
                      "self_device_us": dev_us(e) / n_prof} for e in top]}
+        # the distributed tuner: the chunk sweep, the communication
+        # sweep over every candidate, and the link fit of its rows
+        from repro_torch import tune as T
+        barrier()
+        t0 = time.perf_counter()
+        tp = T.tune_partition(
+            m, p_ranks, comm=comm, device=dev,
+            cache=T.TuneCache(os.path.join(out_dir, "tune_cache.json")))
+        tune = {"seconds": time.perf_counter() - t0, "phase_s": tp.phase_s,
+                "picks": {"chunk_l": tp.chunk_l,
+                          "rem_chunk_l": tp.rem_chunk_l, "halo": tp.halo,
+                          "mode": tp.mode, "grid": tp.grid},
+                "rows": [{k: v for k, v in r.items() if k != "group"}
+                         for r in tp.rows]}
+        if rank == 0:
+            rows = [r for r in tp.rows if r["operand"] == "comm"]
+            cal = T.fit_link_calibration(rows, source="dist_scaling")
+            tune["link_fit"] = {
+                "msg_overhead_s": cal.msg_overhead_s,
+                "link_bw_scale": cal.link_bw_scale,
+                "link_model_error_before": T.link_model_error(rows),
+                "link_model_error_after": T.link_model_error(rows, cal)}
+            halo_picks = {}
+            for g, pl in ((None, plan), ((2, 2), plan2)):
+                mine = [r for r in rows
+                        if (tuple(r["grid"]) if r["grid"] else None) == g]
+                best = min(mine, key=lambda r: r["measured_s"])
+                halo_picks["1-D" if g is None else "2x2"] = {
+                    "measured_best": [best["halo"], best["mode"]],
+                    "choose_halo_uncalibrated": PM.choose_halo(
+                        pl, mode=best["mode"], calibration=None),
+                    "choose_halo_fitted": PM.choose_halo(
+                        pl, mode=best["mode"], calibration=cal)}
+            tune["halo_picks"] = halo_picks
+        out["tune"] = tune
+        del plan2
+
         # CG: every rank must end alike
         bl = op.shard_vector(b)
         barrier()
@@ -283,7 +329,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--backend", choices=("nccl", "gloo"), default="nccl")
-    ap.add_argument("--timeout", type=int, default=600)
+    ap.add_argument("--timeout", type=int, default=1500)
     a = ap.parse_args()
     import torch
     if a.backend == "nccl" and torch.cuda.device_count() < RANKS:
@@ -317,6 +363,8 @@ def main() -> int:
     fails = [f for r in ranks for f in r["fails"]]
     if len({(r["cg"]["status"], r["cg"]["iters"]) for r in ranks}) != 1:
         fails.append("the ranks' CG results differ")
+    if len({json.dumps(r["tune"]["picks"]) for r in ranks}) != 1:
+        fails.append("the ranks' tuned picks differ")
     r0 = ranks[0]
     summary = {"backend": a.backend, "ranks": RANKS,
                "devices": [r["device"] for r in ranks],
@@ -353,6 +401,11 @@ def main() -> int:
           flush=True)
     print(json.dumps({"phase": "dist_scaling:profile:rank0",
                       **r0["profile"]}), flush=True)
+    print(json.dumps({"phase": "dist_scaling:tune",
+                      "seconds_per_rank": [r["tune"]["seconds"]
+                                           for r in ranks],
+                      **{k: v for k, v in r0["tune"].items()
+                         if k != "seconds"}}), flush=True)
     if fails:
         print(f"dist_scaling: failed: {fails}", file=sys.stderr)
         return 1

@@ -11,10 +11,15 @@ heavy and builds no kernel::
     res = repro_torch.solve(m, b)                      # tuned CG
     res = repro_torch.solve(m, b, dtype=torch.bfloat16)   # bf16, refined
     op = repro_torch.dist_operator(m, repro_torch.GroupComm())  # one rank
+    op = repro_torch.dist_operator(m, comm, tune="auto", grid="auto",
+                                   halo="auto", mode="auto")  # measured
     res = repro_torch.solve(op, op.shard_vector(b))    # distributed CG
     z = op.T @ y                                       # A^T y (K7)
     m = repro_torch.load_mm("matrix.mtx")              # Matrix Market
     op = repro_torch.operator(m, reorder="rcm")        # RCM preprocessing
+
+Solve serving lives in ``repro_torch.serve`` (``OperatorRegistry``,
+``SolveScheduler``), the fault harness in ``repro_torch.testing``.
 
 Entry points run on CUDA unless given ``device="cpu"``; with no CUDA
 and no device they raise.  Tuned decisions are measured on that device

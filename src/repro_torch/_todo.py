@@ -9,7 +9,7 @@ from __future__ import annotations
 __all__ = ["ROADMAP_ITEMS", "not_ported"]
 
 ROADMAP_ITEMS = {
-    "dist_tune": "1.20 (the distributed tuner and link calibration)",
+    "lm_engine": "1.15 (models and training, with the LM decode engine)",
 }
 
 

@@ -49,6 +49,7 @@ __all__ = [
     "csr_diagonal",
     "estimate_storage_elements",
     "structural_fingerprint",
+    "csr_remote_columns_by_distance",
     "PAD_COL",
     "min_index_dtype",
     "resolve_index_dtype",
@@ -799,3 +800,28 @@ def structural_fingerprint(m: CSRMatrix) -> str:
     h.update(np.ascontiguousarray(m.indptr, dtype=np.int64).tobytes())
     h.update(np.ascontiguousarray(m.indices, dtype=np.int64).tobytes())
     return h.hexdigest()
+
+
+def csr_remote_columns_by_distance(
+    sl: CSRMatrix, p: int, n_loc: int, n_dev: int
+) -> dict:
+    """For rank ``p``'s row slice ``sl`` (a CSR over the GLOBAL column
+    space) under a uniform n_loc-row ring partition: the slice-local
+    column indices it references in each OTHER rank's slice, keyed by
+    signed ring distance d (owner = (p + d) % n_dev, |d| <= n_dev//2).
+
+    Each value is sorted and unique -- the gather set of the paper's
+    "local gather + point-to-point" halo exchange, the entries of the
+    neighbour's x slice that must cross the wire (the distributed
+    tuner's measured coupling width, ``tune.tune_partition``).
+    """
+    cols = sl.indices.astype(np.int64)
+    own_lo, own_hi = p * n_loc, (p + 1) * n_loc
+    rcols = cols[(cols < own_lo) | (cols >= own_hi)]
+    owner = rcols // n_loc
+    d = (owner - p + n_dev) % n_dev
+    d = np.where(d > n_dev // 2, d - n_dev, d)
+    return {
+        int(dd): np.unique(rcols[d == dd] % n_loc).astype(np.int32)
+        for dd in np.unique(d)
+    }

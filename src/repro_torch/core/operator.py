@@ -37,7 +37,6 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from repro_torch._todo import not_ported
 from repro_torch.core import dist_spmv as D
 from repro_torch.core import formats as F
 from repro_torch.core import perf_model as PM
@@ -717,25 +716,38 @@ def dist_operator(
     diagonal), so threaded ranks can share one partition.
 
     ``grid=(gr, gc)`` partitions over a 2-D grid, and the transpose
-    partition uses ``(gc, gr)``; ``grid="auto"`` takes the shape of
+    partition uses ``(gc, gr)``; ``grid="auto"`` takes the shape the
+    tuner measured fastest when ``tune`` is on, otherwise the shape of
     ``dist_spmv.grid_shapes`` that ``perf_model.
     predicted_dist_spmv_seconds`` prices cheapest.  ``halo="auto"``
-    decides gathered or full by ``perf_model.choose_halo``, and
-    ``mode="auto"`` is ``"overlap"``.
+    takes the tuner's measured flavour, otherwise decides gathered or
+    full by ``perf_model.choose_halo`` (fit its per-message costs with
+    ``tune.fit_link_calibration`` first); ``mode="auto"`` takes the
+    tuner's measured mode, otherwise ``"overlap"``.
+
+    ``tune="auto"|"force"`` measures the best tile height of the LOCAL
+    and REMOTE operands independently (``tune.tune_partition``, cached
+    persistently like the single-device tuner; ``"force"`` re-measures)
+    and partitions with the winners; when any of ``grid`` / ``halo`` /
+    ``mode`` is ``"auto"`` the tuner also sweeps the communication
+    configuration over ``comm`` (one timed distributed product per
+    candidate) and the measured winners fill the auto slots.  The
+    transpose partition is tuned separately, with the tile-height sweep
+    only.  Tuning is collective: rank 0 decides and every rank builds
+    the same partition.
 
     ``reorder="auto"|"rcm"`` runs the priced RCM preprocessing stage
     (``core.reorder.preprocess``, H100 spec) on the host CSR before
-    partitioning, with the halo term at this communicator's rank count:
-    ``"auto"`` applies the permutation only when the model predicts a
-    gain (the smaller halo; no per-product sandwich is charged, since
-    none runs), ``"rcm"`` forces it.
+    tuning and partitioning, with the halo term at this communicator's
+    rank count: ``"auto"`` applies the permutation only when the model
+    predicts a gain (the smaller halo; no per-product sandwich is
+    charged, since none runs), ``"rcm"`` forces it.
     The partition is then built from the permuted matrix and the
     operator keeps the permutation: :meth:`DistOperator.shard_vector`
     and :meth:`DistOperator.gather_vector` apply it, so a global vector
     goes in and comes out in the original basis while every product and
     solve in between runs in the stored one (the reference permutes
-    around every product instead).  ``tune="auto"|"force"`` is not
-    ported yet and raises.
+    around every product instead).
     """
     if tune not in ("off", "auto", "force"):
         raise ValueError(f"tune must be 'off', 'auto' or 'force'; "
@@ -743,66 +755,100 @@ def dist_operator(
     if reorder not in ("off", "auto", "rcm"):
         raise ValueError(f"reorder must be 'off', 'auto' or 'rcm'; "
                          f"got {reorder!r}")
-    if tune != "off":
-        raise not_ported(f"dist_operator(tune={tune!r})", "dist_tune")
     if comm is None:
         from repro_torch.core.dist_comm import GroupComm
         comm = GroupComm()
-    if mode == "auto":
-        mode = "overlap"
-    kw = dict(mode=mode, backend=backend, device=device)
     if isinstance(m, D.DistPJDS):
         if grid not in (None, "auto"):
             raise ValueError("grid cannot be changed on an existing "
                              "DistPJDS; partition the host CSR instead")
+        if mode == "auto":
+            mode = "overlap"
         if halo == "auto":
             halo = PM.choose_halo(m, mode=mode,
                                   value_bytes=m.loc_val.dtype.itemsize)
-        return DistOperator(m, comm, halo=halo, **kw)
+        return DistOperator(m, comm, halo=halo, mode=mode, backend=backend,
+                            device=device)
     if not isinstance(m, F.CSRMatrix):
         raise TypeError(f"cannot partition {type(m)}")
     if transpose not in ("device", None):
         raise ValueError(f"transpose must be 'device' or None; "
                          f"got {transpose!r}")
     n_dev = comm.size
-    key = (n_dev, mode, halo, transpose, b_r, diag_align, chunk_l, halo_w,
-           sigma, str(index_dtype), grid, build_stages, reorder)
-    plan = _shared_plan(comm, m, key, lambda: _dist_plan(
-        m, n_dev, mode=mode, halo=halo, transpose=transpose, b_r=b_r,
-        diag_align=diag_align, chunk_l=chunk_l, halo_w=halo_w, sigma=sigma,
-        index_dtype=index_dtype, grid=grid, build_stages=build_stages,
-        reorder=reorder))
-    return DistOperator(comm=comm, **plan, **kw)
 
-
-def _dist_plan(m: F.CSRMatrix, n_dev: int, *, mode, halo, transpose, b_r,
-               diag_align, chunk_l, halo_w, sigma, index_dtype, grid,
-               build_stages, reorder) -> dict:
-    """The host half of :func:`dist_operator`: the preprocessing stage,
-    the partitions of A (and A^T), the halo decision, the diagonal and
-    the permutation over the padded global space."""
-    diag_host = F.csr_diagonal(m)          # original basis, pre-reorder
-    perm_host = inv_host = None
+    pp = None
     if reorder != "off":
         from repro_torch.core import reorder as RO
         # priced without the per-product sandwich: this operator
         # permutes at shard / gather time (ROADMAP.md, queue 3)
-        pp = RO.preprocess(m, reorder=reorder, n_dev=n_dev,
-                           value_bytes=m.data.dtype.itemsize,
-                           sandwich=False)
-        if pp.applied:
-            m = pp.matrix
-            perm_host, inv_host = pp.perm, pp.inv_perm
+        pp = _shared_plan(comm, m, ("reorder", n_dev, reorder),
+                          lambda: RO.preprocess(
+                              m, reorder=reorder, n_dev=n_dev,
+                              value_bytes=m.data.dtype.itemsize,
+                              sandwich=False))
+    mm = pp.matrix if pp is not None and pp.applied else m
 
-    def _build(mm, g, hw):
+    rem_chunk_l = t_chunks = None
+    if tune != "off":
+        from repro_torch import tune as T   # deferred: tune imports ops
+        sweep = "auto" in (grid, halo, mode)
+        kw = dict(b_r=b_r, diag_align=diag_align, sigma=sigma,
+                  index_dtype=index_dtype, force=(tune == "force"),
+                  comm=comm, device=device)
+        tp = T.tune_partition(mm, n_dev, comm_candidates=None if sweep
+                              else (), **kw)
+        chunk_l, rem_chunk_l = tp.chunk_l, tp.rem_chunk_l
+        if sweep:
+            if grid == "auto":
+                grid = tp.grid
+            if halo == "auto" and tp.halo:
+                halo = tp.halo
+            if mode == "auto" and tp.mode:
+                mode = tp.mode
+        if transpose == "device":
+            mt = _shared_plan(comm, mm, ("transpose",),
+                              lambda: F.csr_transpose(mm))
+            tpt = T.tune_partition(mt, n_dev, comm_candidates=(), **kw)
+            t_chunks = (tpt.chunk_l, tpt.rem_chunk_l)
+    if mode == "auto":
+        mode = "overlap"
+    key = (n_dev, mode, halo, transpose, b_r, diag_align, chunk_l,
+           rem_chunk_l, t_chunks, halo_w, sigma, str(index_dtype), grid,
+           build_stages, reorder)
+    plan = _shared_plan(comm, m, key, lambda: _dist_plan(
+        m, n_dev, pp=pp, mode=mode, halo=halo, transpose=transpose,
+        b_r=b_r, diag_align=diag_align, chunk_l=chunk_l,
+        rem_chunk_l=rem_chunk_l, t_chunks=t_chunks, halo_w=halo_w,
+        sigma=sigma, index_dtype=index_dtype, grid=grid,
+        build_stages=build_stages))
+    return DistOperator(comm=comm, mode=mode, backend=backend,
+                        device=device, **plan)
+
+
+def _dist_plan(m: F.CSRMatrix, n_dev: int, *, pp, mode, halo, transpose,
+               b_r, diag_align, chunk_l, rem_chunk_l, t_chunks, halo_w,
+               sigma, index_dtype, grid, build_stages) -> dict:
+    """The host half of :func:`dist_operator`: the partitions of A (and
+    A^T) with their tile heights (``t_chunks``: A^T's tuned pair, or
+    None for ``chunk_l`` alone), the halo decision, the diagonal and
+    the preprocessing permutation ``pp`` over the padded global
+    space."""
+    diag_host = F.csr_diagonal(m)          # original basis, pre-reorder
+    perm_host = inv_host = None
+    if pp is not None and pp.applied:
+        m = pp.matrix
+        perm_host, inv_host = pp.perm, pp.inv_perm
+
+    def _build(mm, g, hw, cl, rcl):
         return D.partition_csr(mm, n_dev, b_r=b_r, diag_align=diag_align,
-                               chunk_l=chunk_l, halo_w=hw, sigma=sigma,
-                               index_dtype=index_dtype, grid=g,
-                               build_stages=build_stages)
+                               chunk_l=cl, halo_w=hw, sigma=sigma,
+                               index_dtype=index_dtype, rem_chunk_l=rcl,
+                               grid=g, build_stages=build_stages)
 
     if grid == "auto":
         # price every grid shape with the perf model, keep the cheapest
-        cands = [_build(m, g if g != (n_dev, 1) else None, halo_w)
+        cands = [_build(m, g if g != (n_dev, 1) else None, halo_w,
+                        chunk_l, rem_chunk_l)
                  for g in D.grid_shapes(n_dev)]
         hs = ("gathered", "full") if halo == "auto" else (halo,)
         cost = [min(PM.predicted_dist_spmv_seconds(
@@ -811,15 +857,16 @@ def _dist_plan(m: F.CSRMatrix, n_dev: int, *, mode, halo, transpose, b_r,
                     for h in hs) for d in cands]
         dist = cands[int(np.argmin(cost))]
     else:
-        dist = _build(m, grid, halo_w)
+        dist = _build(m, grid, halo_w, chunk_l, rem_chunk_l)
     if halo == "auto":
         halo = PM.choose_halo(dist, mode=mode,
                               value_bytes=dist.loc_val.dtype.itemsize)
     t_dist = None
     if transpose == "device":
         g = dist.grid
+        cl_t, rcl_t = t_chunks if t_chunks is not None else (chunk_l, None)
         t_dist = _build(F.csr_transpose(m), (g[1], g[0]) if g else None,
-                        None)
+                        None, cl_t, rcl_t)
     n_pad = dist.n_global_pad
     dg = np.zeros(n_pad, dtype=m.data.dtype)
     dg[: m.n_rows] = diag_host

@@ -13,6 +13,13 @@ then a synchronise: one launch's host overhead would outlast the
 shortest kernels (K4 on Poisson 512^2 runs in about 5 us), and per-call
 host clocks would make every candidate tie.  On the CPU a sample is the
 host clock around the same burst.
+
+A distributed candidate (:func:`measure_dist_candidate`) is timed as
+one collective product: every rank calls it, and each sample starts
+after a barrier of all ranks and ends when the rank's own stream is
+idle (:func:`collective_seconds`).  It never synchronises the whole
+device, so ranks that share one card (``ThreadComm``) do not wait for
+each other's work outside the product.
 """
 from __future__ import annotations
 
@@ -33,6 +40,8 @@ __all__ = [
     "measure_candidate",
     "measure_solver_candidate",
     "ab_compare",
+    "collective_seconds",
+    "measure_dist_candidate",
 ]
 
 MEASURE_SEED = 0       # deterministic RHS for every measurement
@@ -199,3 +208,94 @@ def ab_compare(
             else:
                 tb = min(tb, t)
     return float(ta), float(tb)
+
+
+def _barrier(comm, dev: torch.device) -> None:
+    """Return once every rank of ``comm`` got here with its stream idle:
+    one ``all_reduce_sum`` of a zero, read on the host."""
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+    float(comm.all_reduce_sum(torch.zeros(1, device=dev))[0])
+
+
+def collective_seconds(fn, comm, *, warmup: int = 1, iters: int = 3,
+                       device=None, burst: int = BURST) -> float:
+    """This rank's median seconds per call of ``fn()``, a collective
+    every rank of ``comm`` runs together: ``warmup`` calls, then
+    ``iters`` samples, each a barrier of all ranks, ``burst`` calls and
+    a wait for the rank's own stream, on the host clock."""
+    dev = resolve_device(device)
+    for _ in range(warmup):
+        fn()
+    ts = []
+    for _ in range(iters):
+        _barrier(comm, dev)
+        t0 = time.perf_counter()
+        for _ in range(burst):
+            fn()
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        ts.append((time.perf_counter() - t0) / burst)
+    return float(np.median(ts))
+
+
+def measure_dist_candidate(
+    m: F.CSRMatrix,
+    comm,
+    cand: dict,
+    *,
+    b_r: int = 128,
+    diag_align: int = 8,
+    chunk_l: int = 8,
+    rem_chunk_l=None,
+    sigma=None,
+    index_dtype="auto",
+    warmup: int = 1,
+    iters: int = 3,
+    device=None,
+    dist=None,
+) -> dict:
+    """Partition ``m`` per distributed candidate ``cand`` (a
+    ``space.dist_candidates`` dict: grid / halo / mode / halo_w) and
+    time one distributed product on this rank of ``comm`` end to end --
+    the exchange, K1 on the local and remote operands (one per stage in
+    ``"pipeline"``) and the reduction, exactly as
+    ``DistOperator.matvec`` runs them.  Every rank calls it together.
+
+    ``dist`` is a partition already built for the candidate's grid and
+    ``halo_w`` (with ``build_stages=True``, so any mode runs on it);
+    without one, the partition is built here (once for all ranks that
+    are threads of this process).  Returns the reference's row: the
+    wire statistics (``msgs`` / ``bytes`` per rank) beside
+    ``measured_s``, THIS rank's median; ``tune_partition`` takes the
+    slowest rank's.
+    """
+    from repro_torch.core import dist_spmv as D     # deferred: imports ops
+    from repro_torch.core.operator import DistOperator, _shared_plan
+
+    dev = resolve_device(device)
+    if dist is None:
+        stages = cand["mode"] == "pipeline"
+        key = ("measure_dist_candidate", cand.get("grid"),
+               cand.get("halo_w"), b_r, diag_align, chunk_l, rem_chunk_l,
+               sigma, str(index_dtype), stages)
+        dist = _shared_plan(comm, m, key, lambda: D.partition_csr(
+            m, comm.size, b_r=b_r, diag_align=diag_align, chunk_l=chunk_l,
+            halo_w=cand.get("halo_w"), sigma=sigma,
+            index_dtype=index_dtype, rem_chunk_l=rem_chunk_l,
+            grid=cand.get("grid"), build_stages=stages))
+    op = DistOperator(dist, comm, mode=cand["mode"], halo=cand["halo"],
+                      device=dev)
+    rng = np.random.default_rng(MEASURE_SEED)
+    x = op.shard_vector(rng.standard_normal(dist.n_global_pad)
+                        .astype(np.float32))
+    t = collective_seconds(lambda: op.matvec(x), comm, warmup=warmup,
+                           iters=iters, device=dev)
+    vb = dist.loc_val.dtype.itemsize
+    return dict(
+        grid=cand.get("grid"), halo=cand["halo"], mode=cand["mode"],
+        halo_w=int(dist.halo_w), red_w=int(dist.red_w),
+        msgs=int(dist.comm_msgs_per_device(halo=cand["halo"])),
+        bytes=int(dist.comm_bytes_per_device(value_bytes=vb,
+                                             halo=cand["halo"])),
+        measured_s=float(t))

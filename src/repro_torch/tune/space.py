@@ -27,6 +27,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence
 
+import numpy as np
+
 from repro_torch.core import formats as F
 from repro_torch.core import perf_model as PM
 from repro_torch.kernels import ops
@@ -38,6 +40,7 @@ __all__ = [
     "price_candidate",
     "prune_candidates",
     "solver_candidates",
+    "dist_candidates",
 ]
 
 # Default search axes, as in the reference.
@@ -280,3 +283,48 @@ def prune_candidates(
     if heuristic not in kept:
         kept.append(heuristic)
     return kept
+
+
+def dist_candidates(
+    n_dev: int,
+    *,
+    halos: Sequence[str] = ("gathered", "full"),
+    modes: Sequence[str] = ("vector", "overlap", "pipeline"),
+    grids: Optional[Sequence] = None,
+    halo_w_options: Sequence[Optional[int]] = (None,),
+) -> list[dict]:
+    """The DISTRIBUTED probe set: one dict per (grid, halo, mode,
+    halo_w) combination for ``tune_partition``'s communication sweep,
+    in the reference's order.
+
+    The grid axis defaults to the three structurally distinct shapes of
+    ``n_dev`` ranks -- pure row partitioning ``(P, 1)`` (stored as
+    ``grid=None``), pure column partitioning ``(1, P)`` and the
+    most-square 2-D factorisation plus its transpose.  The mode axis
+    skips ``"naive"`` (the exchange of ``"vector"`` plus a wait) and
+    drops ``"pipeline"`` for full halos (a staged full exchange ships
+    the same bytes in more messages).  ``halo_w=None`` is the measured
+    coupling width.
+    """
+    if grids is None:
+        gs: list = [(n_dev, 1)]
+        if n_dev > 1:
+            gs.append((1, n_dev))
+        sq = max(g for g in range(1, int(np.sqrt(n_dev)) + 1)
+                 if n_dev % g == 0)
+        if sq > 1:
+            gs += [(sq, n_dev // sq), (n_dev // sq, sq)]
+        grids = list(dict.fromkeys(gs))
+    out = []
+    for grid in grids:
+        for halo in halos:
+            for mode in modes:
+                if mode == "naive" or (mode == "pipeline" and halo == "full"):
+                    continue
+                for hw in halo_w_options:
+                    out.append(dict(grid=(None if grid in (None, (n_dev, 1))
+                                          else tuple(grid)),
+                                    halo=str(halo), mode=str(mode),
+                                    halo_w=hw))
+    return [dict(t) for t in dict.fromkeys(
+        tuple(sorted(c.items(), key=lambda kv: kv[0])) for c in out)]

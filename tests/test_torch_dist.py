@@ -441,7 +441,7 @@ def test_transpose_diagonal_and_vectors(grid):
     assert out[0][11] == (None if g is None else (g[1], g[0]))
 
 
-def test_operator_errors():
+def test_operator_errors(tmp_path, monkeypatch):
     comms = ThreadComm.create(2, "cpu")
     plan = _plan("m323", 2, None)
     c = comms[0]
@@ -458,9 +458,14 @@ def test_operator_errors():
         op.matvec(torch.zeros(plan.n_global_pad))
     with pytest.raises(ValueError, match="grid"):
         dist_operator(plan, c, grid=(1, 2), device="cpu")
-    for kw, item in (({"tune": "auto"}, "1.20"), ({"tune": "force"}, "1.20")):
-        with pytest.raises(NotImplementedError, match=item):
-            dist_operator(M323, c, device="cpu", **kw)
+    # tune= raised until the distributed tuner (ROADMAP.md 1.20) was
+    # ported; on one rank it now tunes (tests/test_torch_dist_tune.py)
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "c.json"))
+    one = ThreadComm.create(1, "cpu")[0]
+    for tune in ("auto", "force"):
+        op1 = dist_operator(M323, one, device="cpu", tune=tune, b_r=B_R,
+                            transpose=None)
+        assert op1.dist.chunk_l in (8, 16, 32)
     with pytest.raises(ValueError, match="tune"):
         dist_operator(M323, c, tune="bogus", device="cpu")
     with pytest.raises(ValueError, match="ranks"):

@@ -523,11 +523,23 @@ def test_solve_follows_the_tuned_decision(tmp_path, monkeypatch):
         assert abs(res.iters - int(rj.iters)) <= 2
 
 
-def test_tune_partition_waits_for_the_distributed_tuner():
+def test_tune_partition_waits_for_the_distributed_tuner(tmp_path):
+    """The distributed tuner (ROADMAP.md, item 1.20) raised until it was
+    ported: now it measures on the CPU when asked, and like every entry
+    point it needs a device or a card (``tests/test_torch_dist_tune.py``
+    holds it to the reference)."""
     _, tm = _pair("poisson")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
+    tp = TT.tune_partition(tm, 4, b_r=32, device="cpu", iters=2,
+                           cache=TT.TuneCache(tmp_path / "c.json"))
+    assert isinstance(tp, TT.TunePartition) and not tp.cached
+    assert tp.chunk_l in (8, 16, 32) and tp.halo is None
+
+
+def test_tune_partition_needs_a_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, tm = _pair("poisson")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         TT.tune_partition(tm, 4)
-    assert "1.20" in str(e.value)
 
 
 # ------------------------------------------------------------ the card
