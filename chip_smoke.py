@@ -44,7 +44,7 @@ halo flavour against P = 1 and scipy with K1's launches counted, a
 alone beside their nnz byte bounds and the perf model's prediction;
 ``dist:grid`` a 2 x 2 grid on a smaller sAMG (the partial-sum
 reduction, ``op @ X`` through K5, ``op.T`` and block CG).
-The sixth slice runs last (``slice6_phases``): ``transpose:samg`` is
+The sixth slice runs next (``slice6_phases``): ``transpose:samg`` is
 ``op.T @ y`` and ``op.T @ Y`` through K7 for pJDS, SELL, ELLPACK-R and
 CMRS on sAMG (against the plain version, scipy's float64 A^T y and the
 host's plain version bit for bit; beside the forward kernel on
@@ -59,7 +59,13 @@ shared; the x-gradient's backward split into K7, the copy of y, the
 2048 x 2048 Poisson operator (one device, and four ranks with
 ``reorder="auto"``), and ``eigen:hmep`` Lanczos, power iteration and
 block Lanczos on the symmetrised HMEp analogue at its published 6.2 M
-rows.
+rows.  The seventh (``slice7_phases``) tunes the distributed layer and
+serves solves; the eighth (``slice8_phases``) runs last: LM serving at
+qwen2.5-14b's full width and depth (``lm:serve:qwen2.5-14b``, the
+continuous-batching engine on random bf16 weights) and the sparse FFN on
+that model's layer-0 weights (``lm:sparse_ffn:qwen2.5-14b``, K5 held to
+its plain version, float64 and the dense pruned FFN, beside its bound
+and cuBLAS).
 Each main-path phase sets every launch count to 0 before it and reads
 the counts after it.  Each phase prints one JSON line; any failed check
 raises, and the script then exits non-zero without its final line.
@@ -89,10 +95,18 @@ SRC = ROOT / "src"
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS = 67e12                # H100 SXM, f32 outside the tensor cores
+BF16_FLOPS = 989e12              # H100 SXM, bf16 dense on the tensor cores
 Y_TOL = 1e-5                     # max |kernel - plain| <= Y_TOL * max|y|
 DOT_TOL = 1e-4                   # relative, per dot
 SCIPY_TOL = 1e-5                 # max |kernel - f64| <= SCIPY_TOL * max|y|
 BURST = 10                       # back-to-back calls per timing sample
+# prefill's last logits against the same prompt streamed through decode
+# steps, in bf16 at full depth: ||d||_2 <= PREFILL_TOL * ||logits||_2.  The
+# two paths round differently in every product and at each of 96 residual
+# adds (bf16 keeps 8 bits); a wrong position, mask or cache entry moves
+# the logits by the order of their norm.
+PREFILL_TOL = 0.1
+FFN_TOL = 1e-4                   # sparse FFN (f32) vs dense pruned (f64)
 
 
 def emit(phase: str, **fields) -> None:
@@ -1521,6 +1535,304 @@ def slice7_phases(h) -> dict:
     tdir.cleanup()
     return {"launches": launches}
 
+
+def slice8_phases(h) -> dict:
+    """The sparse FFN on K5, and LM serving at the full width and depth of
+    ``h.lm_cfg`` (qwen2.5-14b: 48 layers, d_model 5120, bf16).
+
+    ``lm:serve:<name>``: the model built on the card with random weights
+    from ``torch.Generator(device).manual_seed(h.seed)``, then
+    ``Engine(batch_slots=4, max_len=h.max_len)`` on ``h.n_requests``
+    requests with ``launch/serve.py``'s prompts (4 + i % 13 tokens) and
+    ``h.max_new`` new tokens each: every request done with its tokens in
+    the vocab, no non-finite logits, requests ``h.solo_ids`` equal to
+    themselves served alone (an engine of the same slot count, so every
+    product keeps its shape and its rounding), and ``prefill`` against
+    the prompt streamed through ``decode_step`` within ``PREFILL_TOL``.
+    Times: ms per engine step (host clock; each step ends in the host's
+    argmax read), tokens/s, the model's build seconds, peak memory, the
+    step's bytes bound, and a ``torch.profiler`` trace of decode steps
+    (device time per step, and so the card's idle share).
+    ``lm:sparse_ffn:<name>``: layer 0's FFN weights as float32 on the
+    host, sparsified at ``h.ffn_density`` (``sparsify_ffn_params``) and
+    ``w1`` alone at ``h.w1_density``, and ``w2`` at ``h.ffn_density``
+    again with row blocks of ``h.narrow_b_r``; each ``SparseLinear`` at T in
+    ``h.tokens`` and ``sparse_ffn_apply`` run with the counts at 0 (K5
+    launched, no plain call), then held to the plain version (Y_TOL), to
+    float64 with the pruned dense weight (SCIPY_TOL) and to the dense
+    pruned FFN in float64 (FFN_TOL), and timed beside their bound and
+    cuBLAS's bf16 ``x @ w_pruned``.  Returns the launches and the
+    per-layer rows."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops as TO
+    from repro_torch.kernels import ref as R
+    from repro_torch.models import build_model
+    from repro_torch.models.common import activation
+    from repro_torch.serve import Engine, Request
+    from repro_torch.sparse.sparse_ffn import (T_PAD, SparseLinear, prune,
+                                               sparse_ffn_apply,
+                                               sparsify_ffn_params)
+
+    dev, cfg = h.dev, h.lm_cfg
+    require, emit, time_ms = h.require, h.emit, h.time_ms
+    cuda = dev.type == "cuda"
+    launches = {}
+
+    def counted(phase):
+        launched, plain_calls = h.counts()
+        h.plain_free(plain_calls, phase)
+        for k, v in launched.items():
+            launches[k] = launches.get(k, 0) + v
+        return {k: v for k, v in launched.items() if v}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def quartiles(v):
+        return [float(q) for q in np.percentile(v, [50, 25, 75])]
+
+    # ---- lm:serve -- the engine at full width and depth --------------
+    phase = f"lm:serve:{cfg.name}"
+    if cuda:
+        sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(h.seed))
+    sync()
+    t_build = time.perf_counter() - t0
+    vocab = cfg.vocab
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+
+    def watched_step(*args):
+        """``model.decode_step`` with a device-side latch of finite
+        logits (no host read per step)."""
+        cache, logits = model.decode_step(*args)
+        finite.logical_and_(torch.isfinite(logits[..., :vocab]).all())
+        return cache, logits
+
+    served = types.SimpleNamespace(decode_step=watched_step,
+                                   init_cache=model.init_cache)
+    rng = np.random.default_rng(h.seed)
+    prompts = [rng.integers(0, vocab, (4 + i % 13,)).astype(np.int32)
+               for i in range(h.n_requests)]
+
+    def serve(ids, slots, steps=None):
+        eng = Engine(served, params, batch_slots=slots, max_len=h.max_len)
+        reqs = [Request(rid=i, prompt=prompts[i], max_new=h.max_new)
+                for i in ids]
+        if steps is not None:
+            tick = eng.step
+
+            def timed():
+                busy = sum(r is not None and not r.done for r in eng.active)
+                t = time.perf_counter()
+                tick()
+                steps.append((busy, 1e3 * (time.perf_counter() - t)))
+            eng.step = timed
+        t = time.perf_counter()
+        eng.run(reqs)
+        return reqs, time.perf_counter() - t, eng
+
+    h.reset_counts()
+    steps = []
+    reqs, t_run, eng = serve(range(h.n_requests), 4, steps)
+    launched = counted(phase)
+    require(all(r.done and len(r.out) == h.max_new for r in reqs),
+            f"{phase}: a request is not done with {h.max_new} tokens: "
+            f"{[(r.rid, r.done, len(r.out)) for r in reqs]}")
+    require(all(0 <= t < vocab for r in reqs for t in r.out),
+            f"{phase}: a token outside the vocab")
+    alone, one_slot = {}, {}
+    for i in h.solo_ids:
+        alone[i] = serve([i], 4)[0][0].out
+        require(alone[i] == reqs[i].out,
+                f"{phase}: request {i} batched {reqs[i].out} != alone "
+                f"{alone[i]}")
+        one_slot[i] = serve([i], 1)[0][0].out
+    require(bool(finite), f"{phase}: non-finite logits")
+
+    # prefill against the same prompt streamed through decode_step
+    p = prompts[h.consistency_id]
+    _, lp = model.prefill(params, {"tokens": p[None]}, max_len=h.max_len)
+    c1 = model.init_cache(1, h.max_len)
+    for j, tok in enumerate(p):
+        c1, ld = model.decode_step(params, c1, np.array([[tok]], np.int32),
+                                   np.array([j], np.int32))
+    a, b = lp[0, -1, :vocab].double(), ld[0, -1, :vocab].double()
+    pd_rel = float((a - b).norm() / b.norm())
+    require(bool(torch.isfinite(a).all()) and pd_rel <= PREFILL_TOL,
+            f"{phase}: prefill vs streamed decode {pd_rel} > {PREFILL_TOL}")
+    del c1
+
+    full = [ms for busy, ms in steps if busy == 4]
+    busy_ms = [ms for busy, ms in steps if busy]
+    emb = params["embed"]["w"]
+    weight_bytes = nbytes(params.parameters())
+    cache_bytes = nbytes(t for c in eng.cache for k, t in c.items()
+                         if k in ("k", "v"))
+    # a step reads every weight but the embedding table (4 rows of it),
+    # the whole cache, and writes float32 logits
+    step_bytes = (weight_bytes - nbytes([emb]) + 4 * emb[0].numel()
+                  * emb.element_size() + cache_bytes
+                  + 4 * emb.shape[0] * 4)
+    step_flops = 2.0 * 4 * (weight_bytes - nbytes([emb])) / emb.element_size()
+    t_bytes, t_ops = step_bytes / h.HBM, step_flops / h.BF16_FLOPS
+    c4 = model.init_cache(4, h.max_len)
+    toks4 = np.zeros((4, 1), np.int32)
+    pos4 = np.arange(4, dtype=np.int32)
+    trace = h.trace(lambda: model.decode_step(params, c4, toks4, pos4), n=5)
+    del c4
+    step_ms = quartiles(full) if full else None
+    serve_row = {
+        "config": {"name": cfg.name, "n_layers": cfg.n_layers,
+                   "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                   "n_kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
+                   "vocab": vocab, "dtype": cfg.param_dtype,
+                   "n_params": sum(t.numel() for t in params.parameters())},
+        "build_s": t_build, "weight_bytes": weight_bytes,
+        "requests": h.n_requests, "slots": 4, "max_new": h.max_new,
+        "prompt_tokens": int(sum(len(q) for q in prompts)),
+        "run_s": t_run,
+        "tokens_per_s": sum(len(r.out) for r in reqs) / t_run,
+        "step_ms_4_busy": step_ms, "steps_4_busy": len(full),
+        "step_ms_busy": quartiles(busy_ms), "steps_busy": len(busy_ms),
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "all_weights_bound_ms": 1e3 * weight_bytes / h.HBM,
+        "step_bytes": step_bytes,
+        "profile_decode_step": trace,
+        "idle_share": (1.0 - trace["device_ms"] / step_ms[0]) if step_ms
+        else None,
+        "launches": launched,
+        "alone_equal": {str(i): alone[i] == reqs[i].out for i in alone},
+        "one_slot_equal": {str(i): one_slot[i] == reqs[i].out
+                           for i in one_slot},
+        "prefill_vs_decode_rel_l2": pd_rel,
+        "prefill_vs_decode_max_abs": float((a - b).abs().max()),
+        "prefill_vs_decode_argmax_equal": int(a.argmax()) == int(b.argmax()),
+        "tokens": {str(r.rid): r.out for r in reqs[:2]},
+        "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                     if cuda else None)}
+    emit(phase, **serve_row)
+
+    # ---- lm:sparse_ffn -- layer 0's FFN through K5 ---------------------
+    phase = f"lm:sparse_ffn:{cfg.name}"
+    mlp = params["dec"][0]["mlp"]
+    w_host = {k: mlp[k]["w"].float().cpu().numpy() for k in mlp}
+    t0 = time.perf_counter()
+    sp = sparsify_ffn_params(mlp, h.ffn_density, device=dev)
+    t_sp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w1_dense = SparseLinear.from_dense(w_host["w1"], h.w1_density,
+                                       device=dev)
+    t_w1 = time.perf_counter() - t0
+    # w2 again with row blocks of h.narrow_b_r: its 5120 output rows fill
+    # 40 CTAs of 128 lanes on a 132-SM card, 160 of 32
+    w2_narrow = SparseLinear.from_dense(w_host["w2"], h.ffn_density,
+                                        b_r=h.narrow_b_r, device=dev)
+    layers = [(k, h.ffn_density, sp[k]) for k in sp] + [
+        ("w1", h.w1_density, w1_dense), ("w2", h.ffn_density, w2_narrow)]
+    gen = torch.Generator(device=dev).manual_seed(h.seed + 8)
+    xs = {(n_in, t): torch.randn((t, n_in), generator=gen, device=dev)
+          for n_in in {sl.op.shape[1] for _, _, sl in layers}
+          for t in h.tokens}
+    x_ffn = torch.randn((4, cfg.d_model), generator=gen, device=dev)
+    h.reset_counts()
+    ys = {(i, t): sl(xs[sl.op.shape[1], t])
+          for i, (_, _, sl) in enumerate(layers) for t in h.tokens}
+    y_ffn = sparse_ffn_apply(sp, cfg, x_ffn)
+    launched = counted(phase)
+    require(launched.get("pjds_spmm", 0) >= 1,
+            f"{phase}: K5 not launched: {launched}")
+
+    def plain(sl, xt, chunk=16):
+        """K5's plain version on the same stored arrays, in column chunks
+        (a column is independent of the others)."""
+        d, sd = sl.a, sl.op.dev
+        out = [R.pjds_matmat_ref(d.val, d.col_idx, d.row_block,
+                                 xt[:, j:j + chunk].contiguous(), d.n_blocks)
+               for j in range(0, xt.shape[1], chunk)]
+        return torch.cat(out, dim=1).index_select(0, sd.stored_rows())
+
+    rows = []
+    for i, (k, dens, sl) in enumerate(layers):
+        n_out, n_in = sl.op.shape
+        d, sd = sl.a, sl.op.dev
+        wp = prune(w_host[k], dens)
+        nnz = int(np.count_nonzero(wp))
+        wp64 = torch.from_numpy(wp).to(dev, torch.float64)
+        wp16 = wp64.to(torch.bfloat16)
+        walked = int(d.warp_len.sum()) * 32
+        vb, ib = d.val.element_size(), d.col_idx.element_size()
+        row = {"weight": k, "density": dens, "format": sl.fmt, "b_r": d.b_r,
+               "shape_wt": [n_out, n_in], "nnz": nnz,
+               "stored_slots": d.val.numel(), "walked_slots": walked,
+               "memory_summary": sl.memory_summary(), "by_t": {}}
+        for t in h.tokens:
+            x = xs[n_in, t]
+            y = ys[i, t]
+            t_pad = -(-t // T_PAD) * T_PAD
+            xt = torch.nn.functional.pad(x.T, (0, t_pad - t)).contiguous()
+            yp = plain(sl, xt)[:, :t].T
+            e_abs, e_rel = h.rel_err(y, yp)
+            require(e_rel <= h.Y_TOL,
+                    f"{phase}: {k}@{dens} T={t} vs plain {e_rel}")
+            s_abs, s_rel = h.rel_err(y, x.double() @ wp64)
+            require(s_rel <= h.SCIPY_TOL,
+                    f"{phase}: {k}@{dens} T={t} vs f64 {s_rel}")
+            k5 = lambda: TO.pjds_matmat_kernel_call(
+                d.val, d.col_idx, d.block_start, d.warp_len, xt,
+                n_blocks=d.n_blocks, max_col=d.max_col,
+                out_row=sd.row_map(), n_out=n_out)
+            k_ms = time_ms(k5)
+            x16 = x.to(torch.bfloat16)
+            tb = (walked * (vb + ib) + (n_in + n_out) * t * 4) / h.HBM
+            tn = (nnz * (vb + ib) + (n_in + n_out) * t * 4) / h.HBM
+            to = 2.0 * nnz * t / h.F32_FLOPS
+            row["by_t"][str(t)] = {
+                "k5_ms": k_ms[0], "k5_ms_q25_q75": k_ms[1:],
+                "layer_ms_bf16_x": time_ms(lambda: sl(x16))[0],
+                "plain_ms": time_ms(lambda: plain(sl, xt), reps=5, warm=1,
+                                    burst=1)[0],
+                "cublas_bf16_ms": time_ms(lambda: x16 @ wp16)[0],
+                "bound_ms": 1e3 * max(tb, to),
+                "bound_by": "bytes" if tb >= to else "operations",
+                "bound_nnz_ms": 1e3 * max(tn, to),
+                "share_of_bound": 1e3 * max(tb, to) / k_ms[0],
+                "column_tiles": -(-t_pad // 8),
+                "max_rel_err_vs_plain": e_rel,
+                "max_rel_err_vs_f64": s_rel}
+        rows.append(row)
+        del wp64, wp16
+
+    act = activation(cfg.act)
+    p64 = {k: torch.from_numpy(prune(w_host[k], h.ffn_density)).to(
+        dev, torch.float64) for k in mlp}
+    x64 = x_ffn.double()
+    ref = act(x64 @ p64["w1"])
+    ref = (ref * (x64 @ p64["w3"]) if "w3" in p64 else ref) @ p64["w2"]
+    f_abs, f_rel = h.rel_err(y_ffn, ref)
+    require(f_rel <= FFN_TOL,
+            f"{phase}: sparse_ffn_apply vs dense pruned FFN {f_rel}")
+    del p64
+    emit(phase, launches=launched, ffn_density=h.ffn_density,
+         w1_density=h.w1_density, sparsify_s=t_sp, w1_convert_s=t_w1,
+         tokens=list(h.tokens), layers=rows,
+         ffn_max_rel_err_vs_f64=f_rel,
+         ffn_ms_t4=time_ms(lambda: sparse_ffn_apply(sp, cfg, x_ffn))[0],
+         peak_gib=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                   if cuda else None))
+    return {"launches": launches, "serve": serve_row, "ffn": rows}
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2852,6 +3164,23 @@ def main() -> int:
         if s7["launches"].get(rec["name"]):
             rec["launches_slice7"] = s7["launches"][rec["name"]]
     emit("memory:slice7", max_allocated_gib=torch.cuda.max_memory_allocated()
+         / 2 ** 30, seconds_since_start=time.perf_counter() - t_start)
+
+    # ---- 10e. the sparse FFN on K5, and LM serving at full width -------
+    from repro_torch import configs as TCFG
+    s8 = slice8_phases(types.SimpleNamespace(
+        dev=dev, lm_cfg=TCFG.get("qwen2.5-14b"), seed=SEED, require=require,
+        emit=emit, counts=counts, reset_counts=reset_counts,
+        plain_free=plain_free, rel_err=rel_err, time_ms=time_ms,
+        trace=x_backward_trace, Y_TOL=Y_TOL, SCIPY_TOL=SCIPY_TOL,
+        HBM=HBM_BYTES_PER_S, F32_FLOPS=F32_FLOPS, BF16_FLOPS=BF16_FLOPS,
+        max_len=128, n_requests=8, max_new=16, solo_ids=(0, 5),
+        consistency_id=7, ffn_density=0.1, w1_density=0.5, narrow_b_r=32,
+        tokens=(4, 128)))
+    for rec in record:
+        if s8["launches"].get(rec["name"]):
+            rec["launches_slice8"] = s8["launches"][rec["name"]]
+    emit("memory:slice8", max_allocated_gib=torch.cuda.max_memory_allocated()
          / 2 ** 30, seconds_since_start=time.perf_counter() - t_start)
 
     # ---- 11. the record, the card, the verdict ---------------------------

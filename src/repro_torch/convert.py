@@ -11,6 +11,11 @@ ignored; the port derives its per-block (per-strip) offsets from
 ``row_block`` (``strip_map``).  A bf16 value stream keeps its bit
 patterns (numpy's bfloat16 comes across through a 16-bit view).
 CMRS's ``chunk_l`` is TPU tile plumbing as well, and is ignored.
+
+:func:`model_params` carries a model's param tree across (numpy arrays,
+bits kept), one block per layer; :func:`sparse_linear` a reference
+``SparseLinear``: its operand through :func:`sparse_device`, plus its
+static fields.
 """
 from __future__ import annotations
 
@@ -18,12 +23,18 @@ from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
+from repro_torch.core.operator import DeviceOperator
 from repro_torch.kernels import ops
 from repro_torch.kernels._backend import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.models.common import param
+from repro_torch.sparse.sparse_ffn import SparseLinear
 
 __all__ = ["tensor_from_numpy", "blocked_device", "ell_device",
-           "cmrs_device", "csr_device", "sparse_device"]
+           "cmrs_device", "csr_device", "sparse_device", "sparse_linear",
+           "param_tree", "model_params"]
 
 
 def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
@@ -152,3 +163,58 @@ def sparse_device(fmt: str, shape: Tuple[int, int],
            if v is not None}
     return ops.SparseDevice(fmt=fmt, shape=tuple(shape), dev=inner,
                             inv_perm=inv, x_tiles=int(x_tiles), **pre)
+
+
+def sparse_linear(fmt: str, shape: Tuple[int, int],
+                  arrays: Mapping[str, np.ndarray], statics: Mapping, *,
+                  n_out: int, n_in_pad: int, sigma: int, density: float,
+                  inv_perm: Optional[np.ndarray] = None, x_tiles: int = 1,
+                  device=None) -> SparseLinear:
+    """The port's ``SparseLinear`` of a reference one: its operand's
+    ``SparseDevice`` handed over as :func:`sparse_device` takes it, and
+    the layer's static fields."""
+    sd = sparse_device(fmt, shape, arrays, statics, inv_perm=inv_perm,
+                       x_tiles=x_tiles, device=device)
+    return SparseLinear(DeviceOperator(sd), n_out, n_in_pad, sigma, density)
+
+
+def param_tree(t: Mapping, dev) -> nn.Module:
+    """A reference param dict (numpy leaves) as the port's modules: a dict
+    of arrays becomes an ``nn.ParameterDict``, a dict of dicts an
+    ``nn.ModuleDict``; a module (a ``SparseLinear``) stays."""
+    if isinstance(t, nn.Module):
+        return t
+    if not any(isinstance(v, (Mapping, nn.Module)) for v in t.values()):
+        return nn.ParameterDict({k: param(tensor_from_numpy(np.asarray(v),
+                                                            dev))
+                                 for k, v in t.items()})
+    return nn.ModuleDict({k: param_tree(v, dev) for k, v in t.items()})
+
+
+def _layer(t, i: int):
+    """Layer ``i`` of a tree whose arrays are stacked over layers."""
+    if isinstance(t, Mapping):
+        return {k: _layer(v, i) for k, v in t.items()}
+    return np.asarray(t)[i]
+
+
+def model_params(params: Mapping, cfg, device=None) -> nn.ModuleDict:
+    """The port's params from the reference's ``Model.init`` tree, its
+    leaves numpy arrays (``jax.device_get``).  Every array keeps its
+    dtype and bits (bf16 included).  ``dec["periods"]`` -- each period
+    position's blocks stacked over a leading layer axis -- is unstacked
+    into one block per layer, in the stack's order: prefix, periods x
+    period kinds, suffix.  A leaf that is already a module (a
+    :func:`sparse_linear`) is kept."""
+    dev = resolve_device(device)
+    plan = T.make_plan(cfg, cfg.n_layers)
+    dec = params["dec"]
+    blocks = list(dec["prefix"])
+    for i in range(plan.n_periods):
+        blocks += [_layer(dec["periods"][f"b{j}"], i)
+                   for j in range(len(plan.period_kinds))]
+    blocks += list(dec["suffix"])
+    out = nn.ModuleDict({k: param_tree(v, dev) for k, v in params.items()
+                         if k != "dec"})
+    out["dec"] = nn.ModuleList(param_tree(b, dev) for b in blocks)
+    return out

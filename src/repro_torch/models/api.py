@@ -1,0 +1,124 @@
+"""Public model API: ``build_model(cfg)`` -> :class:`Model`.
+
+Port of ``repro/models/api.py`` for the decoder-only dense family
+(minicpm-2b, qwen2.5-14b, starcoder2-15b, gemma3-4b): ``init``,
+``prefill``, ``decode_step``, ``init_cache``.  The other families raise
+naming their ROADMAP item (moe 1.24, ssm and hybrid 1.25, vlm and audio
+1.26), and so does ``loss`` (training, 1.27).
+
+The model lives on one device: CUDA unless ``device="cpu"`` is given,
+and with neither it raises.  Params are the tree of ``nn.ModuleDict`` /
+``nn.ParameterDict`` that :meth:`Model.init` builds or
+``convert.model_params`` carries across from the reference; the decode
+cache is a list of per-layer ring buffers that :meth:`decode_step`
+updates in place.  Logits are float32, the padded vocab tail masked to
+-1e30, as the reference computes them.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch._todo import not_ported
+from repro_torch.kernels._backend import resolve_device
+
+from . import blocks as B
+from . import common as C
+from . import transformer as T
+
+__all__ = ["Model", "build_model"]
+
+_FAMILY_ITEM = {"moe": "moe", "ssm": "ssm", "hybrid": "ssm", "vlm": "cross",
+                "audio": "cross"}
+
+
+class Model:
+    def __init__(self, cfg, device=None):
+        item = _FAMILY_ITEM.get(cfg.family)
+        if item is not None:
+            raise not_ported(f"the {cfg.family!r} model family ({cfg.name})",
+                             item)
+        if cfg.family != "dense":
+            raise ValueError(f"unknown model family {cfg.family!r}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = C.dtype_of(cfg.param_dtype)
+        self.adt = C.dtype_of(cfg.activation_dtype)
+        self.plan = T.make_plan(cfg, cfg.n_layers)
+        for kind, moe in T.layer_kinds(self.plan):
+            B.check_kind(cfg, kind, use_moe=moe)
+
+    # ------------------------------------------------------------- params
+    def init(self, generator: torch.Generator) -> nn.ModuleDict:
+        """Random params drawn from ``generator``, which must live on the
+        model's device."""
+        if torch.device(generator.device).type != self.device.type:
+            raise ValueError(f"the generator is on {generator.device}; "
+                             f"the model on {self.device}")
+        cfg, gen = self.cfg, generator
+        p = nn.ModuleDict({"embed": C.embed_init(gen, cfg.vocab, cfg.d_model,
+                                                 self.dtype)})
+        if not cfg.tie_embeddings:
+            p["unembed"] = C.embed_init(gen, cfg.vocab, cfg.d_model,
+                                        self.dtype)
+        p["final_ln"] = C.rmsnorm_init(cfg.d_model, self.dtype, gen.device)
+        p["dec"] = T.stack_init(gen, cfg, self.plan, dtype=self.dtype)
+        return p
+
+    def _unembed_w(self, params) -> torch.Tensor:
+        return params["embed"]["w"] if self.cfg.tie_embeddings \
+            else params["unembed"]["w"]
+
+    def _tensor(self, a, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=dtype, device=self.device)
+
+    def _embed(self, params, tokens) -> torch.Tensor:
+        tokens = self._tensor(tokens).long()
+        return params["embed"]["w"][tokens].to(self.adt)
+
+    # --------------------------------------------------------------- train
+    def loss(self, params, batch, **kwargs):
+        raise not_ported("Model.loss", "train")
+
+    # ------------------------------------------------------------- serving
+    @torch.no_grad()
+    def prefill(self, params, batch, *, max_len: int, q_chunk: int = 512,
+                k_chunk: int = 512):
+        """Process the full prompt ``batch["tokens"]`` (B, S); returns
+        (cache, last-position logits (B, 1, V_pad))."""
+        cfg = self.cfg
+        x = self._embed(params, batch["tokens"])
+        positions = torch.arange(x.shape[1], device=self.device)[None, :]
+        x, cache = T.stack_apply_prefill(params["dec"], cfg, self.plan, x,
+                                         positions, max_len=max_len,
+                                         cache_dtype=self.adt,
+                                         q_chunk=q_chunk, k_chunk=k_chunk)
+        x = C.rmsnorm(params["final_ln"], x[:, -1:], cfg.norm_eps)
+        return cache, self._logits(params, x)
+
+    def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
+        w = self._unembed_w(params)
+        logits = torch.einsum("btd,vd->btv", x.float(), w.float())
+        if w.shape[0] > self.cfg.vocab:   # mask the padded vocab tail
+            logits[..., self.cfg.vocab:] = -1e30
+        return logits
+
+    @torch.no_grad()
+    def decode_step(self, params, cache: list, tokens, pos):
+        """tokens (B, 1) int, pos (B,) absolute positions.  Writes each
+        layer's new k / v into ``cache`` in place; returns (cache,
+        logits (B, 1, V_pad))."""
+        x = self._embed(params, tokens)
+        pos = self._tensor(pos, torch.int32)
+        x, cache = T.stack_apply_decode(params["dec"], self.cfg, self.plan,
+                                        x, cache, pos)
+        x = C.rmsnorm(params["final_ln"], x, self.cfg.norm_eps)
+        return cache, self._logits(params, x)
+
+    def init_cache(self, batch: int, max_len: int) -> list:
+        return T.stack_cache_init(self.cfg, self.plan, batch, max_len,
+                                  dtype=self.adt, device=self.device)
+
+
+def build_model(cfg, device=None) -> Model:
+    return Model(cfg, device=device)

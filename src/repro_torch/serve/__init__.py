@@ -12,8 +12,8 @@ Layered registry -> scheduler -> group solver:
 * :class:`ServeMetrics` (``metrics.py``) -- latency/occupancy summaries
   and typed counters;
 * :class:`SolveEngine` (``engine.py``) -- the single-operator
-  compatibility shim.  ``Engine`` / ``Request``, the LM decode engine,
-  wait for the models (ROADMAP.md, item 1.15) and raise.
+  compatibility shim; beside it :class:`Engine` / :class:`Request`, the
+  LM continuous-batching decode engine over ``repro_torch.models``.
 
 Operators are built on CUDA unless the registry is given
 ``device="cpu"``.

@@ -1,41 +1,137 @@
-"""Serving engines: the solve-serving shim, and the LM engine's place.
+"""Serving engines: LM continuous batching, and the solve-serving shim.
 
-Port of ``repro/serve/engine.py``'s :class:`SolveEngine`: a thin
-single-operator COMPATIBILITY SHIM over the multi-tenant path
-(:mod:`repro_torch.serve.registry` + :mod:`repro_torch.serve.scheduler`)
--- same constructor, same blocking ``run(requests)``, same typed request
-statuses -- for callers who have one operator in hand and no interest
-in tenancy.  New code should drive the registry and scheduler directly.
+:class:`Engine` ports the reference's LM engine
+(``repro/serve/engine.py:41-146``): requests queue up, each is
+prefilled into a free cache slot, and every tick runs one batched
+``decode_step`` for all slots, greedy argmax read on the host.  A
+finished sequence (EOS or its token budget) frees its slot for the next
+queued request.  Params may hold ``SparseLinear`` FFN modules
+(``repro_torch.sparse``); their products then run through K5.
 
-The reference's LM decode engine (``Engine`` and its ``Request``) needs
-a model's cache and decode step, which come with the models (ROADMAP.md,
-item 1.15); here both names raise ``NotImplementedError`` naming it.
+**A deliberate difference.**  The reference's ``_prefill_one`` streams a
+new prompt through ``decode_step`` for EVERY slot, so each slot already
+decoding gets one extra cache entry per prompt token -- its own last
+token at its own position -- and its attention then counts that
+position twice: a request admitted while others decode changes their
+tokens.  Here the prompt streams through the admitted slot alone, as
+``decode_step`` on a batch-1 view of that slot's cache rows (the cache
+is updated in place, so the view writes into the engine's cache), and no
+other slot's cache changes: every request gets the tokens it gets alone.
+
+:class:`SolveEngine` is a thin single-operator COMPATIBILITY SHIM over
+the multi-tenant solve path (:mod:`repro_torch.serve.registry` +
+:mod:`repro_torch.serve.scheduler`) -- same constructor, same blocking
+``run(requests)``, same typed request statuses -- for callers who have
+one operator in hand and no interest in tenancy.  New code should drive
+the registry and scheduler directly.
 """
 from __future__ import annotations
 
-from typing import List
+import dataclasses
+from typing import List, Optional
 
-from repro_torch._todo import not_ported
+import numpy as np
+import torch
 
 from .scheduler import SolveRequest  # re-export: the shim's request type
 
 __all__ = ["Engine", "Request", "SolveEngine", "SolveRequest"]
 
 
+@dataclasses.dataclass
 class Request:
-    """The LM engine's request (a prompt and its decoded tokens); not
-    ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        raise not_ported("serve.Request (the LM engine's request)",
-                         "lm_engine")
+    rid: int
+    prompt: np.ndarray           # (S,) int32
+    max_new: int = 16
+    out: list = dataclasses.field(default_factory=list)
+    done: bool = False
 
 
 class Engine:
-    """The LM continuous-batching decode engine; not ported yet."""
+    """Continuous-batching greedy decoding over ``batch_slots`` cache
+    slots of ``max_len`` positions, on the model's device."""
 
-    def __init__(self, *args, **kwargs):
-        raise not_ported("serve.Engine (the LM decode engine)", "lm_engine")
+    def __init__(self, model, params, *, batch_slots: int, max_len: int,
+                 eos_id: int = -1):
+        self.model = model
+        self.params = params
+        self.slots = batch_slots
+        self.max_len = max_len
+        self.eos = eos_id
+        self.cache = model.init_cache(batch_slots, max_len)
+        self.pos = np.zeros(batch_slots, np.int32)
+        self.active: List[Optional[Request]] = [None] * batch_slots
+        self.budget: List[int] = [0] * batch_slots
+        self._last_tok = np.zeros((batch_slots, 1), np.int32)
+
+    def _slot_cache(self, slot: int) -> list:
+        """Slot ``slot``'s cache rows as a batch-1 cache: views, so a
+        decode step on it writes into the engine's cache."""
+        return [{k: t[slot:slot + 1] for k, t in c.items()}
+                for c in self.cache]
+
+    def _prefill_one(self, slot: int, req: Request):
+        """Stream the prompt through decode steps of this slot alone."""
+        view = self._slot_cache(slot)
+        logits = None
+        for tok in req.prompt.astype(np.int32):
+            _, logits = self.model.decode_step(
+                self.params, view, np.array([[tok]], np.int32),
+                self.pos[slot:slot + 1].copy())
+            self.pos[slot] += 1
+        nxt = int(torch.argmax(logits[0, -1]).item())
+        self._last_tok[slot, 0] = nxt
+        req.out.append(nxt)
+
+    def submit(self, req: Request) -> bool:
+        for s in range(self.slots):
+            if self.active[s] is None:
+                self.active[s] = req
+                # prefill emits the first token; budget covers the rest
+                self.budget[s] = req.max_new - 1
+                self.pos[s] = 0
+                self._reset_slot(s)
+                self._prefill_one(s, req)
+                if self.budget[s] <= 0:
+                    req.done = True
+                    self.active[s] = None
+                return True
+        return False
+
+    def _reset_slot(self, s: int):
+        fresh = self.model.init_cache(1, self.max_len)
+        for c, f in zip(self.cache, fresh):
+            for k, t in c.items():
+                t[s:s + 1] = f[k]
+
+    def step(self):
+        """One engine tick: batched decode for all slots."""
+        if not any(r is not None and not r.done for r in self.active):
+            return
+        self.cache, logits = self.model.decode_step(
+            self.params, self.cache, self._last_tok.copy(), self.pos.copy())
+        nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        for s, req in enumerate(self.active):
+            if req is None or req.done:
+                continue
+            self.pos[s] += 1
+            self.budget[s] -= 1
+            tok = int(nxt[s])
+            req.out.append(tok)
+            self._last_tok[s, 0] = tok
+            if tok == self.eos or self.budget[s] <= 0:
+                req.done = True
+                self.active[s] = None
+
+    def run(self, requests: List[Request], max_ticks: int = 10_000):
+        queue = list(requests)
+        ticks = 0
+        while (queue or any(self.active)) and ticks < max_ticks:
+            while queue and self.submit(queue[0]):
+                queue.pop(0)
+            self.step()
+            ticks += 1
+        return requests
 
 
 class SolveEngine:

@@ -23,9 +23,9 @@ import torch
 import repro_torch
 from repro_torch.core import formats as TF
 from repro_torch.core import matrices as TM
-from repro_torch.serve import (Engine, OperatorRegistry, RegistryMismatch,
-                               Request, ServeMetrics, SolveEngine,
-                               SolveRequest, SolveScheduler)
+from repro_torch.serve import (OperatorRegistry, RegistryMismatch,
+                               ServeMetrics, SolveEngine, SolveRequest,
+                               SolveScheduler)
 from repro_torch.tune.cache import TuneCache
 
 X_TOL = 1e-5
@@ -600,12 +600,6 @@ def test_solve_engine_is_a_shim_over_the_scheduler():
     assert eng.metrics.counters["converged"] == 5
     assert reqs[0].diagnostics["serve"]["batch_k"] == 4
     assert reqs[4].diagnostics["serve"]["batch_k"] == 1
-
-
-def test_the_lm_engine_waits_for_the_models():
-    for cls in (Engine, Request):
-        with pytest.raises(NotImplementedError, match="1.15"):
-            cls(None, None, batch_slots=1, max_len=8)
 
 
 def test_serve_exports_the_reference_names():
