@@ -65,7 +65,17 @@ qwen2.5-14b's full width and depth (``lm:serve:qwen2.5-14b``, the
 continuous-batching engine on random bf16 weights) and the sparse FFN on
 that model's layer-0 weights (``lm:sparse_ffn:qwen2.5-14b``, K5 held to
 its plain version, float64 and the dense pruned FFN, beside its bound
-and cuBLAS).
+and cuBLAS); the ninth (``slice9_phases``) runs last: the other LM
+families at their published widths and depths, each freed before the
+next -- ``lm:serve:deepseek-moe-16b`` (the engine on a mixture of
+experts: a repeated run gives the same tokens, and on a recorded decode
+batch the sorted dispatch equals the one-hot one and a float64 loop),
+``lm:serve:falcon-mamba-7b`` and ``lm:serve:recurrentgemma-2b`` (Mamba
+and RG-LRU: batched equals alone, the chunked-scan prefill equals
+streamed decode in float32), ``lm:cross:seamless-m4t-medium`` and
+``lm:cross:llava-next-mistral-7b`` (frames through the encoder and
+cross-attention, patches prepended: prefill, greedy decode steps,
+prefill plus a step against a longer prefill).
 Each main-path phase sets every launch count to 0 before it and reads
 the counts after it.  Each phase prints one JSON line; any failed check
 raises, and the script then exits non-zero without its final line.
@@ -107,6 +117,17 @@ BURST = 10                       # back-to-back calls per timing sample
 # the logits by the order of their norm.
 PREFILL_TOL = 0.1
 FFN_TOL = 1e-4                   # sparse FFN (f32) vs dense pruned (f64)
+# an MoE layer's sorted dispatch on one recorded 4-slot decode batch, in
+# relative L2: against moe_dispatch="onehot" (the same bf16 expert
+# products, combined in another order) and against float64 over the same
+# kept assignments (bf16 products and intermediates)
+MOE_ONEHOT_TOL = 1e-2
+MOE_F64_TOL = 3e-2
+# the same comparison as PREFILL_TOL's on the recurrent models, made in
+# float32 at full width and depth: in bf16 the two paths round apart in
+# every one of falcon-mamba's 64 layers and its logits part by ~0.19,
+# while float32 keeps them to ~1e-4 (H100 80GB HBM3).
+PREFILL_F32_TOL = 1e-3
 
 
 def emit(phase: str, **fields) -> None:
@@ -573,6 +594,7 @@ def x_backward_trace(step, n=10, top=12) -> dict:
     return {"calls": n,
             "host_ms": sum(e.self_cpu_time_total for e in ev) / 1e3 / n,
             "device_ms": sum(dev_us(e) for e in kernels) / 1e3 / n,
+            "kernels_per_call": sum(e.count for e in kernels) / n,
             "top_by_host": [row(e) for e in by_host[:top]],
             "top_by_device": [row(e) for e in by_dev[:top // 2]]}
 
@@ -1832,6 +1854,453 @@ def slice8_phases(h) -> dict:
          peak_gib=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
                    if cuda else None))
     return {"launches": launches, "serve": serve_row, "ffn": rows}
+
+SLICE9_MODELS = {"moe": "deepseek-moe-16b", "ssm": "falcon-mamba-7b",
+                 "hybrid": "recurrentgemma-2b", "audio": "seamless-m4t-medium",
+                 "vlm": "llava-next-mistral-7b"}
+
+
+def slice9_phases(h) -> dict:
+    """The rest of LM serving, each model at its published width and
+    depth (``h.cfgs``), built on the card in bf16 with random weights
+    from ``torch.Generator(device).manual_seed(h.seed)`` and freed before
+    the next.
+
+    ``lm:serve:<moe>`` (deepseek-moe-16b): the engine (4 slots,
+    ``h.max_len`` positions) on ``h.n_requests`` requests with
+    ``launch/serve.py``'s prompts and ``h.max_new`` new tokens; every
+    request done with its tokens in the vocab, finite logits, and the
+    same run again giving the same tokens.  That second run records each
+    MoE layer's input and its dropped assignments; on the first 4-slot
+    step's inputs the sorted dispatch is held to ``moe_dispatch=
+    "onehot"`` (MOE_ONEHOT_TOL) and to a float64 loop over tokens and
+    their kept assignments (MOE_F64_TOL), relative L2 per layer.  A
+    request served batched cannot equal itself served alone here: the
+    capacity counts every token of a step.  Prefill against the prompt
+    streamed through decode steps is reported, unbounded (T differs,
+    so does the capacity).
+    ``lm:serve:<ssm>`` / ``<hybrid>`` (falcon-mamba-7b,
+    recurrentgemma-2b): ``slice8_phases``' checks -- requests
+    ``h.solo_ids`` equal to themselves served alone at 4 slots, and prefill (the chunked scan)
+    against the prompt streamed through decode steps, here on the same
+    model built again in float32 within ``PREFILL_F32_TOL`` (bf16's is
+    reported) -- plus the recurrent state's bytes per slot.
+    Each serving phase reports ms per engine step at 4 busy slots (host
+    clock), tokens/s, the device ms per decode step and the card's idle
+    share (``h.trace``: ``torch.profiler``), kernels launched per step,
+    the step's bytes bound and peak memory.
+    ``lm:cross:<audio>`` / ``<vlm>`` (seamless-m4t-medium,
+    llava-next-mistral-7b): a batch of ``h.cross_batch`` with frames
+    (``enc_frames``) or patches (``frontend``) of ``cfg.frontend_seq``
+    positions drawn on the card, ``h.cross_prompt`` prompt tokens each,
+    ``prefill`` and ``h.cross_steps`` greedy ``decode_step``s; finite
+    logits; prefill of S tokens plus one decode step against prefill of
+    S + 1 in softmax within the reference's 5e-3 / 1e-2 and in logits
+    within ``PREFILL_TOL``; other frames change the logits.  Reports
+    prefill ms, ms per decode step and the step's bytes bound.
+    Returns the launches of the repo's kernels (none of these paths runs
+    one) and the phases' rows."""
+    import dataclasses
+    import gc
+    import types
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.common import activation
+    from repro_torch.serve import Engine, Request
+
+    dev = h.dev
+    require, emit = h.require, h.emit
+    cuda = dev.type == "cuda"
+    launches, rows = {}, {}
+
+    def counted(phase):
+        launched, plain_calls = h.counts()
+        h.plain_free(plain_calls, phase)
+        for k, v in launched.items():
+            launches[k] = launches.get(k, 0) + v
+        return {k: v for k, v in launched.items() if v}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [t for v in tree.values() for t in leaves(v)]
+        return [tree]
+
+    def quartiles(v):
+        return [float(q) for q in np.percentile(v, [50, 25, 75])] if v \
+            else None
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda \
+            else None
+
+    def build(cfg):
+        gc.collect()
+        if cuda:
+            sync()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(h.seed))
+        sync()
+        return model, params, time.perf_counter() - t0
+
+    def config_row(cfg, params):
+        return {"name": cfg.name, "family": cfg.family,
+                "n_layers": cfg.n_layers, "enc_layers": cfg.enc_layers,
+                "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+                "vocab": cfg.vocab, "dtype": cfg.param_dtype,
+                "n_params": sum(t.numel() for t in params.parameters())}
+
+    def rel_l2(a, b):
+        a, b = a.double(), b.double()
+        return float((a - b).norm() / b.norm())
+
+    def step_bytes(model, params, cache, rows_read=None):
+        """Bytes a batch-4 decode step moves: the decoder's weights (all
+        of them, or ``rows_read`` bytes of them), 4 rows of an untied
+        embedding table, every cache tensor read and the f32 logits
+        written.  Returns (bytes, the decoder's weight bytes)."""
+        emb = params["embed"]["w"]
+        tied = model.cfg.tie_embeddings
+        dec = [t for k, m in params.items()
+               if k not in ("embed", "enc", "enc_ln") for t in m.parameters()]
+        dec += [emb] if tied else []
+        w = nbytes(dec) if rows_read is None else rows_read
+        emb_rows = 0 if tied else 4 * emb[0].numel() * emb.element_size()
+        return (w + emb_rows + nbytes(t for c in cache for t in leaves(c))
+                + 4 * emb.shape[0] * 4), nbytes(dec)
+
+    def bound(nb, weight_bytes, elt):
+        tb = nb / h.HBM
+        to = 2.0 * 4 * weight_bytes / elt / h.BF16_FLOPS
+        return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+
+    def traced_step(model, params):
+        c4 = model.init_cache(4, h.max_len)
+        toks4 = np.zeros((4, 1), np.int32)
+        pos4 = np.arange(4, dtype=np.int32)
+        tr = h.trace(lambda: model.decode_step(params, c4, toks4, pos4),
+                     n=5)
+        return tr, c4
+
+    def prefill_vs_stream(model, params, prompt):
+        """Prefill's last logits against the same prompt streamed through
+        ``decode_step``: (relative L2, argmax equal)."""
+        _, lp = model.prefill(params, {"tokens": prompt[None]},
+                              max_len=h.max_len)
+        c1 = model.init_cache(1, h.max_len)
+        for j, tok in enumerate(prompt):
+            c1, ld = model.decode_step(params, c1,
+                                       np.array([[tok]], np.int32),
+                                       np.array([j], np.int32))
+        a, b = lp[0, -1, :model.cfg.vocab], ld[0, -1, :model.cfg.vocab]
+        require(bool(torch.isfinite(a).all()),
+                f"{model.cfg.name}: prefill logits not finite")
+        return rel_l2(a, b), int(a.argmax()) == int(b.argmax())
+
+    # ---- the engine phases ------------------------------------------------
+    def serve_phase(role):
+        cfg = h.cfgs[role]
+        phase = f"lm:serve:{cfg.name}"
+        model, params, t_build = build(cfg)
+        vocab = cfg.vocab
+        finite = torch.ones((), dtype=torch.bool, device=dev)
+
+        def watched_step(*args):
+            cache, logits = model.decode_step(*args)
+            finite.logical_and_(torch.isfinite(logits[..., :vocab]).all())
+            return cache, logits
+
+        served = types.SimpleNamespace(decode_step=watched_step,
+                                       init_cache=model.init_cache)
+        rng = np.random.default_rng(h.seed)
+        prompts = [rng.integers(0, vocab, (4 + i % 13,)).astype(np.int32)
+                   for i in range(h.n_requests)]
+
+        def serve(ids, steps=None):
+            eng = Engine(served, params, batch_slots=4, max_len=h.max_len)
+            reqs = [Request(rid=i, prompt=prompts[i], max_new=h.max_new)
+                    for i in ids]
+            if steps is not None:
+                tick = eng.step
+
+                def timed():
+                    busy = sum(r is not None and not r.done
+                               for r in eng.active)
+                    t = time.perf_counter()
+                    tick()
+                    steps.append((busy, 1e3 * (time.perf_counter() - t)))
+                eng.step = timed
+            t = time.perf_counter()
+            eng.run(reqs)
+            return reqs, time.perf_counter() - t, eng
+
+        h.reset_counts()
+        steps = []
+        reqs, t_run, eng = serve(range(h.n_requests), steps)
+        launched = counted(phase)
+        require(all(r.done and len(r.out) == h.max_new for r in reqs),
+                f"{phase}: a request is not done with {h.max_new} tokens: "
+                f"{[(r.rid, r.done, len(r.out)) for r in reqs]}")
+        require(all(0 <= t < vocab for r in reqs for t in r.out),
+                f"{phase}: a token outside the vocab")
+        row = {"config": config_row(cfg, params), "build_s": t_build,
+               "requests": h.n_requests, "slots": 4, "max_new": h.max_new,
+               "prompt_tokens": int(sum(len(q) for q in prompts)),
+               "run_s": t_run,
+               "tokens_per_s": sum(len(r.out) for r in reqs) / t_run,
+               "launches": launched}
+        rows_read = None
+        if cfg.n_experts:
+            # the same run again, each MoE layer's input and drops recorded
+            calls = []
+            apply = MOE.moe_apply
+
+            def recording(p, c, x):
+                t = x.shape[0] * x.shape[1]
+                _, _, experts = MOE.route(p, c, x.reshape(t, -1))
+                calls.append((t, MOE.dropped_assignments(c, experts),
+                              experts, p, x.clone()))
+                return apply(p, c, x)
+            MOE.moe_apply = recording
+            try:
+                again = serve(range(h.n_requests))[0]
+            finally:
+                MOE.moe_apply = apply
+            require([r.out for r in again] == [r.out for r in reqs],
+                    f"{phase}: a second run gave other tokens")
+            n_moe = sum(1 for blk in params["dec"] if "moe" in blk)
+            batched = [c for c in calls if c[0] == 4]
+            require(len(batched) % n_moe == 0 and batched,
+                    f"{phase}: {len(batched)} batched MoE calls, "
+                    f"{n_moe} layers")
+            drops = [sum(c[1] for c in batched[i:i + n_moe])
+                     for i in range(0, len(batched), n_moe)]
+            first = batched[:n_moe]
+            onehot_cfg = dataclasses.replace(cfg, moe_dispatch="onehot")
+            act = activation(cfg.act)
+            e_onehot, e_f64 = [], []
+            for _, _, experts, p, x in first:
+                y, _ = MOE.moe_apply(p, cfg, x)
+                y1, _ = MOE.moe_apply(p, onehot_cfg, x)
+                e_onehot.append(rel_l2(y, y1))
+                xt = x.reshape(4, -1)
+                _, gates, ex = MOE.route(p, cfg, xt)
+                cap = MOE.capacity(cfg, 4)
+                x64 = xt.double()
+                y64 = torch.zeros_like(x64)
+                seen = {}
+                for i in range(4):
+                    for j in range(cfg.top_k):
+                        e = int(ex[i, j])
+                        seen[e] = seen.get(e, 0) + 1
+                        if seen[e] > cap:
+                            continue
+                        hh = act(x64[i] @ p["w1"][e].double()) \
+                            * (x64[i] @ p["w3"][e].double())
+                        y64[i] += float(gates[i, j]) * (
+                            hh @ p["w2"][e].double())
+                if "shared" in p:
+                    sh = {k: p["shared"][k]["w"].double()
+                          for k in ("w1", "w3", "w2")}
+                    y64 += (act(x64 @ sh["w1"]) * (x64 @ sh["w3"])) \
+                        @ sh["w2"]
+                e_f64.append(rel_l2(y.reshape(4, -1), y64))
+            require(max(e_onehot) <= MOE_ONEHOT_TOL,
+                    f"{phase}: sorted vs onehot {max(e_onehot)}")
+            require(max(e_f64) <= MOE_F64_TOL,
+                    f"{phase}: sorted vs float64 {max(e_f64)}")
+            # the routed experts' bytes of the recorded step
+            per_expert = sum(p[k][0].numel() * p[k].element_size()
+                             for k in ("w1", "w3", "w2") if k in p)
+            expert_bytes = sum(nbytes([p[k] for k in ("w1", "w3", "w2")
+                                       if k in p]) for _, _, _, p, _ in first)
+            routed = sum(int(ex.unique().numel()) for _, _, ex, _, _ in first)
+            row["moe"] = {
+                "moe_layers": n_moe,
+                "capacity_decode": MOE.capacity(cfg, 4),
+                "dispatch_shards_decode": MOE.dispatch_shards(cfg, 4),
+                "assignments_per_step": 4 * cfg.top_k * n_moe,
+                "dropped_per_step": quartiles(drops),
+                "dropped_per_step_all": drops,
+                "dropped_per_step_mean": float(np.mean(drops)),
+                "distinct_experts_first_step": routed,
+                "sorted_vs_onehot_rel_l2_max": max(e_onehot),
+                "sorted_vs_f64_rel_l2_max": max(e_f64)}
+            del calls, batched, first
+        else:
+            for i in h.solo_ids:
+                alone = serve([i])[0][0].out
+                require(alone == reqs[i].out,
+                        f"{phase}: request {i} batched {reqs[i].out} != "
+                        f"alone {alone}")
+        require(bool(finite), f"{phase}: non-finite logits")
+
+        pd_rel, pd_argmax = prefill_vs_stream(model, params,
+                                              prompts[h.consistency_id])
+
+        full = [ms for busy, ms in steps if busy == 4]
+        trace, c4 = traced_step(model, params)
+        nb, w_all = step_bytes(model, params, c4)
+        elt = params["embed"]["w"].element_size()
+        b_ms, b_by = bound(nb, w_all, elt)
+        step_ms = quartiles(full)
+        state = [c[k] for c in c4 for k in ("conv", "h") if k in c]
+        row.update({
+            "step_ms_4_busy": step_ms, "steps_4_busy": len(full),
+            "step_ms_busy": quartiles([ms for busy, ms in steps if busy]),
+            "bound_ms": b_ms, "bound_by": b_by, "step_bytes": nb,
+            "weight_bytes": nbytes(params.parameters()),
+            "profile_decode_step": trace,
+            "device_ms_per_step": trace["device_ms"],
+            "kernels_per_step": trace.get("kernels_per_call"),
+            "idle_share": (1.0 - trace["device_ms"] / step_ms[0]) if step_ms
+            else None,
+            "prefill_vs_decode_rel_l2": pd_rel,
+            "prefill_vs_decode_argmax_equal": pd_argmax,
+            "tokens": {str(r.rid): r.out for r in reqs[:2]},
+            "peak_gib": peak_gib()})
+        if state:
+            row["state_bytes_per_slot"] = nbytes(state) // 4
+            row["cache_bytes_per_slot"] = nbytes(
+                t for c in c4 for t in leaves(c)) // 4
+        if cfg.n_experts:
+            # the reference's einsums read every expert; a dispatch that
+            # read only the routed ones would move this much
+            nb_r, _ = step_bytes(model, params, c4, rows_read=w_all
+                                 - expert_bytes + routed * per_expert)
+            row["bound_routed_only_ms"] = 1e3 * nb_r / h.HBM
+            row["step_bytes_routed_only"] = nb_r
+        del model, params, eng, c4, reqs, served
+        if not cfg.n_experts:
+            # prefill (the chunked scan) against streamed decode, in f32:
+            # in bf16 the two paths round apart with depth
+            model, params, _ = build(dataclasses.replace(
+                cfg, param_dtype="float32", activation_dtype="float32"))
+            rel32, _ = prefill_vs_stream(model, params,
+                                         prompts[h.consistency_id])
+            require(rel32 <= PREFILL_F32_TOL,
+                    f"{phase}: f32 prefill vs streamed decode {rel32} > "
+                    f"{PREFILL_F32_TOL}")
+            row["prefill_vs_decode_rel_l2_f32"] = rel32
+            row["peak_gib_f32_check"] = peak_gib()
+            del model, params
+        emit(phase, **row)
+        return row
+
+    # ---- the cross-attention phases ---------------------------------------
+    def cross_phase(role):
+        cfg = h.cfgs[role]
+        phase = f"lm:cross:{cfg.name}"
+        model, params, t_build = build(cfg)
+        vocab, bsz, s = cfg.vocab, h.cross_batch, h.cross_prompt
+        gen = torch.Generator(device=dev).manual_seed(h.seed + 9)
+        key = "enc_frames" if cfg.is_encdec else "frontend"
+        n_front = 0 if cfg.is_encdec else cfg.frontend_seq
+        max_len = n_front + 64
+
+        def frames():
+            return torch.randn((bsz, cfg.frontend_seq, cfg.d_model),
+                               generator=gen, device=dev).to(model.adt)
+        fe = frames()
+        toks = np.random.default_rng(h.seed + 9).integers(
+            0, vocab, (bsz, s + 1)).astype(np.int32)
+        h.reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        cache, logits = model.prefill(params, {"tokens": toks[:, :s],
+                                               key: fe}, max_len=max_len)
+        sync()
+        t_prefill = 1e3 * (time.perf_counter() - t0)
+        first = logits
+        out, step_ms = [], []
+        pos = np.full(bsz, n_front + s, np.int32)
+        tok = torch.argmax(logits[:, -1, :vocab], dim=-1)[:, None]
+        finite = bool(torch.isfinite(logits[..., :vocab]).all())
+        for i in range(h.cross_steps):
+            t0 = time.perf_counter()
+            cache, logits = model.decode_step(params, cache, tok, pos + i)
+            tok = torch.argmax(logits[:, -1, :vocab], dim=-1)[:, None]
+            out.append(tok[:, 0].cpu().numpy())
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            finite &= bool(torch.isfinite(logits[..., :vocab]).all())
+        launched = counted(phase)
+        require(finite, f"{phase}: non-finite logits")
+        gen_toks = np.stack(out, axis=1)
+        require(bool(((gen_toks >= 0) & (gen_toks < vocab)).all()),
+                f"{phase}: a token outside the vocab")
+
+        # prefill of S plus one decode step against prefill of S + 1
+        c_s, _ = model.prefill(params, {"tokens": toks[:, :s], key: fe},
+                               max_len=max_len)
+        _, l_step = model.decode_step(params, c_s, toks[:, s:s + 1],
+                                      np.full(bsz, n_front + s, np.int32))
+        _, l_full = model.prefill(params, {"tokens": toks, key: fe},
+                                  max_len=max_len)
+        a, b = l_step[:, -1, :vocab].float(), l_full[:, -1, :vocab].float()
+        pa, pb = torch.softmax(a, -1), torch.softmax(b, -1)
+        p_err = float(((pa - pb).abs() - 1e-2 * pb.abs()).max())
+        s_rel = rel_l2(a, b)
+        require(p_err <= 5e-3,
+                f"{phase}: prefill + step vs longer prefill in softmax "
+                f"{p_err} > 5e-3 + 1e-2 |p|")
+        require(s_rel <= PREFILL_TOL,
+                f"{phase}: prefill + step vs longer prefill {s_rel} > "
+                f"{PREFILL_TOL}")
+        del c_s
+        _, other = model.prefill(params, {"tokens": toks[:, :s],
+                                          key: frames()}, max_len=max_len)
+        live = rel_l2(other[:, -1, :vocab], first[:, -1, :vocab])
+        require(live > 1e-3, f"{phase}: other frames moved the logits by "
+                             f"only {live}")
+        trace = h.trace(lambda: model.decode_step(params, cache, tok,
+                                                  pos + h.cross_steps), n=5)
+        nb, w_dec = step_bytes(model, params, cache)
+        b_ms, b_by = bound(nb, w_dec, params["embed"]["w"].element_size())
+        med = quartiles(step_ms[1:])
+        row = {"config": config_row(cfg, params), "build_s": t_build,
+               "batch": bsz, "frontend_seq": cfg.frontend_seq,
+               "prompt_tokens": s, "steps": h.cross_steps,
+               "max_len": max_len, "prefill_ms": t_prefill,
+               "step_ms": med, "bound_ms": b_ms, "bound_by": b_by,
+               "step_bytes": nb,
+               "cross_cache_bytes": nbytes(t for c in cache
+                                           for k, t in c.items()
+                                           if k in ("xk", "xv")),
+               "device_ms_per_step": trace["device_ms"],
+               "kernels_per_step": trace.get("kernels_per_call"),
+               "idle_share": 1.0 - trace["device_ms"] / med[0],
+               "profile_decode_step": trace,
+               "step_vs_longer_prefill_softmax_excess": p_err,
+               "step_vs_longer_prefill_rel_l2": s_rel,
+               "other_frames_rel_l2": live,
+               "tokens": gen_toks[:2].tolist(), "launches": launched,
+               "peak_gib": peak_gib()}
+        emit(phase, **row)
+        del model, params, cache, fe
+        return row
+
+    for role in ("moe", "ssm", "hybrid"):
+        rows[role] = serve_phase(role)
+    for role in ("audio", "vlm"):
+        rows[role] = cross_phase(role)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"launches": launches, "rows": rows}
+
 
 def nvidia_smi_line() -> str:
     out = subprocess.run(
@@ -3182,6 +3651,21 @@ def main() -> int:
             rec["launches_slice8"] = s8["launches"][rec["name"]]
     emit("memory:slice8", max_allocated_gib=torch.cuda.max_memory_allocated()
          / 2 ** 30, seconds_since_start=time.perf_counter() - t_start)
+
+    # ---- 10f. MoE, Mamba, RG-LRU, cross-attention and the frontends ----
+    t9 = time.perf_counter()
+    s9 = slice9_phases(types.SimpleNamespace(
+        dev=dev, seed=SEED, require=require, emit=emit, counts=counts,
+        reset_counts=reset_counts, plain_free=plain_free,
+        trace=x_backward_trace, HBM=HBM_BYTES_PER_S, BF16_FLOPS=BF16_FLOPS,
+        cfgs={role: TCFG.get(name) for role, name in SLICE9_MODELS.items()},
+        max_len=128, n_requests=8, max_new=16, solo_ids=(0, 5),
+        consistency_id=7, cross_batch=4, cross_prompt=8, cross_steps=16))
+    for rec in record:
+        rec["launches_slice9"] = s9["launches"].get(rec["name"], 0)
+    emit("memory:slice9", max_allocated_gib=torch.cuda.max_memory_allocated()
+         / 2 ** 30, seconds=time.perf_counter() - t9,
+         seconds_since_start=time.perf_counter() - t_start)
 
     # ---- 11. the record, the card, the verdict ---------------------------
     print(json.dumps({"kernels": record}), flush=True)

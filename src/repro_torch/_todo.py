@@ -9,11 +9,6 @@ from __future__ import annotations
 __all__ = ["ROADMAP_ITEMS", "not_ported"]
 
 ROADMAP_ITEMS = {
-    "moe": "1.24 (mixture-of-experts layers, models/moe.py)",
-    "ssm": "1.25 (Mamba and RG-LRU layers: models/ssm.py, rglru.py, "
-           "scan_utils.py)",
-    "cross": "1.26 (cross-attention and the modality frontends: "
-             "seamless-m4t, llava-next)",
     "train": "1.27 (training: Model.loss, chunked_xent, train/, "
              "data/pipeline.py, checkpoint/, launch/train.py)",
     "multi_card": "1.28 (the model across cards: models/sharding.py, "

@@ -179,16 +179,19 @@ def sparse_linear(fmt: str, shape: Tuple[int, int],
 
 
 def param_tree(t: Mapping, dev) -> nn.Module:
-    """A reference param dict (numpy leaves) as the port's modules: a dict
-    of arrays becomes an ``nn.ParameterDict``, a dict of dicts an
-    ``nn.ModuleDict``; a module (a ``SparseLinear``) stays."""
+    """A reference param dict (numpy leaves) as the port's modules: a
+    dict of dicts becomes an ``nn.ModuleDict``, a dict holding arrays an
+    ``nn.ParameterDict`` (its sub-dicts as modules inside it, as in a
+    Mamba or MoE layer); a module (a ``SparseLinear``) stays."""
     if isinstance(t, nn.Module):
         return t
-    if not any(isinstance(v, (Mapping, nn.Module)) for v in t.values()):
-        return nn.ParameterDict({k: param(tensor_from_numpy(np.asarray(v),
-                                                            dev))
-                                 for k, v in t.items()})
-    return nn.ModuleDict({k: param_tree(v, dev) for k, v in t.items()})
+    if all(isinstance(v, (Mapping, nn.Module)) for v in t.values()):
+        return nn.ModuleDict({k: param_tree(v, dev) for k, v in t.items()})
+    out = nn.ParameterDict()
+    for k, v in t.items():
+        out[k] = (param_tree(v, dev) if isinstance(v, (Mapping, nn.Module))
+                  else param(tensor_from_numpy(np.asarray(v), dev)))
+    return out
 
 
 def _layer(t, i: int):
@@ -198,23 +201,32 @@ def _layer(t, i: int):
     return np.asarray(t)[i]
 
 
+def _unstack(stack: Mapping, plan) -> list:
+    """A reference stack (``prefix``, ``periods`` -- each period
+    position's blocks stacked over a leading layer axis -- and
+    ``suffix``) as one block per layer, in the stack's order."""
+    blocks = list(stack["prefix"])
+    for i in range(plan.n_periods):
+        blocks += [_layer(stack["periods"][f"b{j}"], i)
+                   for j in range(len(plan.period_kinds))]
+    return blocks + list(stack["suffix"])
+
+
 def model_params(params: Mapping, cfg, device=None) -> nn.ModuleDict:
     """The port's params from the reference's ``Model.init`` tree, its
     leaves numpy arrays (``jax.device_get``).  Every array keeps its
-    dtype and bits (bf16 included).  ``dec["periods"]`` -- each period
-    position's blocks stacked over a leading layer axis -- is unstacked
-    into one block per layer, in the stack's order: prefix, periods x
-    period kinds, suffix.  A leaf that is already a module (a
-    :func:`sparse_linear`) is kept."""
+    dtype and bits (bf16 included).  The decoder stack ``dec`` and an
+    encoder-decoder's ``enc`` are unstacked into one block per layer, in
+    the stack's order: prefix, periods x period kinds, suffix.  A leaf
+    that is already a module (a :func:`sparse_linear`) is kept."""
     dev = resolve_device(device)
-    plan = T.make_plan(cfg, cfg.n_layers)
-    dec = params["dec"]
-    blocks = list(dec["prefix"])
-    for i in range(plan.n_periods):
-        blocks += [_layer(dec["periods"][f"b{j}"], i)
-                   for j in range(len(plan.period_kinds))]
-    blocks += list(dec["suffix"])
-    out = nn.ModuleDict({k: param_tree(v, dev) for k, v in params.items()
-                         if k != "dec"})
-    out["dec"] = nn.ModuleList(param_tree(b, dev) for b in blocks)
+    plans = {"dec": T.make_plan(cfg, cfg.n_layers)}
+    if cfg.is_encdec:
+        plans["enc"] = T.make_plan(cfg, cfg.enc_layers,
+                                   force_dense_pattern=True, moe_ok=False)
+    out = nn.ModuleDict()
+    for k, v in params.items():
+        out[k] = (nn.ModuleList(param_tree(b, dev)
+                                for b in _unstack(v, plans[k]))
+                  if k in plans else param_tree(v, dev))
     return out

@@ -5,6 +5,7 @@ Port of ``repro/launch/serve.py``::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
         [--slots 4] [--requests 8] [--max-new 16] [--device cpu]
 
+``--arch`` takes any of the ten ids of ``repro_torch.configs.ARCH_IDS``.
 The model runs on CUDA unless ``--device cpu`` is given.  ``--smoke``
 (the default) builds the family's reduced config; ``--no-smoke`` builds
 the published one.  That is a deliberate difference: the reference's

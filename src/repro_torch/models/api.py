@@ -1,18 +1,23 @@
 """Public model API: ``build_model(cfg)`` -> :class:`Model`.
 
-Port of ``repro/models/api.py`` for the decoder-only dense family
-(minicpm-2b, qwen2.5-14b, starcoder2-15b, gemma3-4b): ``init``,
-``prefill``, ``decode_step``, ``init_cache``.  The other families raise
-naming their ROADMAP item (moe 1.24, ssm and hybrid 1.25, vlm and audio
-1.26), and so does ``loss`` (training, 1.27).
+Port of ``repro/models/api.py``: one class serves the ten architectures
+-- decoder-only LMs (dense, MoE, SSM, hybrid), the VLM (llava: the
+precomputed patch embeddings ``batch["frontend"]`` prepended to the
+text, positions running on over them) and the encoder-decoder
+(seamless: the precomputed frame embeddings ``batch["enc_frames"]``
+through a bidirectional encoder and ``enc_ln``, which the decoder
+cross-attends) -- through ``init``, ``prefill``, ``decode_step`` and
+``init_cache``.  ``loss`` raises naming its ROADMAP item (training,
+1.27).
 
 The model lives on one device: CUDA unless ``device="cpu"`` is given,
 and with neither it raises.  Params are the tree of ``nn.ModuleDict`` /
 ``nn.ParameterDict`` that :meth:`Model.init` builds or
 ``convert.model_params`` carries across from the reference; the decode
-cache is a list of per-layer ring buffers that :meth:`decode_step`
-updates in place.  Logits are float32, the padded vocab tail masked to
--1e30, as the reference computes them.
+cache is a list of per-layer caches (ring buffers, cross keys and
+values, recurrent states) that :meth:`decode_step` updates in place.
+Logits are float32, the padded vocab tail masked to -1e30, as the
+reference computes them.
 """
 from __future__ import annotations
 
@@ -26,27 +31,28 @@ from . import blocks as B
 from . import common as C
 from . import transformer as T
 
-__all__ = ["Model", "build_model"]
+__all__ = ["FAMILIES", "Model", "build_model"]
 
-_FAMILY_ITEM = {"moe": "moe", "ssm": "ssm", "hybrid": "ssm", "vlm": "cross",
-                "audio": "cross"}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 class Model:
     def __init__(self, cfg, device=None):
-        item = _FAMILY_ITEM.get(cfg.family)
-        if item is not None:
-            raise not_ported(f"the {cfg.family!r} model family ({cfg.name})",
-                             item)
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise ValueError(f"unknown model family {cfg.family!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = C.dtype_of(cfg.param_dtype)
         self.adt = C.dtype_of(cfg.activation_dtype)
         self.plan = T.make_plan(cfg, cfg.n_layers)
-        for kind, moe in T.layer_kinds(self.plan):
-            B.check_kind(cfg, kind, use_moe=moe)
+        self.enc_plan = (T.make_plan(cfg, cfg.enc_layers,
+                                     force_dense_pattern=True, moe_ok=False)
+                         if cfg.is_encdec else None)
+        kinds = T.layer_kinds(self.plan)
+        if self.enc_plan:
+            kinds += T.layer_kinds(self.enc_plan)
+        for kind, _ in kinds:
+            B.check_kind(cfg, kind)
 
     # ------------------------------------------------------------- params
     def init(self, generator: torch.Generator) -> nn.ModuleDict:
@@ -62,7 +68,13 @@ class Model:
             p["unembed"] = C.embed_init(gen, cfg.vocab, cfg.d_model,
                                         self.dtype)
         p["final_ln"] = C.rmsnorm_init(cfg.d_model, self.dtype, gen.device)
-        p["dec"] = T.stack_init(gen, cfg, self.plan, dtype=self.dtype)
+        p["dec"] = T.stack_init(gen, cfg, self.plan, cross=cfg.is_encdec,
+                                dtype=self.dtype)
+        if cfg.is_encdec:
+            p["enc"] = T.stack_init(gen, cfg, self.enc_plan,
+                                    dtype=self.dtype)
+            p["enc_ln"] = C.rmsnorm_init(cfg.d_model, self.dtype,
+                                         gen.device)
         return p
 
     def _unembed_w(self, params) -> torch.Tensor:
@@ -84,14 +96,27 @@ class Model:
     @torch.no_grad()
     def prefill(self, params, batch, *, max_len: int, q_chunk: int = 512,
                 k_chunk: int = 512):
-        """Process the full prompt ``batch["tokens"]`` (B, S); returns
-        (cache, last-position logits (B, 1, V_pad))."""
+        """Process the full prompt ``batch["tokens"]`` (B, S), with
+        ``batch["enc_frames"]`` (B, Se, D) for an encoder-decoder and
+        ``batch["frontend"]`` (B, F, D) for a VLM; returns (cache,
+        last-position logits (B, 1, V_pad))."""
         cfg = self.cfg
         x = self._embed(params, batch["tokens"])
+        memory = None
+        if cfg.is_encdec:
+            m = self._tensor(batch["enc_frames"]).to(self.adt)
+            mpos = torch.arange(m.shape[1], device=self.device)[None, :]
+            m, _ = T.stack_apply_train(params["enc"], cfg, self.enc_plan, m,
+                                       mpos, causal=False, q_chunk=q_chunk,
+                                       k_chunk=k_chunk)
+            memory = C.rmsnorm(params["enc_ln"], m, cfg.norm_eps)
+        if cfg.frontend == "vision":
+            fe = self._tensor(batch["frontend"]).to(self.adt)
+            x = torch.cat([fe, x], dim=1)
         positions = torch.arange(x.shape[1], device=self.device)[None, :]
         x, cache = T.stack_apply_prefill(params["dec"], cfg, self.plan, x,
                                          positions, max_len=max_len,
-                                         cache_dtype=self.adt,
+                                         memory=memory, cache_dtype=self.adt,
                                          q_chunk=q_chunk, k_chunk=k_chunk)
         x = C.rmsnorm(params["final_ln"], x[:, -1:], cfg.norm_eps)
         return cache, self._logits(params, x)
@@ -117,7 +142,8 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int) -> list:
         return T.stack_cache_init(self.cfg, self.plan, batch, max_len,
-                                  dtype=self.adt, device=self.device)
+                                  cross=self.cfg.is_encdec, dtype=self.adt,
+                                  device=self.device)
 
 
 def build_model(cfg, device=None) -> Model:

@@ -1,12 +1,17 @@
 """Residual blocks: one init / apply pair per layer kind.
 
-Port of ``repro/models/blocks.py`` for the attention kinds, ``global``
-and ``local`` (attention + dense FFN, or the sparse FFN through
-``ffn_apply``).  The rest raises naming its ROADMAP item: ``mamba`` and
-``recurrent`` (1.25), MoE layers (1.24), and the parallel residual
-block (1.28), which exists to share one all-reduce between attention
-and MLP on a sharded model.  Cross-attention (1.26) has no parameter
-here: its families raise in ``build_model``.
+Port of ``repro/models/blocks.py``.  Kinds: ``global`` and ``local``
+(attention, then a dense FFN, the sparse FFN through ``ffn_apply``, or
+MoE), ``recurrent`` (RG-LRU, then the FFN) and ``mamba`` (the fused
+Mamba block).  ``cross=True`` adds encoder-decoder cross-attention
+(``lnx``, ``xattn``) to an attention block.  The parallel residual
+block raises naming its ROADMAP item (1.28): it exists to share one
+all-reduce between attention and MLP on a sharded model.
+
+Decode caches: an attention layer's ring buffer (``attention.py``), or
+``{"self": ring, "xk", "xv"}`` with cross-attention, and ``{"conv",
+"h"}`` for ``mamba`` and ``recurrent``.  Every decode step writes its
+layer's cache in place.
 """
 from __future__ import annotations
 
@@ -18,82 +23,152 @@ from repro_torch._todo import not_ported
 from . import attention as A
 from . import common as C
 from . import ffn as FF
+from . import moe as MOE
+from . import rglru as RG
+from . import ssm as SSM
 
-__all__ = ["check_kind", "block_init", "block_forward", "block_apply_train",
-           "block_apply_decode", "block_cache_init"]
+__all__ = ["KINDS", "check_kind", "block_init", "block_apply_train",
+           "block_apply_decode", "block_cache_init", "cross_project",
+           "cross_attend"]
+
+KINDS = ("global", "local", "recurrent", "mamba")
 
 
-def check_kind(cfg, kind: str, *, use_moe: bool = False) -> None:
+def check_kind(cfg, kind: str) -> None:
     """Raise for a layer this port does not run yet."""
     if cfg.parallel_block:
         raise not_ported("the parallel residual block", "multi_card")
-    if kind in ("mamba", "recurrent"):
-        raise not_ported(f"the {kind!r} layer kind", "ssm")
-    if kind not in ("global", "local"):
+    if kind not in KINDS:
         raise ValueError(f"unknown layer kind {kind!r}")
-    if use_moe:
-        raise not_ported("mixture-of-experts layers", "moe")
 
 
 def block_init(gen: torch.Generator, cfg, kind: str, *, use_moe: bool,
-               dtype) -> nn.ModuleDict:
-    check_kind(cfg, kind, use_moe=use_moe)
-    # MoE archs' dense layers use the wider combined width (deepseek)
-    d_ff = cfg.d_ff * (cfg.top_k + cfg.n_shared_experts) \
-        if cfg.n_experts else cfg.d_ff
-    return nn.ModuleDict({
-        "ln1": C.rmsnorm_init(cfg.d_model, dtype, gen.device),
-        "attn": A.attn_init(gen, cfg, dtype),
-        "ln2": C.rmsnorm_init(cfg.d_model, dtype, gen.device),
-        "mlp": FF.ffn_init(gen, cfg, dtype, d_ff=d_ff),
-    })
+               cross: bool = False, dtype) -> nn.ModuleDict:
+    check_kind(cfg, kind)
+    dev = gen.device
+    if kind == "mamba":
+        return nn.ModuleDict({
+            "ln": C.rmsnorm_init(cfg.d_model, dtype, dev),
+            "mamba": SSM.mamba_init(gen, cfg, dtype)})
+    p = nn.ModuleDict({"ln1": C.rmsnorm_init(cfg.d_model, dtype, dev)})
+    if kind == "recurrent":
+        p["rec"] = RG.rglru_init(gen, cfg, dtype)
+    else:
+        p["attn"] = A.attn_init(gen, cfg, dtype)
+        if cross:
+            p["lnx"] = C.rmsnorm_init(cfg.d_model, dtype, dev)
+            p["xattn"] = A.attn_init(gen, cfg, dtype)
+    p["ln2"] = C.rmsnorm_init(cfg.d_model, dtype, dev)
+    if use_moe:
+        p["moe"] = MOE.moe_init(gen, cfg, dtype)
+    else:
+        # MoE archs' dense layers use the wider combined width (deepseek)
+        d_ff = cfg.d_ff * (cfg.top_k + cfg.n_shared_experts) \
+            if cfg.n_experts else cfg.d_ff
+        p["mlp"] = FF.ffn_init(gen, cfg, dtype, d_ff=d_ff)
+    return p
 
 
 def _mix_ffn(p, cfg, x: torch.Tensor):
-    """(FFN output, auxiliary loss): the loss is MoE's, 0 here."""
+    """(FFN output, auxiliary loss): MoE's loss, or 0."""
     if "moe" in p:
-        raise not_ported("mixture-of-experts layers", "moe")
+        return MOE.moe_apply(p["moe"], cfg, x)
     return (FF.ffn_apply(p["mlp"], cfg, x),
             x.new_zeros((), dtype=torch.float32))
 
 
-def block_forward(p, cfg, kind: str, x: torch.Tensor,
-                  positions: torch.Tensor, *, causal: bool = True,
-                  q_chunk: int = 512, k_chunk: int = 512):
-    """Full-sequence block: (x_out, aux_loss, (k, v)), the attention's
-    keys and values being what a prefill caches."""
-    h = C.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    h, kv = A.attn_apply_train(p["attn"], cfg, h, positions,
-                               is_local=(kind == "local"), causal=causal,
-                               q_chunk=q_chunk, k_chunk=k_chunk)
-    x = x + h
-    h2, aux = _mix_ffn(p, cfg, C.rmsnorm(p["ln2"], x, cfg.norm_eps))
-    return x + h2, aux, kv
+def cross_project(p, cfg, memory: torch.Tensor):
+    """The encoder output's cross-attention keys and values (B, Se, Hkv,
+    hd)."""
+    hd = cfg.resolved_head_dim
+    shape = (*memory.shape[:2], cfg.n_kv_heads, hd)
+    return (C.dense_apply(p["xattn"]["wk"], memory).reshape(shape),
+            C.dense_apply(p["xattn"]["wv"], memory).reshape(shape))
+
+
+def cross_attend(p, cfg, x: torch.Tensor, xk: torch.Tensor,
+                 xv: torch.Tensor, *, decode: bool = False,
+                 q_chunk: int = 512, k_chunk: int = 512) -> torch.Tensor:
+    """x plus its cross-attention over (xk, xv): non-causal, no RoPE; a
+    decode step (one token) attends through ``decode_attention``, as the
+    reference's does."""
+    hx = C.rmsnorm(p["lnx"], x, cfg.norm_eps)
+    b, s = hx.shape[:2]
+    q = C.dense_apply(p["xattn"]["wq"], hx).reshape(
+        b, s, cfg.n_heads, cfg.resolved_head_dim)
+    if decode:      # every encoder position is valid
+        s_enc = xk.shape[1]
+        kv_pos = torch.arange(s_enc, dtype=torch.int32,
+                              device=x.device).expand(b, s_enc)
+        o = A.decode_attention(q, xk, xv, kv_pos,
+                               torch.full((b,), s_enc, dtype=torch.int32,
+                                          device=x.device))
+    else:
+        o = A.flash_attention(q, xk, xv, causal=False, window=None,
+                              q_chunk=q_chunk, k_chunk=k_chunk)
+    return x + C.dense_apply(p["xattn"]["wo"], o.reshape(b, s, -1))
 
 
 def block_apply_train(p, cfg, kind: str, x: torch.Tensor,
                       positions: torch.Tensor, *, causal: bool = True,
+                      memory: torch.Tensor | None = None,
                       q_chunk: int = 512, k_chunk: int = 512):
-    """Full-sequence block.  Returns (x_out, aux_loss)."""
-    x, aux, _ = block_forward(p, cfg, kind, x, positions, causal=causal,
-                              q_chunk=q_chunk, k_chunk=k_chunk)
-    return x, aux
+    """Full-sequence block.  ``memory``: the encoder output, for
+    cross-attention.  Returns (x_out, aux_loss)."""
+    if kind == "mamba":
+        h, _ = SSM.mamba_apply_train(p["mamba"], cfg,
+                                     C.rmsnorm(p["ln"], x, cfg.norm_eps))
+        return x + h, x.new_zeros((), dtype=torch.float32)
+    h = C.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if kind == "recurrent":
+        h, _ = RG.rglru_apply_train(p["rec"], cfg, h)
+    else:
+        h, _ = A.attn_apply_train(p["attn"], cfg, h, positions,
+                                  is_local=(kind == "local"), causal=causal,
+                                  q_chunk=q_chunk, k_chunk=k_chunk)
+    x = x + h
+    if "xattn" in p and memory is not None:
+        xk, xv = cross_project(p, cfg, memory)
+        x = cross_attend(p, cfg, x, xk, xv, q_chunk=q_chunk,
+                         k_chunk=k_chunk)
+    h2, aux = _mix_ffn(p, cfg, C.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x + h2, aux
 
 
 def block_apply_decode(p, cfg, kind: str, x: torch.Tensor, cache: dict,
                        pos: torch.Tensor):
     """Single-token step; updates ``cache`` in place.  Returns (x_out,
     cache)."""
+    if kind == "mamba":
+        h, _ = SSM.mamba_apply_decode(
+            p["mamba"], cfg, C.rmsnorm(p["ln"], x, cfg.norm_eps), cache)
+        return x + h, cache
     h = C.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    h, cache = A.attn_apply_decode(p["attn"], cfg, h, cache, pos,
-                                   is_local=(kind == "local"))
+    if kind == "recurrent":
+        h, _ = RG.rglru_apply_decode(p["rec"], cfg, h, cache)
+    else:
+        h, _ = A.attn_apply_decode(p["attn"], cfg, h, cache.get("self",
+                                                                cache),
+                                   pos, is_local=(kind == "local"))
     x = x + h
+    if "xattn" in p and "xk" in cache:
+        x = cross_attend(p, cfg, x, cache["xk"], cache["xv"], decode=True)
     h2, _ = _mix_ffn(p, cfg, C.rmsnorm(p["ln2"], x, cfg.norm_eps))
     return x + h2, cache
 
 
 def block_cache_init(cfg, kind: str, batch: int, max_len: int, *,
-                     dtype, device=None) -> dict:
+                     cross: bool = False, dtype, device=None) -> dict:
     check_kind(cfg, kind)
-    return A.attn_cache_init(cfg, batch, max_len, is_local=(kind == "local"),
-                             dtype=dtype, device=device)
+    if kind == "mamba":
+        return SSM.mamba_cache_init(cfg, batch, dtype, device)
+    if kind == "recurrent":
+        return RG.rglru_cache_init(cfg, batch, dtype, device)
+    c = A.attn_cache_init(cfg, batch, max_len, is_local=(kind == "local"),
+                          dtype=dtype, device=device)
+    if not cross:
+        return c
+    shape = (batch, cfg.frontend_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"self": c,
+            "xk": torch.zeros(shape, dtype=dtype, device=device),
+            "xv": torch.zeros(shape, dtype=dtype, device=device)}

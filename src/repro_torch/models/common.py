@@ -21,7 +21,8 @@ import math
 import torch
 from torch import nn
 
-__all__ = ["dtype_of", "param", "dense_init", "dense_apply", "rmsnorm_init",
+__all__ = ["dtype_of", "param", "normal", "dense_init", "dense_apply",
+           "rmsnorm_init",
            "rmsnorm", "activation", "rope_freqs", "apply_rope", "VOCAB_PAD",
            "padded_vocab", "embed_init"]
 
@@ -37,7 +38,7 @@ def param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-def _normal(gen: torch.Generator, shape, scale: float,
+def normal(gen: torch.Generator, shape, scale: float,
             dtype: torch.dtype) -> torch.Tensor:
     """N(0, scale^2) drawn in float32 on the generator's device, then
     cast, as the reference draws."""
@@ -50,7 +51,7 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
                bias: bool = False,
                scale: float | None = None) -> nn.ParameterDict:
     scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
-    p = nn.ParameterDict({"w": param(_normal(gen, (in_dim, out_dim), scale,
+    p = nn.ParameterDict({"w": param(normal(gen, (in_dim, out_dim), scale,
                                              dtype))})
     if bias:
         p["b"] = param(torch.zeros(out_dim, dtype=dtype, device=gen.device))
@@ -117,5 +118,5 @@ def padded_vocab(vocab: int) -> int:
 def embed_init(gen: torch.Generator, vocab: int, dim: int,
                dtype) -> nn.ParameterDict:
     """Embedding table with the vocab padded to a multiple of 128."""
-    return nn.ParameterDict({"w": param(_normal(gen, (padded_vocab(vocab),
+    return nn.ParameterDict({"w": param(normal(gen, (padded_vocab(vocab),
                                                       dim), 0.02, dtype))})

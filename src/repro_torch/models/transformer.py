@@ -7,8 +7,10 @@ the layer pattern, then the remainder).  The reference stacks each
 period position's params over periods and scans; here the stack is an
 ``nn.ModuleList`` of one block per layer in the reference's order --
 prefix, then periods x period kinds, then suffix -- walked by a Python
-loop, and the decode cache is a list of one ring-buffer dict per layer
-in the same order.  ``chunked_xent`` (the loss) belongs to training
+loop, and the decode cache is a list of one cache dict per layer in the
+same order (``blocks.block_cache_init``).  :func:`stack_apply_train` is
+the forward without caches (an encoder's at prefill); its
+rematerialisation and ``chunked_xent`` (the loss) belong to training
 (ROADMAP 1.27).
 """
 from __future__ import annotations
@@ -21,9 +23,13 @@ from torch import nn
 
 from . import attention as A
 from . import blocks as B
+from . import common as C
+from . import rglru as RG
+from . import ssm as SSM
 
 __all__ = ["StackPlan", "make_plan", "layer_kinds", "stack_init",
-           "stack_apply_prefill", "stack_apply_decode", "stack_cache_init"]
+           "stack_apply_train", "stack_apply_prefill", "stack_apply_decode",
+           "stack_cache_init"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,25 +73,76 @@ def layer_kinds(plan: StackPlan) -> List[tuple]:
 
 
 def stack_init(gen: torch.Generator, cfg, plan: StackPlan, *,
-               dtype) -> nn.ModuleList:
+               cross: bool = False, dtype) -> nn.ModuleList:
     return nn.ModuleList(
-        B.block_init(gen, cfg, kind, use_moe=moe, dtype=dtype)
+        B.block_init(gen, cfg, kind, use_moe=moe, cross=cross, dtype=dtype)
         for kind, moe in layer_kinds(plan))
+
+
+def stack_apply_train(layers, cfg, plan: StackPlan, x: torch.Tensor,
+                      positions: torch.Tensor, *, causal: bool = True,
+                      memory: torch.Tensor | None = None,
+                      q_chunk: int = 512, k_chunk: int = 512):
+    """Full-sequence forward (the encoder of an encoder-decoder at
+    prefill).  Returns (x, summed auxiliary loss)."""
+    aux_total = x.new_zeros((), dtype=torch.float32)
+    for p, (kind, _) in zip(layers, layer_kinds(plan)):
+        x, aux = B.block_apply_train(p, cfg, kind, x, positions,
+                                     causal=causal, memory=memory,
+                                     q_chunk=q_chunk, k_chunk=k_chunk)
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 def stack_apply_prefill(layers, cfg, plan: StackPlan, x: torch.Tensor,
                         positions: torch.Tensor, *, max_len: int,
-                        cache_dtype, q_chunk: int = 512, k_chunk: int = 512):
+                        memory: torch.Tensor | None = None, cache_dtype,
+                        q_chunk: int = 512, k_chunk: int = 512):
     """Forward over the prompt, building the decode caches.  Returns (x,
     list of per-layer caches)."""
     cache = []
     for p, (kind, _) in zip(layers, layer_kinds(plan)):
-        x, _, (k, v) = B.block_forward(p, cfg, kind, x, positions,
-                                       q_chunk=q_chunk, k_chunk=k_chunk)
-        cache.append(A.attn_cache_from_prefill(
-            cfg, k.to(cache_dtype), v.to(cache_dtype),
-            is_local=(kind == "local"), max_len=max_len))
+        x, c = _block_prefill(p, cfg, kind, x, positions, max_len=max_len,
+                              memory=memory, cache_dtype=cache_dtype,
+                              q_chunk=q_chunk, k_chunk=k_chunk)
+        cache.append(c)
     return x, cache
+
+
+def _block_prefill(p, cfg, kind: str, x: torch.Tensor,
+                   positions: torch.Tensor, *, max_len: int, memory,
+                   cache_dtype, q_chunk: int, k_chunk: int):
+    """One block over the prompt and its decode cache: the recurrent
+    kinds' final state (conv tail cast to ``cache_dtype``, h float32),
+    or the attention ring buffer (plus the cross-attention keys and
+    values of ``memory``)."""
+    if kind == "mamba":
+        h, st = SSM.mamba_apply_train(p["mamba"], cfg,
+                                      C.rmsnorm(p["ln"], x, cfg.norm_eps))
+        return x + h, {"conv": st["conv"].to(cache_dtype), "h": st["h"]}
+    h = C.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if kind == "recurrent":
+        h, st = RG.rglru_apply_train(p["rec"], cfg, h)
+        c = {"conv": st["conv"].to(cache_dtype), "h": st["h"]}
+        x = x + h
+    else:
+        h, (k, v) = A.attn_apply_train(p["attn"], cfg, h, positions,
+                                       is_local=(kind == "local"),
+                                       causal=True, q_chunk=q_chunk,
+                                       k_chunk=k_chunk)
+        x = x + h
+        c = A.attn_cache_from_prefill(cfg, k.to(cache_dtype),
+                                      v.to(cache_dtype),
+                                      is_local=(kind == "local"),
+                                      max_len=max_len)
+        if "xattn" in p and memory is not None:
+            xk, xv = B.cross_project(p, cfg, memory)
+            x = B.cross_attend(p, cfg, x, xk, xv, q_chunk=q_chunk,
+                               k_chunk=k_chunk)
+            c = {"self": c, "xk": xk.to(cache_dtype),
+                 "xv": xv.to(cache_dtype)}
+    h2, _ = B._mix_ffn(p, cfg, C.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x + h2, c
 
 
 def stack_apply_decode(layers, cfg, plan: StackPlan, x: torch.Tensor,
@@ -98,7 +155,7 @@ def stack_apply_decode(layers, cfg, plan: StackPlan, x: torch.Tensor,
 
 
 def stack_cache_init(cfg, plan: StackPlan, batch: int, max_len: int, *,
-                     dtype, device=None) -> list:
-    return [B.block_cache_init(cfg, kind, batch, max_len, dtype=dtype,
-                               device=device)
+                     cross: bool = False, dtype, device=None) -> list:
+    return [B.block_cache_init(cfg, kind, batch, max_len, cross=cross,
+                               dtype=dtype, device=device)
             for kind, _ in layer_kinds(plan)]

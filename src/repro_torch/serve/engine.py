@@ -6,7 +6,12 @@ prefilled into a free cache slot, and every tick runs one batched
 ``decode_step`` for all slots, greedy argmax read on the host.  A
 finished sequence (EOS or its token budget) frees its slot for the next
 queued request.  Params may hold ``SparseLinear`` FFN modules
-(``repro_torch.sparse``); their products then run through K5.
+(``repro_torch.sparse``); their products then run through K5.  Every
+family serves: a layer's cache may nest (cross-attention's ``{"self",
+"xk", "xv"}``) or hold a recurrent state (``conv``, ``h``), and a
+reused slot starts from a fresh cache.  As the reference's, the engine
+takes no frames or patches: an encoder-decoder's cross keys and values
+stay zero and a VLM serves text alone (``Model.prefill`` takes them).
 
 **A deliberate difference.**  The reference's ``_prefill_one`` streams a
 new prompt through ``decode_step`` for EVERY slot, so each slot already
@@ -17,6 +22,9 @@ tokens.  Here the prompt streams through the admitted slot alone, as
 ``decode_step`` on a batch-1 view of that slot's cache rows (the cache
 is updated in place, so the view writes into the engine's cache), and no
 other slot's cache changes: every request gets the tokens it gets alone.
+An MoE layer is the exception the reference's semantics make: its
+expert capacity counts every token of a step, idle slots included, so
+a token's output depends on the tokens routed beside it.
 
 :class:`SolveEngine` is a thin single-operator COMPATIBILITY SHIM over
 the multi-tenant solve path (:mod:`repro_torch.serve.registry` +
@@ -36,6 +44,15 @@ import torch
 from .scheduler import SolveRequest  # re-export: the shim's request type
 
 __all__ = ["Engine", "Request", "SolveEngine", "SolveRequest"]
+
+
+def _map_tree(fn, tree, *others):
+    """``fn`` over the tensors of a nested dict (and the same places of
+    ``others``), as a dict of the same shape."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    return fn(tree, *others)
 
 
 @dataclasses.dataclass
@@ -67,8 +84,7 @@ class Engine:
     def _slot_cache(self, slot: int) -> list:
         """Slot ``slot``'s cache rows as a batch-1 cache: views, so a
         decode step on it writes into the engine's cache."""
-        return [{k: t[slot:slot + 1] for k, t in c.items()}
-                for c in self.cache]
+        return [_map_tree(lambda t: t[slot:slot + 1], c) for c in self.cache]
 
     def _prefill_one(self, slot: int, req: Request):
         """Stream the prompt through decode steps of this slot alone."""
@@ -99,10 +115,12 @@ class Engine:
         return False
 
     def _reset_slot(self, s: int):
+        """Slot ``s`` back to a fresh cache: every tensor of every layer's
+        (possibly nested) cache, recurrent states and cross keys
+        included."""
         fresh = self.model.init_cache(1, self.max_len)
-        for c, f in zip(self.cache, fresh):
-            for k, t in c.items():
-                t[s:s + 1] = f[k]
+        for view, f in zip(self._slot_cache(s), fresh):
+            _map_tree(lambda t, new: t.copy_(new), view, f)
 
     def step(self):
         """One engine tick: batched decode for all slots."""

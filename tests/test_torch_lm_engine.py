@@ -2,7 +2,9 @@
 reference's (``repro.serve.engine.Engine``) and its greedy decode.
 
 The reference's params carried across (``convert.model_params``) on
-smoke configs (2 layers, float32, the CPU); prompts from numpy seeds.
+smoke configs (2-4 layers, float32, the CPU; every family: dense, MoE,
+Mamba, RG-LRU, the VLM and the encoder-decoder, whose engine cross
+cache stays zero as the reference's does); prompts from numpy seeds.
 Held token for token: the port's engine against the reference's
 ``_greedy_reference`` (``tests/test_serve_engine.py``), against the
 reference's engine at one slot, and every request of a batched run
@@ -26,6 +28,9 @@ from repro_torch.models.api import build_model
 from repro_torch.serve import Engine, Request
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+NEW_FAMILIES = ["deepseek-moe-16b", "granite-moe-3b-a800m", "falcon-mamba-7b",
+                "recurrentgemma-2b", "llava-next-mistral-7b",
+                "seamless-m4t-medium"]
 
 
 def _jax():
@@ -93,19 +98,24 @@ def test_engine_matches_reference_greedy_decode(pair):
 
 
 @pytest.mark.parametrize("eos", [False, True])
-def test_each_request_alone_equals_reference_engine(pair, eos):
+@pytest.mark.parametrize("arch", ["minicpm-2b"] + NEW_FAMILIES)
+def test_each_request_alone_equals_reference_engine(pair, arch, eos):
     _, _, _, JE = _jax()
-    cfg, jm, jp, step, tm, tp = pair("minicpm-2b", 0)
+    cfg, jm, jp, step, tm, tp = pair(arch, 0)
     prompts = _prompts(cfg, (4, 9, 14))
     for p in prompts:
-        eos_id = -1
+        eos_id, n_out = -1, 8
         if eos:   # stop at the third token the request would produce
-            eos_id = _run_ref(JE, jm, jp, step, [p], slots=1, max_new=8)[0][2]
+            full = _run_ref(JE, jm, jp, step, [p], slots=1, max_new=8)[0]
+            eos_id = full[2]
+            # the first occurrence past the prefill's token, which the
+            # engine does not test for EOS
+            n_out = full.index(eos_id, 1) + 1
         want = _run_ref(JE, jm, jp, step, [p], slots=1, max_new=8,
                         eos_id=eos_id)
         got = _run_port(tm, tp, [p], slots=1, max_new=8, eos_id=eos_id)
         assert got == want
-        assert len(got[0]) == (3 if eos else 8)
+        assert len(got[0]) == n_out
 
 
 def test_batched_requests_equal_their_solo_runs_unlike_reference(pair):
@@ -124,15 +134,73 @@ def test_batched_requests_equal_their_solo_runs_unlike_reference(pair):
     assert _run_port(tm, tp, prompts, slots=3, max_new=8) == solo
 
 
-def test_slot_reuse_with_more_requests_than_slots(pair):
+@pytest.mark.parametrize("arch", ["qwen2.5-14b"] + NEW_FAMILIES)
+def test_slot_reuse_with_more_requests_than_slots(pair, arch):
+    """Six requests through two slots (one for MoE, whose capacity
+    couples the tokens of a step) equal their solo runs in the
+    reference's engine: a reused slot keeps nothing of its last
+    request."""
     _, _, _, JE = _jax()
-    cfg, jm, jp, step, tm, tp = pair("qwen2.5-14b", 1)
+    cfg, jm, jp, step, tm, tp = pair(arch, 1)
     prompts = _prompts(cfg, (5, 3, 8, 4, 6, 2), seed=4)
     solo = [_run_ref(JE, jm, jp, step, [p], slots=1, max_new=6)[0]
             for p in prompts]
-    got = _run_port(tm, tp, prompts, slots=2, max_new=6)
+    got = _run_port(tm, tp, prompts, slots=1 if cfg.n_experts else 2,
+                    max_new=6)
     assert got == solo
     assert all(len(o) == 6 for o in got)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-2b",
+                                  "seamless-m4t-medium"])
+def test_reused_slot_starts_from_a_fresh_cache(arch):
+    """After a request, its slot's recurrent states (conv, h) or cross
+    keys and values are what ``init_cache`` gives again at the next
+    admission, and the next request gets its solo tokens."""
+    cfg = TCFG.smoke(arch)
+    tm = build_model(cfg, device="cpu")
+    tp = tm.init(torch.Generator().manual_seed(2))
+    if cfg.is_encdec:     # live cross keys, as a prefill with frames leaves
+        tp_x = tm.prefill(tp, {"tokens": np.zeros((1, 3), np.int64),
+                               "enc_frames": torch.randn(
+                                   1, cfg.frontend_seq, cfg.d_model)},
+                          max_len=32)[0]
+    prompts = _prompts(cfg, (6, 4), seed=7)
+    eng = Engine(tm, tp, batch_slots=1, max_len=32)
+    first = Request(rid=0, prompt=prompts[0], max_new=5)
+    eng.run([first])
+    if cfg.is_encdec:
+        for c, x in zip(eng.cache, tp_x):
+            c["xk"].copy_(x["xk"])
+            c["xv"].copy_(x["xv"])
+    states = [t for c in eng.cache for t in _leaves(c)]
+    assert any(bool(t.any()) for t in states)
+    eng._reset_slot(0)
+    fresh = [t for c in tm.init_cache(1, 32) for t in _leaves(c)]
+    assert all(torch.equal(a, b) for a, b in zip(states, fresh))
+    second = Request(rid=1, prompt=prompts[1], max_new=5)
+    eng.run([second])
+    assert second.out == _run_port(tm, tp, [prompts[1]], slots=1,
+                                   max_new=5, max_len=32)[0]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "granite-moe-3b-a800m"])
+def test_moe_engine_run_repeats_token_for_token(arch):
+    """Four slots, eight requests: the capacity couples the tokens of a
+    step, and the same run gives the same tokens again."""
+    cfg = TCFG.smoke(arch)
+    tm = build_model(cfg, device="cpu")
+    tp = tm.init(torch.Generator().manual_seed(3))
+    prompts = _prompts(cfg, [4 + i % 13 for i in range(8)], seed=8)
+    runs = [_run_port(tm, tp, prompts, slots=4, max_new=6) for _ in range(2)]
+    assert runs[0] == runs[1]
+    assert all(len(o) == 6 for o in runs[0])
 
 
 def test_request_of_one_token_frees_its_slot_at_admission():
@@ -201,3 +269,52 @@ def test_engine_on_card_matches_cpu_and_runs_k5():
         if dev == "cuda":
             assert k5.launches >= 1
     assert tokens["cuda"] == tokens["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_new_family_on_card_matches_cpu(arch):
+    """Each new family's smoke config on the card, float32, the CPU's
+    params: prefill (with frames or patches) and three decode steps
+    within 1e-4 * max of the CPU's logits; the engine's requests equal
+    their solo runs at the same slot count (MoE: the same run twice
+    gives the same tokens)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = TCFG.smoke(arch)
+    base = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 12)).astype(np.int32)
+    extra = rng.standard_normal((2, cfg.frontend_seq, cfg.d_model)).astype(
+        np.float32)
+    inputs, n_front = {}, 0
+    if cfg.is_encdec:
+        inputs = {"enc_frames": extra}
+    elif cfg.frontend == "vision":
+        inputs, n_front = {"frontend": extra}, cfg.frontend_seq
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        tm = build_model(cfg, device=dev)
+        tp = copy.deepcopy(base).to(dev)
+        cache, out = tm.prefill(tp, {"tokens": toks[:, :9], **inputs},
+                                max_len=n_front + 16)
+        outs = [out]
+        for i in range(3):
+            cache, out = tm.decode_step(tp, cache, toks[:, 9 + i:10 + i],
+                                        np.full(2, n_front + 9 + i,
+                                                np.int32))
+            outs.append(out)
+        logits[dev] = [o[..., :cfg.vocab].cpu().numpy() for o in outs]
+        if dev == "cuda":
+            prompts = _prompts(cfg, (4, 9, 14, 5))
+            batched = _run_port(tm, tp, prompts, slots=2, max_new=6)
+            if cfg.n_experts:
+                assert _run_port(tm, tp, prompts, slots=2,
+                                 max_new=6) == batched
+            else:
+                assert batched == [_run_port(tm, tp, [p], slots=2,
+                                             max_new=6)[0] for p in prompts]
+    for got, want in zip(logits["cuda"], logits["cpu"]):
+        err = float(np.abs(got - want).max())
+        assert err <= 1e-4 * float(np.abs(want).max()), (arch, err)

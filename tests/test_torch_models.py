@@ -7,7 +7,11 @@ Held: every config field and ``n_params`` equal; norms, RoPE,
 activations, attention within float32 round-off (stated per test);
 ``prefill`` and ``decode_step`` logits within 1e-4 * max|logit| and the
 caches' k / v within 1e-5 * max|k|, positions and insertion counters
-equal, for the four dense smoke configs (2-6 layers, float32).
+equal, for the four dense smoke configs (2-6 layers, float32); every
+one of the ten smoke configs builds, prefills and decodes on the CPU.
+``carry`` and ``check_prefill_and_decode`` serve the other families'
+parity tests too (``test_torch_moe.py``, ``test_torch_ssm.py``,
+``test_torch_cross.py``).
 """
 import dataclasses
 
@@ -201,26 +205,47 @@ def test_decode_attention_matches(window, cap):
 
 
 # ------------------------------------------------------------ whole models
+def _index(tree, i):
+    """Entry ``i`` of a tree stacked over a leading layer axis."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
 def _ref_layers(cache, plan):
     """The reference's decode cache as the port's per-layer list."""
     out = list(cache["prefix"])
     for i in range(plan.n_periods):
-        out += [{k: np.asarray(v)[i] for k, v in
-                 cache["periods"][f"b{j}"].items()}
+        out += [_index(cache["periods"][f"b{j}"], i)
                 for j in range(len(plan.period_kinds))]
     return out + list(cache["suffix"])
+
+
+def _compare_tree(port, ref, what):
+    """A layer's cache, nested dicts included: ring positions and
+    insertion counters equal, every other tensor (k / v, cross keys and
+    values, conv tails, recurrent states) within CACHE_TOL * max|ref|;
+    every dtype the reference's."""
+    if isinstance(port, dict):
+        assert sorted(port) == sorted(ref), (what, sorted(port), sorted(ref))
+        for k in port:
+            _compare_tree(port[k], ref[k], f"{what} {k}")
+        return
+    assert str(port.dtype).removeprefix("torch.") == \
+        np.asarray(ref).dtype.name, what
+    if what.endswith((" pos", " ins")):
+        np.testing.assert_array_equal(port.numpy(), np.asarray(ref),
+                                      err_msg=what)
+    else:
+        _close(port.float().numpy(), np.asarray(ref, np.float32), CACHE_TOL,
+               what)
 
 
 def _compare_caches(port, ref_tree, plan, what):
     ref = _ref_layers(ref_tree, plan)
     assert len(port) == len(ref)
     for i, (p, r) in enumerate(zip(port, ref)):
-        for k in ("k", "v"):
-            _close(p[k].numpy(), np.asarray(r[k]), CACHE_TOL,
-                   f"{what} layer {i} {k}")
-        for k in ("pos", "ins"):
-            np.testing.assert_array_equal(p[k].numpy(), np.asarray(r[k]),
-                                          err_msg=f"{what} layer {i} {k}")
+        _compare_tree(p, r, f"{what} layer {i}")
 
 
 def _compare_logits(got, want, vocab, what):
@@ -239,38 +264,57 @@ def _cfg(arch):
 @pytest.fixture(scope="module", params=DENSE + ["qwen2.5-14b:vocab500"])
 def carried(request):
     """(cfg, reference model and params, port model and params)."""
-    jax, jnp, _ = _jax()
-    from repro.models.api import build_model as jbuild
     cfg = _cfg(request.param)
-    jm = jbuild(cfg)
-    jp = jm.init(jax.random.PRNGKey(3))
-    tm = build_model(cfg, device="cpu")
-    tp = convert.model_params(jax.device_get(jp), cfg, device="cpu")
-    return cfg, jm, jp, tm, tp
+    return (cfg, *carry(cfg))
 
 
-def test_prefill_and_decode_match_reference(carried):
+def check_prefill_and_decode(cfg, jm, jp, tm, tp, *, inputs=None,
+                             n_front=0, steps=3, seed=11):
+    """Prefill 20 tokens (with ``inputs``: frames or patches as numpy),
+    then ``steps`` decode steps, through both packages: logits and every
+    cache within tolerance after each call."""
     jax, jnp, _ = _jax()
-    cfg, jm, jp, tm, tp = carried
-    rng = np.random.default_rng(11)
-    b, s, max_len, steps = 2, 20, 32, 3
+    rng = np.random.default_rng(seed)
+    b, s = 2, 20
+    max_len = 32 + n_front
+    inputs = inputs or {}
     toks = rng.integers(0, cfg.vocab, (b, s + steps)).astype(np.int32)
-    jcache, jlog = jax.jit(lambda p, t: jm.prefill(
-        p, {"tokens": t}, max_len=max_len, q_chunk=16, k_chunk=16))(
-        jp, jnp.asarray(toks[:, :s]))
-    tcache, tlog = tm.prefill(tp, {"tokens": torch.from_numpy(toks[:, :s])},
-                              max_len=max_len, q_chunk=16, k_chunk=16)
+    jcache, jlog = jax.jit(lambda p, t, x: jm.prefill(
+        p, {"tokens": t, **x}, max_len=max_len, q_chunk=16, k_chunk=16))(
+        jp, jnp.asarray(toks[:, :s]),
+        {k: jnp.asarray(v) for k, v in inputs.items()})
+    tcache, tlog = tm.prefill(
+        tp, {"tokens": torch.from_numpy(toks[:, :s]),
+             **{k: torch.from_numpy(v) for k, v in inputs.items()}},
+        max_len=max_len, q_chunk=16, k_chunk=16)
     _compare_logits(tlog, jlog, cfg.vocab, "prefill logits")
     _compare_caches(tcache, jcache, tm.plan, "prefill cache")
     jstep = jax.jit(jm.decode_step)
     for i in range(steps):
-        pos = np.full(b, s + i, np.int32)
+        pos = np.full(b, n_front + s + i, np.int32)
         tok = toks[:, s + i:s + i + 1]
         jcache, jlog = jstep(jp, jcache, jnp.asarray(tok), jnp.asarray(pos))
         tcache, tlog = tm.decode_step(tp, tcache, torch.from_numpy(tok),
                                       torch.from_numpy(pos))
         _compare_logits(tlog, jlog, cfg.vocab, f"decode logits {i}")
         _compare_caches(tcache, jcache, tm.plan, f"decode cache {i}")
+
+
+def carry(cfg, seed=3):
+    """(reference model and params, port model and params carried
+    across) for ``cfg``."""
+    jax, _, _ = _jax()
+    from repro.models.api import build_model as jbuild
+    jm = jbuild(cfg)
+    jp = jm.init(jax.random.PRNGKey(seed))
+    tm = build_model(cfg, device="cpu")
+    tp = convert.model_params(jax.device_get(jp), cfg, device="cpu")
+    return jm, jp, tm, tp
+
+
+def test_prefill_and_decode_match_reference(carried):
+    cfg, jm, jp, tm, tp = carried
+    check_prefill_and_decode(cfg, jm, jp, tm, tp)
 
 
 def test_init_cache_matches_reference(carried):
@@ -301,10 +345,11 @@ def test_block_apply_train_matches(kind):
 
 def test_stack_order_matches_plan():
     """One module per layer in the reference's order: prefix, periods x
-    period kinds, suffix (gemma3: five local, one global)."""
+    period kinds, suffix (gemma3: five local, one global; deepseek: one
+    dense layer, then MoE), for every config and an encoder's plan."""
     _, _, configs = _jax()
     from repro.models import transformer as JT
-    for arch in DENSE:
+    for arch in TCFG.ARCH_IDS:
         for get in (TCFG.get, TCFG.smoke):
             cfg = get(arch)
             plan = TT.make_plan(cfg, cfg.n_layers)
@@ -312,6 +357,12 @@ def test_stack_order_matches_plan():
                 JT.make_plan(cfg, cfg.n_layers))
             assert [k for k, _ in TT.layer_kinds(plan)] == \
                 [cfg.pattern_at(i) for i in range(cfg.n_layers)]
+            if cfg.is_encdec:
+                kw = dict(force_dense_pattern=True, moe_ok=False)
+                assert dataclasses.asdict(
+                    TT.make_plan(cfg, cfg.enc_layers, **kw)) == \
+                    dataclasses.asdict(JT.make_plan(cfg, cfg.enc_layers,
+                                                    **kw))
 
 
 def test_random_init_shapes_and_counts():
@@ -341,14 +392,36 @@ def test_bf16_params_keep_their_bits():
                                   want.view(np.int16))
 
 
-# ------------------------------------------------------------- not ported
-@pytest.mark.parametrize("arch,item", [
-    ("deepseek-moe-16b", "1.24"), ("granite-moe-3b-a800m", "1.24"),
-    ("falcon-mamba-7b", "1.25"), ("recurrentgemma-2b", "1.25"),
-    ("llava-next-mistral-7b", "1.26"), ("seamless-m4t-medium", "1.26")])
-def test_unported_families_raise_naming_their_item(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        build_model(TCFG.smoke(arch), device="cpu")
+# ------------------------------------------------------------ every family
+@pytest.mark.parametrize("arch", TCFG.ARCH_IDS)
+def test_every_family_builds_on_cpu(arch):
+    """Every config of the registry builds, prefills (with its frames or
+    patches) and decodes on the CPU: finite logits of the padded vocab,
+    the padded tail masked, one cache per layer."""
+    cfg = TCFG.smoke(arch)
+    m = build_model(cfg, device="cpu")
+    p = m.init(torch.Generator().manual_seed(0))
+    assert len(p["dec"]) == cfg.n_layers
+    assert ("enc" in p) == cfg.is_encdec
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 6))}
+    n_front = 0
+    if cfg.is_encdec:
+        batch["enc_frames"] = rng.standard_normal(
+            (2, cfg.frontend_seq, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "vision":
+        batch["frontend"] = rng.standard_normal(
+            (2, cfg.frontend_seq, cfg.d_model)).astype(np.float32)
+        n_front = cfg.frontend_seq
+    cache, logits = m.prefill(p, batch, max_len=32 + n_front)
+    assert len(cache) == cfg.n_layers
+    cache, step = m.decode_step(p, cache, np.zeros((2, 1), np.int32),
+                                np.full(2, 6 + n_front, np.int32))
+    v_pad = TC.padded_vocab(cfg.vocab)
+    for out in (logits, step):
+        assert out.shape == (2, 1, v_pad) and out.dtype == torch.float32
+        assert bool(torch.isfinite(out[..., :cfg.vocab]).all())
+        assert bool((out[..., cfg.vocab:] == -1e30).all())
 
 
 def test_unported_pieces_raise_naming_their_item():
@@ -356,12 +429,6 @@ def test_unported_pieces_raise_naming_their_item():
     m = build_model(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="1.27"):
         m.loss(None, None)
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="1.24"):
-        TB.block_init(gen, cfg, "global", use_moe=True, dtype=torch.float32)
-    for kind in ("mamba", "recurrent"):
-        with pytest.raises(NotImplementedError, match="1.25"):
-            TB.block_cache_init(cfg, kind, 1, 8, dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="1.28"):
         build_model(dataclasses.replace(cfg, parallel_block=True),
                     device="cpu")
