@@ -75,7 +75,17 @@ and RG-LRU: batched equals alone, the chunked-scan prefill equals
 streamed decode in float32), ``lm:cross:seamless-m4t-medium`` and
 ``lm:cross:llava-next-mistral-7b`` (frames through the encoder and
 cross-attention, patches prepended: prefill, greedy decode steps,
-prefill plus a step against a longer prefill).
+prefill plus a step against a longer prefill); the tenth
+(``slice10_phases``) runs last: LM training through the launcher
+``repro_torch.launch.train.main`` -- ``train:minicpm-2b`` (the main
+path: published width and depth, bf16, batch 8 x 256, WSD, 8 steps,
+a committed checkpoint at the last), then ``train:granite-moe-3b-a800m``,
+``train:recurrentgemma-2b`` and ``train:seamless-m4t-medium`` (8 steps
+each), each with losses falling, ms a step, MFU / HFU, the step's bound,
+the forward+backward / optimizer split and a profiler trace --
+``train:resume`` (a 2-layer cut of minicpm-2b resumed from its step-2
+checkpoint in fresh objects, bit for bit) and ``train:parity`` (one
+train step of three f32 smoke configs, card against CPU).
 Each main-path phase sets every launch count to 0 before it and reads
 the counts after it.  Each phase prints one JSON line; any failed check
 raises, and the script then exits non-zero without its final line.
@@ -2302,6 +2312,513 @@ def slice9_phases(h) -> dict:
     return {"launches": launches, "rows": rows}
 
 
+SLICE10_MODELS = {"main": "minicpm-2b", "moe": "granite-moe-3b-a800m",
+                  "hybrid": "recurrentgemma-2b",
+                  "audio": "seamless-m4t-medium"}
+SLICE10_PARITY = ("minicpm-2b", "granite-moe-3b-a800m", "seamless-m4t-medium")
+# train:parity: one train step of an f32 smoke config on the card against
+# the same step on the CPU -- loss and grad_norm relative, each updated
+# param within PARITY_TOL * max|p_cpu| of its tensor.  The params carry
+# N(0, 0.02^2) noise so that no leaf is zero: a zero-init bias holds only
+# lr * g / (|g| + eps) after one step, which turns float32 rounding of g
+# into a change of order lr (tests/test_torch_train_step.py).
+PARITY_TOL = 1e-5
+# train:resume: the resumed run's losses against the uninterrupted run's,
+# relative, with torch.use_deterministic_algorithms on; a wrong restored
+# moment or master moves a loss by the order of lr, 3e-4.
+RESUME_TOL = 1e-5
+OPT_BYTES_PER_PARAM = 28    # bf16 grad and param, f32 m, v and master
+
+
+def slice10_phases(h) -> dict:
+    """LM training (ROADMAP 1.27) at published widths, each model freed
+    before the next.
+
+    ``train:<main>`` (minicpm-2b, ``h.cfgs["main"]``): the main path,
+    ``repro_torch.launch.train.main`` at the published width and depth,
+    bf16, batch ``h.batch`` x ``h.seq``, WSD at lr 3e-4,
+    ``h.steps_main`` steps, a checkpoint to a temporary directory at the
+    last step (committed, the leaves of params and optimizer state, the
+    data state; ``shutil.disk_usage`` before it is written).
+    ``train:<moe>`` (granite-moe-3b-a800m: 40 experts, top-8, the aux
+    loss), ``train:<hybrid>`` (recurrentgemma-2b: RG-LRU and local
+    attention, its suffix layers outside the rematerialised periods) and
+    ``train:<audio>`` (seamless-m4t-medium: the encoder over the
+    pipeline's ``enc_frames``): the same launcher, ``h.steps_other``
+    steps, no checkpoint.  Every launcher phase: losses and grad norms
+    finite, the mean of the last two losses below the first, every
+    master and most bf16 params moved, K1-K7 launched 0 times; reports
+    ms a step (host clock around a step ending in the loss read,
+    quartiles of the steps after the first), tokens/s, MFU (6 N T plus
+    the attention's flops over the bf16 peak; N the params a token uses)
+    and HFU (plus remat's second forward), the step's bound (8 N T at
+    the bf16 peak plus 28 B a parameter at HBM's rate), the
+    forward+backward / optimizer split (CUDA events around
+    ``AdamW.update`` in one more step), ``torch.profiler``'s device ms,
+    idle share, kernels a step and top device operations (``h.trace``
+    over ``h.trace_steps`` more steps), peak memory, losses, grad norms
+    and lrs.
+    ``train:resume``: the main config with ``n_layers`` cut to
+    ``h.resume_layers``, 4 steps with ``ckpt_every=2``, then fresh
+    model, optimizer and pipeline resumed from the step-2 checkpoint:
+    the restored leaves equal the saved ones (in memory at step 2 and on
+    disk) bit for bit, the data state and the next batch equal, the
+    resumed losses the uninterrupted run's within RESUME_TOL (and
+    whether bit for bit), under deterministic algorithms.
+    ``train:parity``: ``SLICE10_PARITY``'s f32 smoke configs, one
+    ``make_train_step`` on ``h.dev`` and one on the CPU from the same
+    params and batch, within PARITY_TOL.
+    Returns the launches of the repo's kernels and the phases' rows."""
+    import copy
+    import dataclasses
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs as TCFG
+    from repro_torch.checkpoint import store
+    from repro_torch.data.pipeline import for_config
+    from repro_torch.launch import train as LT
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as TT
+    from repro_torch.train import loop as TL
+    from repro_torch.train.optimizer import AdamW, trainable
+    from repro_torch.train.schedules import wsd
+    from repro_torch.train.step import make_train_step
+
+    dev = h.dev
+    require, emit = h.require, h.emit
+    cuda = dev.type == "cuda"
+    launches, rows = {}, {}
+    t_all = time.perf_counter()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def free():
+        gc.collect()
+        if cuda:
+            sync()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda \
+            else None
+
+    def quartiles(v):
+        return [float(q) for q in np.percentile(v, [50, 25, 75])] if v \
+            else None
+
+    def counted(phase):
+        launched, plain_calls = h.counts()
+        h.plain_free(plain_calls, phase)
+        for k, v in launched.items():
+            launches[k] = launches.get(k, 0) + v
+        require(not any(launched.values()),
+                f"{phase}: a kernel of the repo launched: {launched}")
+        return launched
+
+    def mark():
+        if cuda:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+        return time.perf_counter()
+
+    def between(a, b):
+        sync()
+        return a.elapsed_time(b) if cuda else 1e3 * (b - a)
+
+    def on_dev(batch):
+        return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+    # ---- flops, bytes and the bound of a step -----------------------------
+    def pairs(sq, sk, causal, window):
+        """(q, k) pairs attended per batch row and head."""
+        if not causal:
+            return sq * sk
+        return sum(min(i + 1, window or sk) for i in range(sq))
+
+    def step_costs(cfg, params, b, s):
+        """Model flops of a step (6 N T + 3 x the attention's forward),
+        remat's extra forward flops, N (params a token uses) and the
+        params' count."""
+        hd = cfg.resolved_head_dim
+        t = b * s
+
+        def active(block):
+            n = sum(p.numel() for p in block.parameters())
+            if "moe" in block:
+                idle = 1 - cfg.top_k / cfg.n_experts
+                n -= sum(block["moe"][k].numel() * idle
+                         for k in ("w1", "w2", "w3") if k in block["moe"])
+            return n
+
+        def stack(layers, plan, causal, s_q, cross):
+            """(active params, attention forward flops), total and of the
+            rematerialised periods."""
+            n_pre, k = len(plan.prefix_kinds), len(plan.period_kinds)
+            tot, rem = [0, 0], [0, 0]
+            for i, (kind, _) in enumerate(TT.layer_kinds(plan)):
+                att = 0
+                if kind in ("global", "local"):
+                    w = cfg.window if kind == "local" else None
+                    att = 4 * b * cfg.n_heads * hd * pairs(s_q, s_q, causal,
+                                                           w)
+                    if cross:
+                        att += 4 * b * cfg.n_heads * hd * s_q * s
+                n = active(layers[i])
+                tot[0] += n
+                tot[1] += att
+                if n_pre <= i < n_pre + plan.n_periods * k:
+                    rem[0] += n
+                    rem[1] += att
+            return tot, rem
+
+        n_all = sum(p.numel() for p in params.parameters())
+        dec_tot, dec_rem = stack(params["dec"], TT.make_plan(
+            cfg, cfg.n_layers), True, s, cfg.is_encdec)
+        n_act = n_all - sum(sum(p.numel() for p in blk.parameters())
+                            - active(blk) for blk in params["dec"])
+        attn, rem_n, rem_att = dec_tot[1], dec_rem[0], dec_rem[1]
+        if cfg.is_encdec:
+            enc_plan = TT.make_plan(cfg, cfg.enc_layers,
+                                    force_dense_pattern=True, moe_ok=False)
+            enc_tot, enc_rem = stack(params["enc"], enc_plan, False, s,
+                                     False)
+            attn += enc_tot[1]
+            rem_n += enc_rem[0]
+            rem_att += enc_rem[1]
+        model_flops = 6 * n_act * t + 3 * attn
+        remat_flops = 2 * rem_n * t + rem_att
+        return model_flops, remat_flops, n_act, n_all
+
+    # ---- a launcher phase -------------------------------------------------
+    def launcher_phase(role, steps, ckpt_dir=None):
+        cfg = h.cfgs[role]
+        phase = f"train:{cfg.name}"
+        free()
+        got = {}
+        real_train, real_make, real_save = LT.train, LT.make_train_step, \
+            TL.store.save
+
+        def making(model, opt, **kw):
+            got.update(model=model, opt=opt, step_kw=kw)
+            return real_make(model, opt, **kw)
+
+        def saving(path, step, tree, extra=None):
+            got["disk"] = shutil.disk_usage(os.path.dirname(path)
+                                            or ".")._asdict()
+            t0 = time.perf_counter()
+            out = real_save(path, step, tree, extra)
+            got["save_s"] = time.perf_counter() - t0
+            return out
+
+        def training(**kw):
+            params, state = kw["params"], kw["opt_state"]
+            got["before"] = {n: float(p.detach().sum(dtype=torch.float64))
+                             for n, p in trainable(params).items()}
+            got["built_peak_gib"] = peak_gib()
+            params, state, hist = real_train(**kw)
+            got["history"] = hist
+            got["after"] = {n: float(p.detach().sum(dtype=torch.float64))
+                            for n, p in trainable(params).items()}
+            got["master"] = {n: float(w.sum(dtype=torch.float64))
+                             for n, w in state.master.items()}
+            got["peak_train_gib"] = peak_gib()
+            # one more step with the optimizer's share marked, then the
+            # profiler over h.trace_steps more
+            step_fn, data = kw["step_fn"], kw["data"]
+            batch = on_dev(data.next())
+            marks = {}
+            update = AdamW.update
+
+            def marked_update(self, *a, **k):
+                marks["opt0"] = mark()
+                out = update(self, *a, **k)
+                marks["opt1"] = mark()
+                return out
+            AdamW.update = marked_update
+            try:
+                m0 = mark()
+                _, _, met = step_fn(params, state, batch)
+                float(met["loss"])
+            finally:
+                AdamW.update = update
+            got["fwd_bwd_ms"] = between(m0, marks["opt0"])
+            got["opt_ms"] = between(marks["opt0"], marks["opt1"])
+            got["trace"] = h.trace(
+                lambda: float(step_fn(params, state, batch)[2]["loss"]),
+                n=h.trace_steps)
+            got["costs"] = step_costs(cfg, params, h.batch, h.seq)
+            got["n_tensors"] = (len(list(params.parameters())),
+                                len(state.master))
+            return params, state, hist
+
+        argv = ["--arch", cfg.name.removesuffix("-smoke"), "--steps",
+                str(steps), "--batch", str(h.batch), "--seq", str(h.seq),
+                "--lr", "3e-4", "--schedule", "wsd", "--device", str(dev)]
+        argv += ["--smoke"] if h.smoke else []
+        argv += ["--ckpt", ckpt_dir] if ckpt_dir else []
+        h.reset_counts()
+        LT.train, LT.make_train_step, TL.store.save = training, making, \
+            saving
+        t0 = time.perf_counter()
+        try:
+            hist = LT.main(argv)
+        finally:
+            LT.train, LT.make_train_step, TL.store.save = real_train, \
+                real_make, real_save
+        wall = time.perf_counter() - t0
+        launched = counted(phase)
+        require(hist is got["history"], f"{phase}: not the loop's history")
+        losses, gn = hist["losses"], hist["grad_norms"]
+        moved = [n for n in got["before"]
+                 if got["after"][n] != got["before"][n]]
+        masters = [n for n in got["before"]
+                   if got["master"][n] != got["before"][n]]
+        failed = [what for ok, what in (
+            (len(losses) == steps and len(gn) == steps,
+             f"{len(losses)} steps of {steps}"),
+            (all(np.isfinite(losses)) and all(np.isfinite(gn)),
+             "a loss or grad norm is not finite"),
+            (np.mean(losses[-2:]) < losses[0], "the loss did not fall"),
+            (len(masters) == len(got["before"]),
+             f"{len(got['before']) - len(masters)} masters did not move"),
+            (len(moved) >= len(got["before"]) // 2,
+             f"only {len(moved)} params moved")) if not ok]
+        times = [1e3 * t for t in hist["times"]]
+        step_ms = quartiles(times[1:])
+        model_flops, remat_flops, n_act, n_all = got["costs"]
+        tok = h.batch * h.seq
+        sec = step_ms[0] / 1e3
+        bound_ms = 1e3 * (8 * n_act * tok / h.BF16_FLOPS
+                          + OPT_BYTES_PER_PARAM * n_all / h.HBM)
+        tr = got["trace"]
+        row = {"config": {"name": cfg.name, "family": cfg.family,
+                          "n_layers": cfg.n_layers,
+                          "enc_layers": cfg.enc_layers,
+                          "d_model": cfg.d_model, "vocab": cfg.vocab,
+                          "dtype": cfg.param_dtype, "n_params": n_all,
+                          "n_active": int(n_act)},
+               "argv": argv, "steps": steps, "batch": h.batch,
+               "seq": h.seq, "tokens_per_step": tok,
+               "step_kw": got["step_kw"], "wall_s": wall,
+               "step_ms": step_ms, "step_ms_all": times,
+               "tokens_per_s": tok / sec,
+               "mfu": model_flops / sec / h.BF16_FLOPS,
+               "hfu": (model_flops + remat_flops) / sec / h.BF16_FLOPS,
+               "model_tflop_per_step": model_flops / 1e12,
+               "remat_tflop_per_step": remat_flops / 1e12,
+               "bound_ms": bound_ms,
+               "bound_split_ms": {
+                   "flops": 1e3 * 8 * n_act * tok / h.BF16_FLOPS,
+                   "optimizer_bytes": 1e3 * OPT_BYTES_PER_PARAM * n_all
+                   / h.HBM},
+               "share_of_bound": bound_ms / step_ms[0],
+               "fwd_bwd_ms": got["fwd_bwd_ms"], "opt_ms": got["opt_ms"],
+               "device_ms_per_step": tr["device_ms"],
+               "idle_share": 1.0 - tr["device_ms"] / step_ms[0],
+               "kernels_per_step": tr.get("kernels_per_call"),
+               "profile_step": tr,
+               "losses": losses, "grad_norms": gn, "lrs": hist["lrs"],
+               "stragglers": hist["stragglers"],
+               "params_moved": len(moved), "masters_moved": len(masters),
+               "param_tensors": got["n_tensors"][0],
+               "trained_tensors": got["n_tensors"][1],
+               "built_peak_gib": got["built_peak_gib"],
+               "peak_gib": got["peak_train_gib"],
+               "peak_gib_with_measurement": peak_gib(),
+               "launches": launched, "failed": failed}
+        if ckpt_dir:
+            last = store.latest_step(ckpt_dir)
+            require(last == steps, f"{phase}: latest checkpoint {last}")
+            d = os.path.join(ckpt_dir, f"step_{steps:010d}")
+            require(os.path.exists(os.path.join(d, "_COMMITTED")),
+                    f"{phase}: checkpoint not committed")
+            man = store.manifest(ckpt_dir, steps)
+            n_p, n_t = got["n_tensors"]
+            require(len(man["leaves"]) == n_p + 1 + 3 * n_t,
+                    f"{phase}: {len(man['leaves'])} leaves")
+            require(man["extra"]["data"] == {"seed": 0, "step": steps},
+                    f"{phase}: data state {man['extra']}")
+            row["checkpoint"] = {
+                "step": last, "leaves": len(man["leaves"]),
+                "bytes": sum(os.path.getsize(os.path.join(d, f))
+                             for f in os.listdir(d)),
+                "save_s": got["save_s"], "disk_before": got["disk"]}
+            shutil.rmtree(ckpt_dir)
+        emit(phase, **row)
+        require(not failed, f"{phase}: {failed}: losses {losses}, grad "
+                            f"norms {gn}")
+        got.clear()
+        return row
+
+    # ---- train:resume -----------------------------------------------------
+    def resume_phase():
+        cfg = dataclasses.replace(h.cfgs["main"], n_layers=h.resume_layers)
+        phase = "train:resume"
+        free()
+        ck = os.path.join(h.tmp, "resume")
+        os.makedirs(ck, exist_ok=True)
+        disk = shutil.disk_usage(ck)._asdict()
+
+        def fresh():
+            model = build_model(cfg, device=dev)
+            params = model.init(torch.Generator(device=dev).manual_seed(
+                h.seed))
+            opt = AdamW(lr_fn=wsd(3e-4, warmup=1, stable=2, decay=1))
+            state = opt.init(params)
+            step = make_train_step(model, opt, q_chunk=128, k_chunk=128)
+            return params, state, step, for_config(cfg, batch=h.batch,
+                                                   seq=h.seq)
+
+        def host(tree):
+            return [(n, t.detach().to("cpu", copy=True))
+                    for n, t in store.leaves(tree)]
+
+        seen = {"a": [], "b": []}
+        snap = {}
+
+        def wrap(step, key):
+            def fn(params, state, batch):
+                seen[key].append({k: v.cpu() for k, v in batch.items()})
+                if key == "b" and len(seen["b"]) == 1:
+                    snap["restored"] = host((params, state))
+                out = step(params, state, batch)
+                if key == "a" and len(seen["a"]) == 2:
+                    snap["step2"] = host(out[:2])
+                return out
+            return fn
+
+        h.reset_counts()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            params, state, step, data = fresh()
+            t0 = time.perf_counter()
+            _, _, ha = TL.train(step_fn=wrap(step, "a"), params=params,
+                                opt_state=state, data=data, steps=4,
+                                ckpt_dir=ck, ckpt_every=2,
+                                log_fn=lambda s: None)
+            t_a = time.perf_counter() - t0
+            del params, state, step, data
+            free()
+            require(store.latest_step(ck) == 4, f"{phase}: no step 4")
+            ck_bytes = sum(os.path.getsize(os.path.join(ck, d, f))
+                           for d in os.listdir(ck)
+                           for f in os.listdir(os.path.join(ck, d)))
+            shutil.rmtree(os.path.join(ck, f"step_{4:010d}"))
+            log = []
+            params, state, step, data = fresh()
+            t0 = time.perf_counter()
+            _, _, hb = TL.train(step_fn=wrap(step, "b"), params=params,
+                                opt_state=state, data=data, steps=4,
+                                ckpt_dir=ck, ckpt_every=2, log_fn=log.append)
+            t_b = time.perf_counter() - t0
+        finally:
+            torch.use_deterministic_algorithms(False)
+        launched = counted(phase)
+        require(log and log[0] == "[resume] restored step 2",
+                f"{phase}: {log[:1]}")
+        names = [n for n, _ in snap["step2"]]
+        require(names == [n for n, _ in snap["restored"]],
+                f"{phase}: leaf names differ")
+        diff = [n for (n, a), (_, b) in zip(snap["step2"], snap["restored"])
+                if not (a.dtype == b.dtype and torch.equal(a, b))]
+        require(not diff, f"{phase}: restored leaves differ: {diff[:5]}")
+        man = store.manifest(ck, 2)
+        on_disk = [m["name"] for (_, a), m in zip(snap["step2"],
+                                                  man["leaves"])
+                   if not torch.equal(store.load_leaf(ck, 2, m), a)]
+        require(not on_disk, f"{phase}: stored leaves differ: {on_disk[:5]}")
+        require(man["extra"]["data"] == {"seed": 0, "step": 2},
+                f"{phase}: data state {man['extra']}")
+        require(all(torch.equal(seen["a"][2][k], seen["b"][0][k])
+                    for k in seen["a"][2]), f"{phase}: another batch")
+        la, lb = ha["losses"][2:], hb["losses"]
+        rel = max(abs(a - b) / abs(a) for a, b in zip(la, lb))
+        require(len(lb) == 2 and rel <= RESUME_TOL,
+                f"{phase}: resumed losses {lb} vs {la}")
+        n_all = sum(t.numel() for n, t in snap["step2"]
+                    if n.startswith("0/"))
+        row = {"config": {"name": cfg.name, "n_layers": cfg.n_layers,
+                          "d_model": cfg.d_model, "vocab": cfg.vocab,
+                          "n_params": n_all},
+               "cut": f"n_layers {h.cfgs['main'].n_layers} -> "
+                      f"{cfg.n_layers}",
+               "disk_before": disk, "checkpoint_bytes_step2_and_4": ck_bytes,
+               "leaves": len(names), "leaves_restored_bit_equal": True,
+               "losses_uninterrupted": ha["losses"], "losses_resumed": lb,
+               "losses_max_rel_diff": rel, "losses_bit_equal": la == lb,
+               "grad_norms_bit_equal": ha["grad_norms"][2:]
+               == hb["grad_norms"],
+               "run_s": t_a, "resumed_run_s": t_b, "peak_gib": peak_gib(),
+               "launches": launched}
+        shutil.rmtree(ck)
+        emit(phase, **row)
+        return row
+
+    # ---- train:parity -----------------------------------------------------
+    def parity_phase():
+        phase = "train:parity"
+        free()
+        out = {}
+        h.reset_counts()
+        for name in SLICE10_PARITY:
+            cfg = TCFG.smoke(name)
+            cpu = torch.device("cpu")
+            mc, md = build_model(cfg, device=cpu), build_model(cfg, device=dev)
+            pc = mc.init(torch.Generator().manual_seed(h.seed))
+            g = torch.Generator().manual_seed(h.seed + 1)
+            with torch.no_grad():
+                for p in pc.parameters():
+                    p.add_(0.02 * torch.randn(p.shape, generator=g))
+            pd = copy.deepcopy(pc).to(dev)
+            batch = for_config(cfg, batch=h.batch, seq=h.seq).next()
+            res = {}
+            for key, model, params in (("cpu", mc, pc), ("dev", md, pd)):
+                opt = AdamW(lr_fn=wsd(3e-4, 10, 50, 33))
+                state = opt.init(params)
+                step = make_train_step(model, opt, q_chunk=128, k_chunk=128)
+                _, state, met = step(params, state, {
+                    k: torch.as_tensor(v).to(params["embed"]["w"].device)
+                    for k, v in batch.items()})
+                res[key] = ({k: float(v) for k, v in met.items()},
+                            {n: p.detach().cpu()
+                             for n, p in trainable(params).items()})
+            mc_, pc_ = res["cpu"]
+            md_, pd_ = res["dev"]
+            rel = {k: abs(md_[k] - mc_[k]) / max(abs(mc_[k]), 1e-30)
+                   for k in ("loss", "nll", "grad_norm")}
+            p_err = max(float((pd_[n] - pc_[n]).abs().max())
+                        / max(float(pc_[n].abs().max()), 1e-30)
+                        for n in pc_)
+            require(max(rel.values()) <= PARITY_TOL and p_err <= PARITY_TOL,
+                    f"{phase}: {name} card vs CPU {rel}, params {p_err}")
+            out[name] = {"rel_err": rel, "param_max_rel_err": p_err,
+                         "loss": md_["loss"], "aux": md_["aux"]}
+            del mc, md, pc, pd, res
+        launched = counted(phase)
+        row = {"configs": out, "batch": h.batch, "seq": h.seq,
+               "tol": PARITY_TOL, "launches": launched}
+        emit(phase, **row)
+        return row
+
+    rows["main"] = launcher_phase("main", h.steps_main,
+                                  os.path.join(h.tmp, "main"))
+    for role in ("moe", "hybrid", "audio"):
+        rows[role] = launcher_phase(role, h.steps_other)
+    rows["resume"] = resume_phase()
+    rows["parity"] = parity_phase()
+    free()
+    return {"launches": launches, "rows": rows,
+            "seconds": time.perf_counter() - t_all}
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3665,6 +4182,22 @@ def main() -> int:
         rec["launches_slice9"] = s9["launches"].get(rec["name"], 0)
     emit("memory:slice9", max_allocated_gib=torch.cuda.max_memory_allocated()
          / 2 ** 30, seconds=time.perf_counter() - t9,
+         seconds_since_start=time.perf_counter() - t_start)
+
+    # ---- 10g. LM training: the launcher, resume, card against CPU ------
+    train_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    s10 = slice10_phases(types.SimpleNamespace(
+        dev=dev, seed=SEED, require=require, emit=emit, counts=counts,
+        reset_counts=reset_counts, plain_free=plain_free,
+        trace=x_backward_trace, HBM=HBM_BYTES_PER_S, BF16_FLOPS=BF16_FLOPS,
+        cfgs={role: TCFG.get(name) for role, name in SLICE10_MODELS.items()},
+        smoke=False, batch=8, seq=256, steps_main=8, steps_other=8,
+        resume_layers=2, trace_steps=1, tmp=train_dir.name))
+    train_dir.cleanup()
+    for rec in record:
+        rec["launches_slice10"] = s10["launches"].get(rec["name"], 0)
+    emit("memory:slice10", max_allocated_gib=torch.cuda.max_memory_allocated()
+         / 2 ** 30, seconds=s10["seconds"],
          seconds_since_start=time.perf_counter() - t_start)
 
     # ---- 11. the record, the card, the verdict ---------------------------

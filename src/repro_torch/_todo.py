@@ -9,8 +9,6 @@ from __future__ import annotations
 __all__ = ["ROADMAP_ITEMS", "not_ported"]
 
 ROADMAP_ITEMS = {
-    "train": "1.27 (training: Model.loss, chunked_xent, train/, "
-             "data/pipeline.py, checkpoint/, launch/train.py)",
     "multi_card": "1.28 (the model across cards: models/sharding.py, "
                   "launch/mesh.py, launch/dryrun.py)",
 }

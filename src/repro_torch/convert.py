@@ -15,7 +15,10 @@ CMRS's ``chunk_l`` is TPU tile plumbing as well, and is ignored.
 :func:`model_params` carries a model's param tree across (numpy arrays,
 bits kept), one block per layer; :func:`sparse_linear` a reference
 ``SparseLinear``: its operand through :func:`sparse_device`, plus its
-static fields.
+static fields.  :func:`adamw_state` carries a reference ``AdamWState``
+across: ``m``, ``v`` and ``master`` share the params' structure, so
+each goes through :func:`model_params`; the tests lay a ``jax.grad``
+tree beside the port's ``.grad``s the same way.
 """
 from __future__ import annotations
 
@@ -31,10 +34,11 @@ from repro_torch.kernels._backend import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.common import param
 from repro_torch.sparse.sparse_ffn import SparseLinear
+from repro_torch.train.optimizer import AdamWState, trainable
 
 __all__ = ["tensor_from_numpy", "blocked_device", "ell_device",
            "cmrs_device", "csr_device", "sparse_device", "sparse_linear",
-           "param_tree", "model_params"]
+           "param_tree", "model_params", "adamw_state"]
 
 
 def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
@@ -230,3 +234,20 @@ def model_params(params: Mapping, cfg, device=None) -> nn.ModuleDict:
                                 for b in _unstack(v, plans[k]))
                   if k in plans else param_tree(v, dev))
     return out
+
+
+def adamw_state(state, cfg, params, device=None):
+    """The port's ``AdamWState`` from the reference's (``step``, ``m``,
+    ``v``, ``master``; numpy leaves), its moments and masters keyed and
+    ordered as ``train.optimizer.trainable(params)`` orders the port's
+    ``params``."""
+    dev = resolve_device(device)
+
+    def named(tree):
+        t = dict(model_params(tree, cfg, dev).named_parameters())
+        return {n: t[n].detach() for n in trainable(params)}
+
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=dev),
+        m=named(state.m), v=named(state.v), master=named(state.master))

@@ -1,2 +1,2 @@
 """Launchers (port of ``repro/launch``): ``serve`` drives the LM engine
-from the command line."""
+from the command line, ``train`` the training loop."""

@@ -6,9 +6,12 @@ precomputed patch embeddings ``batch["frontend"]`` prepended to the
 text, positions running on over them) and the encoder-decoder
 (seamless: the precomputed frame embeddings ``batch["enc_frames"]``
 through a bidirectional encoder and ``enc_ln``, which the decoder
-cross-attends) -- through ``init``, ``prefill``, ``decode_step`` and
-``init_cache``.  ``loss`` raises naming its ROADMAP item (training,
-1.27).
+cross-attends) -- through ``init``, ``loss``, ``prefill``,
+``decode_step`` and ``init_cache``.  ``loss`` is the training forward:
+the mean next-token cross-entropy over the text positions
+(``transformer.chunked_xent``) plus the weighted MoE auxiliary loss,
+differentiable in the params once their ``requires_grad`` is on
+(``train.optimizer.AdamW.init`` switches it on).
 
 The model lives on one device: CUDA unless ``device="cpu"`` is given,
 and with neither it raises.  Params are the tree of ``nn.ModuleDict`` /
@@ -24,7 +27,6 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch._todo import not_ported
 from repro_torch.kernels._backend import resolve_device
 
 from . import blocks as B
@@ -89,8 +91,38 @@ class Model:
         return params["embed"]["w"][tokens].to(self.adt)
 
     # --------------------------------------------------------------- train
-    def loss(self, params, batch, **kwargs):
-        raise not_ported("Model.loss", "train")
+    def loss(self, params, batch, *, remat: bool = True, q_chunk: int = 512,
+             k_chunk: int = 512, loss_chunk: int = 512,
+             aux_weight: float = 1e-2):
+        """batch: ``tokens`` and ``labels`` (B, S) integer (label -1
+        masked), with ``enc_frames`` (B, Se, D) for an encoder-decoder
+        and ``frontend`` (B, F, D) for a VLM, whose positions are not
+        scored.  Returns (nll + aux_weight * aux, {"nll", "aux"}), float32
+        scalars on the model's device."""
+        cfg = self.cfg
+        x = self._embed(params, batch["tokens"])
+        memory = None
+        if cfg.is_encdec:
+            m = self._tensor(batch["enc_frames"]).to(self.adt)
+            mpos = torch.arange(m.shape[1], device=self.device)[None, :]
+            m, _ = T.stack_apply_train(params["enc"], cfg, self.enc_plan, m,
+                                       mpos, causal=False, remat=remat,
+                                       q_chunk=q_chunk, k_chunk=k_chunk)
+            memory = C.rmsnorm(params["enc_ln"], m, cfg.norm_eps)
+        n_front = 0
+        if cfg.frontend == "vision":
+            fe = self._tensor(batch["frontend"]).to(self.adt)
+            x = torch.cat([fe, x], dim=1)
+            n_front = fe.shape[1]
+        positions = torch.arange(x.shape[1], device=self.device)[None, :]
+        x, aux = T.stack_apply_train(params["dec"], cfg, self.plan, x,
+                                     positions, memory=memory, remat=remat,
+                                     q_chunk=q_chunk, k_chunk=k_chunk)
+        x = C.rmsnorm(params["final_ln"], x, cfg.norm_eps)
+        nll = T.chunked_xent(x[:, n_front:], self._unembed_w(params),
+                             self._tensor(batch["labels"]),
+                             chunk=loss_chunk, vocab=cfg.vocab)
+        return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
     # ------------------------------------------------------------- serving
     @torch.no_grad()
@@ -107,8 +139,8 @@ class Model:
             m = self._tensor(batch["enc_frames"]).to(self.adt)
             mpos = torch.arange(m.shape[1], device=self.device)[None, :]
             m, _ = T.stack_apply_train(params["enc"], cfg, self.enc_plan, m,
-                                       mpos, causal=False, q_chunk=q_chunk,
-                                       k_chunk=k_chunk)
+                                       mpos, causal=False, remat=False,
+                                       q_chunk=q_chunk, k_chunk=k_chunk)
             memory = C.rmsnorm(params["enc_ln"], m, cfg.norm_eps)
         if cfg.frontend == "vision":
             fe = self._tensor(batch["frontend"]).to(self.adt)

@@ -80,17 +80,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     pairs_q, pairs_k = block_pairs(nq, nk, q_chunk, k_chunk, causal, window,
                                    kv_offset)
 
-    f32, dev = torch.float32, q.device
-    acc = torch.zeros((b, nq, q_chunk, hkv, g, d), dtype=f32, device=dev)
-    m = torch.full((b, nq, q_chunk, hkv, g), -math.inf, dtype=f32,
-                   device=dev)
-    l = torch.zeros((b, nq, q_chunk, hkv, g), dtype=f32, device=dev)
+    # float32, or float64 for float64 inputs (gradcheck)
+    f32, dev = torch.promote_types(q.dtype, torch.float32), q.device
+    # each q chunk's running state, replaced (never written in place) so
+    # that autograd keeps every value the backward needs
+    acc = [torch.zeros((b, q_chunk, hkv, g, d), dtype=f32, device=dev)
+           for _ in range(nq)]
+    m = [torch.full((b, q_chunk, hkv, g), -math.inf, dtype=f32, device=dev)
+         for _ in range(nq)]
+    l = [torch.zeros((b, q_chunk, hkv, g), dtype=f32, device=dev)
+         for _ in range(nq)]
     q_arange = torch.arange(q_chunk, device=dev)
     k_arange = torch.arange(k_chunk, device=dev)
 
     for qi, ki in zip(pairs_q.tolist(), pairs_k.tolist()):
-        s = torch.einsum("bqhgd,bkhd->bqhgk", qs[:, qi].float(),
-                         ks[:, ki].float()) * scale
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qs[:, qi].to(f32),
+                         ks[:, ki].to(f32)) * scale
         s = _softcap(s, logit_softcap)
         qpos = kv_offset + qi * q_chunk + q_arange
         kpos = ki * k_chunk + k_arange
@@ -102,19 +107,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         bad = ~ok[None, :, None, None, :]
         s = s.masked_fill(bad, -math.inf)
 
-        m_old, l_old = m[:, qi], l[:, qi]
+        m_old, l_old = m[qi], l[qi]
         m_new = torch.maximum(m_old, s.amax(dim=-1))
         # rows with no valid kv yet keep m = -inf; make exp well-defined
         m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
         p = torch.exp(s - m_safe[..., None]).masked_fill(bad, 0.0)
         corr = torch.where(torch.isneginf(m_old), 0.0,
                            torch.exp(m_old - m_safe))
-        pv = torch.einsum("bqhgk,bkhd->bqhgd", p, vs[:, ki].float())
-        acc[:, qi] = acc[:, qi] * corr[..., None] + pv
-        l[:, qi] = l_old * corr + p.sum(dim=-1)
-        m[:, qi] = m_new
+        pv = torch.einsum("bqhgk,bkhd->bqhgd", p, vs[:, ki].to(f32))
+        acc[qi] = acc[qi] * corr[..., None] + pv
+        l[qi] = l_old * corr + p.sum(dim=-1)
+        m[qi] = m_new
 
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = torch.stack(acc, 1) / torch.clamp(torch.stack(l, 1),
+                                             min=1e-30)[..., None]
     return out.reshape(b, sq, hq, d).to(q.dtype)
 
 

@@ -11,7 +11,8 @@ needs no transpose.
 Init draws from an explicit ``torch.Generator`` (the tensors go to its
 device).  It does not reproduce JAX's PRNG: parity with the reference
 runs on carried weights.  Parameters are made with
-``requires_grad=False`` (this slice serves; training is ROADMAP 1.27).
+``requires_grad=False``, as serving wants; training switches it on for
+the floating ones (``train.optimizer.AdamW.init``).
 """
 from __future__ import annotations
 

@@ -9,9 +9,12 @@ period position's params over periods and scans; here the stack is an
 prefix, then periods x period kinds, then suffix -- walked by a Python
 loop, and the decode cache is a list of one cache dict per layer in the
 same order (``blocks.block_cache_init``).  :func:`stack_apply_train` is
-the forward without caches (an encoder's at prefill); its
-rematerialisation and ``chunked_xent`` (the loss) belong to training
-(ROADMAP 1.27).
+the forward without caches (training, and an encoder's at prefill):
+with ``remat`` each period's layers run under
+``torch.utils.checkpoint`` and are recomputed in the backward, as the
+reference checkpoints its scan body.  :func:`chunked_xent` is the loss
+over sequence chunks, each chunk's float32 logits recomputed in the
+backward, so that one chunk's logits are held at a time.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import List
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as A
 from . import blocks as B
@@ -29,7 +33,7 @@ from . import ssm as SSM
 
 __all__ = ["StackPlan", "make_plan", "layer_kinds", "stack_init",
            "stack_apply_train", "stack_apply_prefill", "stack_apply_decode",
-           "stack_cache_init"]
+           "stack_cache_init", "chunked_xent"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,15 +85,38 @@ def stack_init(gen: torch.Generator, cfg, plan: StackPlan, *,
 
 def stack_apply_train(layers, cfg, plan: StackPlan, x: torch.Tensor,
                       positions: torch.Tensor, *, causal: bool = True,
-                      memory: torch.Tensor | None = None,
+                      memory: torch.Tensor | None = None, remat: bool = True,
                       q_chunk: int = 512, k_chunk: int = 512):
-    """Full-sequence forward (the encoder of an encoder-decoder at
-    prefill).  Returns (x, summed auxiliary loss)."""
+    """Full-sequence forward.  Returns (x, summed auxiliary loss).  With
+    ``remat`` each period's layers are recomputed in the backward; the
+    prefix and suffix layers are not, as in the reference.  ``remat``
+    changes no value: the auxiliary losses are summed per period either
+    way."""
+    kinds = [kind for kind, _ in layer_kinds(plan)]
+
+    def run(lo: int, hi: int, x: torch.Tensor):
+        aux = x.new_zeros((), dtype=torch.float32)
+        for i in range(lo, hi):
+            x, a = B.block_apply_train(layers[i], cfg, kinds[i], x,
+                                       positions, causal=causal,
+                                       memory=memory, q_chunk=q_chunk,
+                                       k_chunk=k_chunk)
+            aux = aux + a
+        return x, aux
+
+    n_pre, k = len(plan.prefix_kinds), len(plan.period_kinds)
+    spans = ([(i, i + 1, False) for i in range(n_pre)]
+             + [(n_pre + j * k, n_pre + (j + 1) * k, remat)
+                for j in range(plan.n_periods)]
+             + [(i, i + 1, False)
+                for i in range(n_pre + plan.n_periods * k, len(kinds))])
     aux_total = x.new_zeros((), dtype=torch.float32)
-    for p, (kind, _) in zip(layers, layer_kinds(plan)):
-        x, aux = B.block_apply_train(p, cfg, kind, x, positions,
-                                     causal=causal, memory=memory,
-                                     q_chunk=q_chunk, k_chunk=k_chunk)
+    for lo, hi, rematerialise in spans:
+        if rematerialise:
+            x, aux = checkpoint(run, lo, hi, x, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, aux = run(lo, hi, x)
         aux_total = aux_total + aux
     return x, aux_total
 
@@ -159,3 +186,56 @@ def stack_cache_init(cfg, plan: StackPlan, batch: int, max_len: int, *,
     return [B.block_cache_init(cfg, kind, batch, max_len, cross=cross,
                                dtype=dtype, device=device)
             for kind, _ in layer_kinds(plan)]
+
+
+# --------------------------------------------------------------------------
+# Loss head
+# --------------------------------------------------------------------------
+def _pick_chunk(t: int, target: int) -> int:
+    """Largest divisor of t that is <= target."""
+    for c in range(min(target, t), 0, -1):
+        if t % c == 0:
+            return c
+    return 1
+
+
+def _xent_chunk(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                vocab: int | None):
+    """(sum of the masked nll, count of scored labels) of one chunk: x
+    (B, c, D), w (V_pad, D) float32, labels (B, c), -1 masked."""
+    logits = torch.einsum("bcd,vd->bcv", x.float(), w)
+    if vocab and vocab < w.shape[0]:      # mask the padded vocab tail
+        pad = torch.arange(w.shape[0], device=w.device) >= vocab
+        logits = logits.masked_fill(pad, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp(labels, min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def chunked_xent(x: torch.Tensor, embed_w: torch.Tensor,
+                 labels: torch.Tensor, chunk: int = 512,
+                 vocab: int | None = None) -> torch.Tensor:
+    """Mean cross-entropy without holding the full logits.
+
+    x: (B, T, D) final hiddens of the scored positions; labels: (B, T)
+    integer, -1 masked; embed_w: (V_pad, D), cast to float32 once;
+    ``vocab`` masks the padded tail to -1e30.  T is cut into chunks of
+    the largest divisor of T up to ``chunk``; each chunk's logits are
+    recomputed in the backward (``torch.utils.checkpoint``), so at most
+    one chunk's (B, chunk, V_pad) float32 logits are held.  The chunk
+    sums are added in order, as the reference's scan adds them."""
+    b, t, _ = x.shape
+    chunk = _pick_chunk(t, chunk)
+    w = embed_w.float()
+    labels = labels.long()
+    tot = x.new_zeros((), dtype=torch.float32)
+    cnt = x.new_zeros((), dtype=torch.float32)
+    for lo in range(0, t, chunk):
+        s, c = checkpoint(_xent_chunk, x[:, lo:lo + chunk], w,
+                          labels[:, lo:lo + chunk], vocab,
+                          use_reentrant=False, preserve_rng_state=False)
+        tot = tot + s
+        cnt = cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
