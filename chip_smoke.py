@@ -85,7 +85,14 @@ each), each with losses falling, ms a step, MFU / HFU, the step's bound,
 the forward+backward / optimizer split and a profiler trace --
 ``train:resume`` (a 2-layer cut of minicpm-2b resumed from its step-2
 checkpoint in fresh objects, bit for bit) and ``train:parity`` (one
-train step of three f32 smoke configs, card against CPU).
+train step of three f32 smoke configs, card against CPU); the eleventh
+(``slice11_phases``) runs last: the model across cards on one card --
+``mesh:one:minicpm-2b`` (the published config's train step on a
+one-rank NCCL (1, 1) mesh, DTensor params and ZeRO-1 placements,
+against the unsharded step: losses within 1e-6 and whether bit for
+bit, ms a step of each) and ``lm:parallel_block:llava-next-mistral-7b``
+(the parallel residual block at full width: prefill plus 8 decode
+steps against a longer prefill, the sequential block's logits apart).
 Each main-path phase sets every launch count to 0 before it and reads
 the counts after it.  Each phase prints one JSON line; any failed check
 raises, and the script then exits non-zero without its final line.
@@ -2819,6 +2826,244 @@ def slice10_phases(h) -> dict:
             "seconds": time.perf_counter() - t_all}
 
 
+SLICE11_MAIN = "minicpm-2b"
+SLICE11_PARALLEL = "llava-next-mistral-7b"
+# mesh:one: the sharded step on a one-rank (1, 1) mesh against the
+# unsharded step, each of the losses relative; the same operations on
+# the same card, so only DTensor's own choices of kernel can part them
+MESH_ONE_TOL = 1e-6
+
+
+def slice11_phases(h) -> dict:
+    """The model across cards (ROADMAP 1.28) on one card.
+
+    ``mesh:one:<main>`` (minicpm-2b, ``h.cfgs["main"]``): an NCCL group
+    of one rank (gloo on the CPU) on a ``FileStore`` in ``h.tmp``, a
+    (1, 1) (data, model) mesh, the published config at full width and
+    depth in bf16: ``h.steps`` train steps of the unsharded model
+    (``model.init``, ``make_train_step``) on batches ``h.batch`` x
+    ``h.seq`` from the pipeline, the model freed, then the same steps of
+    the sharded one (``train.step.init_sharded``, ``AdamW.init`` with
+    ``train_state_shardings``' ZeRO-1 placements, DTensor params and a
+    ``Shard(0)`` batch) from the same generator: the losses within
+    MESH_ONE_TOL relative, and whether they are equal bit for bit; ms a
+    step of each (the host cost of DTensor), peak memory, K1-K7 launched
+    0 times.
+    ``lm:parallel_block:<vlm>`` (llava-next-mistral-7b with
+    ``parallel_block=True``, ``h.cfgs["parallel"]``): bf16 at full width
+    and depth, a batch of ``h.pb_batch`` prompts of ``h.pb_prompt``
+    tokens after the frontend's patches; prefill, then ``h.pb_steps``
+    decode steps fed the next prompt tokens, against one prefill of the
+    longer prompt (PREFILL_TOL, and the softmax check of the cross
+    phases); the same params with the sequential block must move the
+    logits (the flag is live).
+    Returns the launches of the repo's kernels and the phases' rows."""
+    import dataclasses
+    import datetime
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.data.pipeline import for_config
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import build_model
+    from repro_torch.models import sharding as MS
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.schedules import wsd
+    from repro_torch.train import step as ST
+
+    dev = h.dev
+    require, emit = h.require, h.emit
+    cuda = dev.type == "cuda"
+    launches, rows = {}, {}
+    t_all = time.perf_counter()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def free():
+        gc.collect()
+        if cuda:
+            sync()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda \
+            else None
+
+    def counted(phase):
+        launched, plain_calls = h.counts()
+        h.plain_free(plain_calls, phase)
+        for k, v in launched.items():
+            launches[k] = launches.get(k, 0) + v
+        require(not any(launched.values()),
+                f"{phase}: a kernel of the repo launched: {launched}")
+        return launched
+
+    def rel_l2(a, b):
+        return float(torch.linalg.vector_norm((a - b).float())
+                     / torch.linalg.vector_norm(b.float()))
+
+    # ---- mesh:one -- the sharded step on a one-rank mesh -----------------
+    def mesh_one():
+        cfg = h.cfgs["main"]
+        phase = f"mesh:one:{cfg.name}"
+        free()
+        model = build_model(cfg, device=dev)
+        data = for_config(cfg, batch=h.batch, seq=h.seq)
+        batches = [{k: torch.as_tensor(v).to(dev) for k, v in
+                    data.next().items()} for _ in range(h.steps)]
+
+        def opt():
+            return AdamW(lr_fn=wsd(3e-4, 1, h.steps // 2, h.steps // 3))
+
+        def run(params, state, step):
+            losses, ms = [], []
+            for b in batches:
+                sync()
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, b)
+                losses.append(float(m["loss"]))
+                ms.append(1e3 * (time.perf_counter() - t0))
+            return losses, ms
+
+        h.reset_counts()
+        o = opt()
+        params = model.init(torch.Generator(device=dev).manual_seed(h.seed))
+        state = o.init(params)
+        plain_losses, plain_ms = run(params, state, ST.make_train_step(
+            model, o, q_chunk=128, k_chunk=128))
+        plain_peak = peak_gib()
+        del params, state
+        free()
+        tdist_store = tdist.FileStore(os.path.join(h.tmp, "mesh_one"), 1)
+        LM.join("cpu" if not cuda else None, rank=0, world=1,
+                store=tdist_store, local_rank=dev.index or 0,
+                timeout=datetime.timedelta(seconds=600))
+        try:
+            mesh = LM.make_mesh((1, 1), ("data", "model"))
+            rules = dict(MS.DEFAULT_SINGLE_POD)
+            o = opt()
+            with MS.use_rules(rules):
+                _, osh = ST.train_state_shardings(model, mesh, rules)
+                params = ST.init_sharded(
+                    model, torch.Generator(device=dev).manual_seed(h.seed),
+                    mesh, rules)
+                state = o.init(params, shardings=osh)
+                sharded = MS.is_dtensor(params["embed"]["w"])
+                mesh_losses, mesh_ms = run(params, state, ST.make_train_step(
+                    model, o, q_chunk=128, k_chunk=128))
+            mesh_peak = peak_gib()
+            del params, state
+        finally:
+            LM.leave()
+        launched = counted(phase)
+        rel = [abs(a - b) / max(abs(b), 1e-30)
+               for a, b in zip(mesh_losses, plain_losses)]
+        require(sharded, f"{phase}: the params are not DTensors")
+        require(all(np.isfinite(mesh_losses)), f"{phase}: a loss is not "
+                                               f"finite: {mesh_losses}")
+        require(max(rel) <= MESH_ONE_TOL,
+                f"{phase}: sharded vs unsharded losses {rel} > "
+                f"{MESH_ONE_TOL}")
+        row = {"mesh": {"data": 1, "model": 1},
+               "batch": h.batch, "seq": h.seq, "steps": h.steps,
+               "losses": mesh_losses, "losses_unsharded": plain_losses,
+               "max_rel_err": max(rel),
+               "bit_equal": mesh_losses == plain_losses,
+               "tol": MESH_ONE_TOL, "ms_per_step": mesh_ms,
+               "ms_per_step_unsharded": plain_ms,
+               "peak_gib": mesh_peak, "peak_gib_unsharded": plain_peak,
+               "launches": launched}
+        emit(phase, **row)
+        del model
+        free()
+        return row
+
+    # ---- the parallel residual block at full width ------------------------
+    def parallel_block():
+        cfg = h.cfgs["parallel"]
+        phase = f"lm:parallel_block:{cfg.name}"
+        free()
+        model = build_model(cfg, device=dev)
+        seq_model = build_model(dataclasses.replace(cfg,
+                                                    parallel_block=False),
+                                device=dev)
+        h.reset_counts()
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=dev).manual_seed(h.seed))
+        sync()
+        t_build = time.perf_counter() - t0
+        bsz, s, k = h.pb_batch, h.pb_prompt, h.pb_steps
+        gen = torch.Generator(device=dev).manual_seed(h.seed + 11)
+        fe = torch.randn((bsz, cfg.frontend_seq, cfg.d_model), generator=gen,
+                         device=dev).to(model.adt)
+        toks = np.random.default_rng(h.seed + 11).integers(
+            0, cfg.vocab, (bsz, s + k)).astype(np.int32)
+        n_front, max_len = cfg.frontend_seq, cfg.frontend_seq + s + k + 8
+        sync()
+        t0 = time.perf_counter()
+        cache, logits = model.prefill(params, {"tokens": toks[:, :s],
+                                               "frontend": fe},
+                                      max_len=max_len)
+        sync()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        finite = bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+        step_ms = []
+        for i in range(k):
+            t0 = time.perf_counter()
+            cache, logits = model.decode_step(
+                params, cache, toks[:, s + i:s + i + 1],
+                np.full(bsz, n_front + s + i, np.int32))
+            sync()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            finite &= bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+        # the longer prefill ends at the last fed token
+        _, l_full = model.prefill(params, {"tokens": toks[:, :s + k],
+                                           "frontend": fe}, max_len=max_len)
+        _, l_seq = seq_model.prefill(params, {"tokens": toks[:, :s + k],
+                                              "frontend": fe},
+                                     max_len=max_len)
+        launched = counted(phase)
+        a = logits[:, -1, :cfg.vocab].float()
+        b = l_full[:, -1, :cfg.vocab].float()
+        pa, pb = torch.softmax(a, -1), torch.softmax(b, -1)
+        p_err = float(((pa - pb).abs() - 1e-2 * pb.abs()).max())
+        s_rel = rel_l2(a, b)
+        live = rel_l2(l_seq[:, -1, :cfg.vocab], b)
+        require(finite, f"{phase}: non-finite logits")
+        require(p_err <= 5e-3, f"{phase}: prefill + {k} steps vs longer "
+                               f"prefill in softmax {p_err} > 5e-3 + 1e-2 "
+                               f"|p|")
+        require(s_rel <= PREFILL_TOL, f"{phase}: prefill + {k} steps vs "
+                                      f"longer prefill {s_rel} > "
+                                      f"{PREFILL_TOL}")
+        require(live > 1e-3, f"{phase}: the sequential block moved the "
+                             f"logits by only {live}")
+        row = {"parallel_block": True, "build_s": t_build, "batch": bsz,
+               "frontend_seq": n_front, "prompt_tokens": s,
+               "decode_steps": k, "prefill_ms": prefill_ms,
+               "step_ms": [float(q) for q in np.percentile(step_ms[1:],
+                                                           [50, 25, 75])],
+               "steps_vs_longer_prefill_rel_l2": s_rel,
+               "steps_vs_longer_prefill_softmax_excess": p_err,
+               "sequential_block_rel_l2": live, "tol": PREFILL_TOL,
+               "launches": launched, "peak_gib": peak_gib()}
+        emit(phase, **row)
+        del model, seq_model, params, cache
+        free()
+        return row
+
+    rows["mesh_one"] = mesh_one()
+    rows["parallel_block"] = parallel_block()
+    return {"launches": launches, "rows": rows,
+            "seconds": time.perf_counter() - t_all}
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4198,6 +4443,24 @@ def main() -> int:
         rec["launches_slice10"] = s10["launches"].get(rec["name"], 0)
     emit("memory:slice10", max_allocated_gib=torch.cuda.max_memory_allocated()
          / 2 ** 30, seconds=s10["seconds"],
+         seconds_since_start=time.perf_counter() - t_start)
+
+    # ---- 10h. the model across cards, on one card -----------------------
+    import dataclasses
+    mesh_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_")
+    s11 = slice11_phases(types.SimpleNamespace(
+        dev=dev, seed=SEED, require=require, emit=emit, counts=counts,
+        reset_counts=reset_counts, plain_free=plain_free,
+        cfgs={"main": TCFG.get(SLICE11_MAIN),
+              "parallel": dataclasses.replace(TCFG.get(SLICE11_PARALLEL),
+                                              parallel_block=True)},
+        batch=8, seq=256, steps=3, pb_batch=2, pb_prompt=16, pb_steps=8,
+        tmp=mesh_dir.name))
+    mesh_dir.cleanup()
+    for rec in record:
+        rec["launches_slice11"] = s11["launches"].get(rec["name"], 0)
+    emit("memory:slice11", max_allocated_gib=torch.cuda.max_memory_allocated()
+         / 2 ** 30, seconds=s11["seconds"],
          seconds_since_start=time.perf_counter() - t_start)
 
     # ---- 11. the record, the card, the verdict ---------------------------

@@ -2,16 +2,14 @@
 
 Every option the reference offers but this package does not yet run
 raises :func:`not_ported` -- never a quiet fallback -- naming the item of
-ROADMAP.md's queue 1 that will bring it.
+ROADMAP.md's queue 1 that will bring it.  Every module of the reference
+is ported now, so the table is empty.
 """
 from __future__ import annotations
 
 __all__ = ["ROADMAP_ITEMS", "not_ported"]
 
-ROADMAP_ITEMS = {
-    "multi_card": "1.28 (the model across cards: models/sharding.py, "
-                  "launch/mesh.py, launch/dryrun.py)",
-}
+ROADMAP_ITEMS: dict = {}
 
 
 def not_ported(what: str, key: str) -> NotImplementedError:

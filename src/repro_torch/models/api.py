@@ -21,17 +21,29 @@ cache is a list of per-layer caches (ring buffers, cross keys and
 values, recurrent states) that :meth:`decode_step` updates in place.
 Logits are float32, the padded vocab tail masked to -1e30, as the
 reference computes them.
+
+Across cards (ROADMAP 1.28) the same entry points take params that are
+DTensors over a ``DeviceMesh`` (``train.step.init_sharded`` or
+``train.step.shard_params``) and batches laid out by
+``train.step.place_batch``, with the logical rules installed
+(``models.sharding.use_rules``); activations are constrained where the
+reference constrains them.  :meth:`Model.param_specs`,
+:meth:`Model.cache_specs` and :meth:`Model.input_specs` give the
+reference's logical specs, each from the code that builds its tensors;
+:meth:`Model.param_shapes` builds the params on the ``meta`` device.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.configs import SHAPES
 from repro_torch.kernels._backend import resolve_device
 
 from . import blocks as B
 from . import common as C
 from . import transformer as T
+from .sharding import is_dtensor, shard, sharded_region
 
 __all__ = ["FAMILIES", "Model", "build_model"]
 
@@ -63,7 +75,12 @@ class Model:
         if torch.device(generator.device).type != self.device.type:
             raise ValueError(f"the generator is on {generator.device}; "
                              f"the model on {self.device}")
-        cfg, gen = self.cfg, generator
+        return self.build(generator)
+
+    def build(self, gen) -> nn.ModuleDict:
+        """The params drawn from ``gen`` (a generator, or a
+        ``common.NoDraw`` for shapes only) in the one fixed order."""
+        cfg = self.cfg
         p = nn.ModuleDict({"embed": C.embed_init(gen, cfg.vocab, cfg.d_model,
                                                  self.dtype)})
         if not cfg.tie_embeddings:
@@ -79,16 +96,31 @@ class Model:
                                          gen.device)
         return p
 
+    def param_shapes(self) -> nn.ModuleDict:
+        """The params built on the ``meta`` device: shapes, dtypes and
+        ``logical_axes``, no storage."""
+        return self.build(C.NoDraw("meta"))
+
+    def param_specs(self) -> dict:
+        """Each param's logical axes, keyed by its name in
+        ``named_parameters()`` (the names ``convert.model_params``
+        gives), from the same init code as the param."""
+        return {n: p.logical_axes
+                for n, p in self.param_shapes().named_parameters()}
+
     def _unembed_w(self, params) -> torch.Tensor:
         return params["embed"]["w"] if self.cfg.tie_embeddings \
             else params["unembed"]["w"]
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
+        if is_dtensor(a):
+            return a if dtype is None else a.to(dtype)
         return torch.as_tensor(a, dtype=dtype, device=self.device)
 
     def _embed(self, params, tokens) -> torch.Tensor:
         tokens = self._tensor(tokens).long()
-        return params["embed"]["w"][tokens].to(self.adt)
+        x = C.embed(params["embed"]["w"], tokens, self.adt)
+        return shard(x, "batch", None, None)
 
     # --------------------------------------------------------------- train
     def loss(self, params, batch, *, remat: bool = True, q_chunk: int = 512,
@@ -98,12 +130,21 @@ class Model:
         masked), with ``enc_frames`` (B, Se, D) for an encoder-decoder
         and ``frontend`` (B, F, D) for a VLM, whose positions are not
         scored.  Returns (nll + aux_weight * aux, {"nll", "aux"}), float32
-        scalars on the model's device."""
+        scalars on the model's device (DTensors, replicated, over a
+        mesh)."""
+        with sharded_region(params):
+            return self._loss(params, batch, remat=remat, q_chunk=q_chunk,
+                              k_chunk=k_chunk, loss_chunk=loss_chunk,
+                              aux_weight=aux_weight)
+
+    def _loss(self, params, batch, *, remat, q_chunk, k_chunk, loss_chunk,
+              aux_weight):
         cfg = self.cfg
         x = self._embed(params, batch["tokens"])
         memory = None
         if cfg.is_encdec:
-            m = self._tensor(batch["enc_frames"]).to(self.adt)
+            m = shard(self._tensor(batch["enc_frames"]).to(self.adt),
+                      "batch", None, None)
             mpos = torch.arange(m.shape[1], device=self.device)[None, :]
             m, _ = T.stack_apply_train(params["enc"], cfg, self.enc_plan, m,
                                        mpos, causal=False, remat=remat,
@@ -112,7 +153,7 @@ class Model:
         n_front = 0
         if cfg.frontend == "vision":
             fe = self._tensor(batch["frontend"]).to(self.adt)
-            x = torch.cat([fe, x], dim=1)
+            x = torch.cat([shard(fe, "batch", None, None), x], dim=1)
             n_front = fe.shape[1]
         positions = torch.arange(x.shape[1], device=self.device)[None, :]
         x, aux = T.stack_apply_train(params["dec"], cfg, self.plan, x,
@@ -132,6 +173,11 @@ class Model:
         ``batch["enc_frames"]`` (B, Se, D) for an encoder-decoder and
         ``batch["frontend"]`` (B, F, D) for a VLM; returns (cache,
         last-position logits (B, 1, V_pad))."""
+        with sharded_region(params):
+            return self._prefill(params, batch, max_len=max_len,
+                                 q_chunk=q_chunk, k_chunk=k_chunk)
+
+    def _prefill(self, params, batch, *, max_len, q_chunk, k_chunk):
         cfg = self.cfg
         x = self._embed(params, batch["tokens"])
         memory = None
@@ -144,7 +190,7 @@ class Model:
             memory = C.rmsnorm(params["enc_ln"], m, cfg.norm_eps)
         if cfg.frontend == "vision":
             fe = self._tensor(batch["frontend"]).to(self.adt)
-            x = torch.cat([fe, x], dim=1)
+            x = torch.cat([shard(fe, "batch", None, None), x], dim=1)
         positions = torch.arange(x.shape[1], device=self.device)[None, :]
         x, cache = T.stack_apply_prefill(params["dec"], cfg, self.plan, x,
                                          positions, max_len=max_len,
@@ -157,7 +203,9 @@ class Model:
         w = self._unembed_w(params)
         logits = torch.einsum("btd,vd->btv", x.float(), w.float())
         if w.shape[0] > self.cfg.vocab:   # mask the padded vocab tail
-            logits[..., self.cfg.vocab:] = -1e30
+            logits = logits.masked_fill(
+                torch.arange(w.shape[0], device=self.device)
+                >= self.cfg.vocab, -1e30)
         return logits
 
     @torch.no_grad()
@@ -165,17 +213,64 @@ class Model:
         """tokens (B, 1) int, pos (B,) absolute positions.  Writes each
         layer's new k / v into ``cache`` in place; returns (cache,
         logits (B, 1, V_pad))."""
-        x = self._embed(params, tokens)
-        pos = self._tensor(pos, torch.int32)
-        x, cache = T.stack_apply_decode(params["dec"], self.cfg, self.plan,
-                                        x, cache, pos)
-        x = C.rmsnorm(params["final_ln"], x, self.cfg.norm_eps)
-        return cache, self._logits(params, x)
+        with sharded_region(params):
+            x = self._embed(params, tokens)
+            pos = self._tensor(pos, torch.int32)
+            x, cache = T.stack_apply_decode(params["dec"], self.cfg,
+                                            self.plan, x, cache, pos)
+            x = C.rmsnorm(params["final_ln"], x, self.cfg.norm_eps)
+            return cache, self._logits(params, x)
 
-    def init_cache(self, batch: int, max_len: int) -> list:
+    def init_cache(self, batch: int, max_len: int, device=None) -> list:
         return T.stack_cache_init(self.cfg, self.plan, batch, max_len,
                                   cross=self.cfg.is_encdec, dtype=self.adt,
-                                  device=self.device)
+                                  device=device or self.device)
+
+    def cache_specs(self) -> list:
+        """Logical specs of :meth:`init_cache`'s caches, one per layer."""
+        return T.stack_cache_specs(self.cfg, self.plan,
+                                   cross=self.cfg.is_encdec)
+
+    # -------------------------------------------------------- dry-run specs
+    def input_specs(self, shape, *, seq_override=None, batch_override=None,
+                    device="meta"):
+        """(stand-ins, logical specs) for every input of the step the
+        shape exercises -- kind ``train``: ``loss(params, batch)``;
+        ``prefill``: ``prefill(params, batch)``; ``decode``:
+        ``decode_step(params, cache, tokens, pos)`` on a cache of the
+        shape's length -- as the reference's.  The stand-ins are empty
+        tensors on ``device`` (``meta``: no storage)."""
+        cfg = self.cfg
+        if isinstance(shape, str):
+            shape = SHAPES[shape]
+        s = seq_override or shape.seq_len
+        b = batch_override or shape.global_batch
+
+        def empty(*dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device=device)
+
+        if shape.kind in ("train", "prefill"):
+            text = s - (cfg.frontend_seq if cfg.frontend == "vision" else 0)
+            batch = {"tokens": empty(b, text)}
+            specs = {"tokens": ("batch", None)}
+            if shape.kind == "train":
+                batch["labels"] = empty(b, text)
+                specs["labels"] = ("batch", None)
+            if cfg.frontend == "vision":
+                batch["frontend"] = empty(b, cfg.frontend_seq, cfg.d_model,
+                                          dtype=self.adt)
+                specs["frontend"] = ("batch", None, None)
+            if cfg.is_encdec:
+                batch["enc_frames"] = empty(b, s, cfg.d_model,
+                                            dtype=self.adt)
+                specs["enc_frames"] = ("batch", None, None)
+            return batch, specs
+        # decode: a cache of length s plus one new token
+        batch = {"cache": self.init_cache(b, s, device=device),
+                 "tokens": empty(b, 1), "pos": empty(b)}
+        specs = {"cache": self.cache_specs(), "tokens": ("batch", None),
+                 "pos": ("batch",)}
+        return batch, specs
 
 
 def build_model(cfg, device=None) -> Model:

@@ -18,18 +18,23 @@ then a cache of its own, which the LM engine uses to run one slot.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from . import common as C
+from .sharding import (is_dtensor, local_call, local_offset, reduce_from,
+                       shard)
 
 __all__ = ["block_pairs", "flash_attention", "decode_attention",
-           "attn_init", "attn_apply_train", "attn_apply_decode",
-           "attn_cache_init", "attn_cache_from_prefill"]
+           "decode_attend",
+           "attend", "attn_init", "attn_apply_train", "attn_apply_decode",
+           "attn_cache_init", "attn_cache_specs", "attn_cache_from_prefill",
+           "cache_from_prefill"]
 
 
 def block_pairs(n_q: int, n_k: int, q_chunk: int, k_chunk: int,
@@ -127,24 +132,94 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_positions: torch.Tensor,
                      pos: torch.Tensor, *, window: Optional[int] = None,
-                     logit_softcap: float = 0.0) -> torch.Tensor:
+                     logit_softcap: float = 0.0,
+                     head_dim: Optional[int] = None,
+                     reduce_scores: Optional[Callable] = None,
+                     reduce_seq: Optional[Callable] = None) -> torch.Tensor:
     """q (B, 1, Hq, D) against a cache (B, S_cache, Hkv, D) whose slots
     hold absolute positions ``kv_positions`` (B, S_cache), -1 = empty;
-    ``pos`` (B,) is each row's current position."""
+    ``pos`` (B,) is each row's current position.
+
+    On a rank's part of a sharded cache (:func:`decode_attend`):
+    ``head_dim`` is the full head dim (the scale's), ``reduce_scores``
+    sums the partial scores of a split head dim, and ``reduce_seq(x,
+    op)`` reduces (``"max"`` or ``"sum"``) the softmax's max, sum and
+    weighted values over a split sequence."""
     b, _, hq, d = q.shape
     hkv = k_cache.shape[2]
     g = hq // hkv
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(head_dim or d)
     qg = q.reshape(b, hkv, g, d)
-    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k_cache.float()) * scale
-    s = _softcap(s, logit_softcap)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k_cache.float())
+    if reduce_scores is not None:
+        s = reduce_scores(s)
+    s = _softcap(s * scale, logit_softcap)
     ok = (kv_positions >= 0) & (kv_positions <= pos[:, None])
     if window is not None:
         ok &= pos[:, None] - kv_positions < window
     s = s.masked_fill(~ok[:, None, None, :], -math.inf)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    if reduce_seq is None:
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    else:
+        e = torch.exp(s - reduce_seq(s.amax(dim=-1, keepdim=True), "max"))
+        out = reduce_seq(torch.einsum("bhgk,bkhd->bhgd", e,
+                                      v_cache.float()), "sum") \
+            / reduce_seq(e.sum(-1, keepdim=True), "sum")
     return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def decode_attend(q, k_cache, v_cache, kv_positions, pos, *,
+                  window: Optional[int] = None,
+                  logit_softcap: float = 0.0) -> torch.Tensor:
+    """:func:`decode_attention`; over DTensors it runs on each rank's
+    part of the cache, as the cache's placements lay it out: batch rows
+    and kv heads locally, a split head dim with the scores all-reduced
+    over its axis, a split sequence (context parallelism) with the
+    softmax's max, sum and weighted values all-reduced over its axes."""
+    if not is_dtensor(k_cache):
+        return decode_attention(q, k_cache, v_cache, kv_positions, pos,
+                                window=window, logit_softcap=logit_softcap)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = k_cache.device_mesh
+    names = mesh.mesh_dim_names
+    hq, hkv = q.shape[2], k_cache.shape[2]
+    kv_pl, q_pl, row_pl, kp_pl = [], [], [], []
+    hd_axes, seq_axes = [], []
+    for i, pl in enumerate(k_cache.placements):
+        dim, n = (pl.dim if isinstance(pl, Shard) else None), mesh.size(i)
+        if dim == 0:
+            kv_pl.append(Shard(0)); q_pl.append(Shard(0))
+            row_pl.append(Shard(0)); kp_pl.append(Shard(0))
+            continue
+        if dim == 2 and hq % n == 0 and hkv % n == 0:
+            kv_pl.append(Shard(2)); q_pl.append(Shard(2))
+        elif dim == 3:
+            kv_pl.append(Shard(3)); q_pl.append(Shard(3))
+            hd_axes.append(names[i])
+        elif dim == 1:
+            kv_pl.append(Shard(1)); q_pl.append(Replicate())
+            seq_axes.append(names[i])
+        else:
+            kv_pl.append(Replicate()); q_pl.append(Replicate())
+        row_pl.append(Replicate())
+        kp_pl.append(Shard(1) if dim == 1 else Replicate())
+
+    def over(axes):
+        def reduce(x, op="sum"):
+            for a in axes:
+                x = reduce_from(x, mesh, a, op)
+            return x
+        return reduce if axes else None
+
+    body = functools.partial(decode_attention, window=window,
+                             logit_softcap=logit_softcap,
+                             head_dim=q.shape[3],
+                             reduce_scores=over(hd_axes),
+                             reduce_seq=over(seq_axes))
+    return local_call(body, mesh, (q, k_cache, v_cache, kv_positions, pos),
+                      (q_pl, kv_pl, kv_pl, kp_pl, row_pl), (None,) * 5,
+                      (q_pl,), out_shapes=(q.shape,))
 
 
 # --------------------------------------------------------------------------
@@ -153,11 +228,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 def attn_init(gen: torch.Generator, cfg, dtype) -> nn.ModuleDict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    col, row = (None, "model"), ("model", None)
     p = nn.ModuleDict({
-        "wq": C.dense_init(gen, d, hq * hd, dtype, bias=cfg.qkv_bias),
-        "wk": C.dense_init(gen, d, hkv * hd, dtype, bias=cfg.qkv_bias),
-        "wv": C.dense_init(gen, d, hkv * hd, dtype, bias=cfg.qkv_bias),
-        "wo": C.dense_init(gen, hq * hd, d, dtype),
+        "wq": C.dense_init(gen, d, hq * hd, dtype, bias=cfg.qkv_bias,
+                           spec=col),
+        "wk": C.dense_init(gen, d, hkv * hd, dtype, bias=cfg.qkv_bias,
+                           spec=col),
+        "wv": C.dense_init(gen, d, hkv * hd, dtype, bias=cfg.qkv_bias,
+                           spec=col),
+        "wo": C.dense_init(gen, hq * hd, d, dtype, spec=row),
     })
     if cfg.qk_norm:
         p["qn"] = C.rmsnorm_init(hd, dtype, gen.device)
@@ -165,12 +244,49 @@ def attn_init(gen: torch.Generator, cfg, dtype) -> nn.ModuleDict:
     return p
 
 
+def _split_heads(xp: torch.Tensor, heads: int, hd: int) -> torch.Tensor:
+    """(B, S, heads * hd) -> (B, S, heads, hd).  A packed dim split over
+    a mesh axis that does not divide ``heads`` is gathered over that
+    axis first (GSPMD reshards there too)."""
+    if is_dtensor(xp):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = xp.device_mesh
+        pls = [Replicate() if isinstance(pl, Shard) and pl.dim == 2
+               and heads % mesh.size(i) != 0 else pl
+               for i, pl in enumerate(xp.placements)]
+        if pls != list(xp.placements):
+            xp = xp.redistribute(mesh, pls)
+    return xp.reshape(*xp.shape[:2], heads, hd)
+
+
+def merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, S, H * hd).  A head dim split over a mesh
+    axis (a sharded cache's layout) moves to the heads where they divide
+    the axis, else is gathered, so the packed dim is split in whole
+    heads."""
+    if is_dtensor(o):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = o.device_mesh
+        pls = [(Shard(2) if o.shape[2] % mesh.size(i) == 0 else Replicate())
+               if isinstance(pl, Shard) and pl.dim == 3 else pl
+               for i, pl in enumerate(o.placements)]
+        if pls != list(o.placements):
+            o = o.redistribute(mesh, pls)
+    return o.reshape(*o.shape[:2], -1)
+
+
 def _project_qkv(p, cfg, x: torch.Tensor, positions: torch.Tensor):
     b, sq, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = C.dense_apply(p["wq"], x).reshape(b, sq, cfg.n_heads, hd)
-    k = C.dense_apply(p["wk"], x).reshape(b, sq, cfg.n_kv_heads, hd)
-    v = C.dense_apply(p["wv"], x).reshape(b, sq, cfg.n_kv_heads, hd)
+    # the constraints go on the PACKED (h * hd) projections, as in the
+    # reference: the packed dims divide the model axis where head counts
+    # need not
+    qp = shard(C.dense_apply(p["wq"], x), "batch", None, "model")
+    kp = shard(C.dense_apply(p["wk"], x), "batch", None, "model")
+    vp = shard(C.dense_apply(p["wv"], x), "batch", None, "model")
+    q = _split_heads(qp, cfg.n_heads, hd)
+    k = _split_heads(kp, cfg.n_kv_heads, hd)
+    v = _split_heads(vp, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = C.rmsnorm(p["qn"], q, cfg.norm_eps)
         k = C.rmsnorm(p["kn"], k, cfg.norm_eps)
@@ -185,11 +301,47 @@ def attn_apply_train(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     """Full-sequence attention (prefill).  Returns (out, (k, v))."""
     q, k, v = _project_qkv(p, cfg, x, positions)
     window = cfg.window if is_local else None
-    out = flash_attention(q, k, v, causal=causal, window=window,
-                          q_chunk=q_chunk, k_chunk=k_chunk,
-                          logit_softcap=cfg.logit_softcap)
+    out = attend(q, k, v, causal=causal, window=window, q_chunk=q_chunk,
+                 k_chunk=k_chunk, logit_softcap=cfg.logit_softcap)
     b, sq = x.shape[:2]
-    return C.dense_apply(p["wo"], out.reshape(b, sq, -1)), (k, v)
+    y = C.dense_apply(p["wo"], out.reshape(b, sq, -1))
+    return shard(y, "batch", None, None), (k, v)
+
+
+def _rank_local_placements(q, k):
+    """Placements under which attention over q (B, S, Hq, D) and k / v
+    (B, Sk, Hkv, D) is rank-local: a mesh dim that shards the batch of
+    q keeps it; one that shards q's and k's heads keeps them where both
+    head counts divide it (so head h and its kv head h // g share a
+    rank); every other mesh dim is replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    out = []
+    for i, (pq, pk) in enumerate(zip(q.placements, k.placements)):
+        n = mesh.size(i)
+        if isinstance(pq, Shard) and pq.dim == 0 and q.shape[0] % n == 0:
+            out.append(Shard(0))
+        elif (isinstance(pq, Shard) and pq.dim == 2 and isinstance(pk, Shard)
+              and pk.dim == 2 and q.shape[2] % n == 0
+              and k.shape[2] % n == 0):
+            out.append(Shard(2))
+        else:
+            out.append(Replicate())
+    return out
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           **kw) -> torch.Tensor:
+    """:func:`flash_attention`; over DTensors it runs on each rank's
+    shard of the batch and of the heads (``_rank_local_placements``), q,
+    k and v redistributed to that layout first, and the output keeps
+    it."""
+    if not is_dtensor(q):
+        return flash_attention(q, k, v, **kw)
+    pls = _rank_local_placements(q, k)
+    return local_call(lambda a, b_, c: flash_attention(a, b_, c, **kw),
+                      q.device_mesh, (q, k, v), (pls, pls, pls),
+                      (None, None, None), (pls,), out_shapes=(q.shape,))
 
 
 def attn_apply_decode(p, cfg, x: torch.Tensor, cache: dict,
@@ -201,15 +353,55 @@ def attn_apply_decode(p, cfg, x: torch.Tensor, cache: dict,
     q, k_new, v_new = _project_qkv(p, cfg, x, pos[:, None])
     size = cache["k"].shape[1]
     slot = (cache["ins"] % size).long()          # (B,) ring insertion point
-    bi = torch.arange(b, device=x.device)
-    cache["k"][bi, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][bi, slot] = v_new[:, 0].to(cache["v"].dtype)
-    cache["pos"][bi, slot] = pos.to(cache["pos"].dtype)
+    if is_dtensor(cache["k"]):
+        _write_sharded(cache, slot, k_new, v_new, pos)
+    else:
+        bi = torch.arange(b, device=x.device)
+        cache["k"][bi, slot] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][bi, slot] = v_new[:, 0].to(cache["v"].dtype)
+        cache["pos"][bi, slot] = pos.to(cache["pos"].dtype)
     cache["ins"] += 1
     window = cfg.window if is_local else None
-    out = decode_attention(q, cache["k"], cache["v"], cache["pos"], pos,
-                           window=window, logit_softcap=cfg.logit_softcap)
-    return C.dense_apply(p["wo"], out.reshape(b, 1, -1)), cache
+    out = decode_attend(q, cache["k"], cache["v"], cache["pos"], pos,
+                        window=window, logit_softcap=cfg.logit_softcap)
+    return C.dense_apply(p["wo"], merge_heads(out)), cache
+
+
+def _write_slot(c: torch.Tensor, slot: torch.Tensor, new: torch.Tensor,
+                lo: int) -> None:
+    """Write each row's ``new`` (B, ...) into ``c`` (B, S, ...), a rank's
+    part of a cache whose sequence starts at global slot ``lo``, at slot
+    ``slot - lo``; a row whose slot lies on another rank writes back the
+    value it reads."""
+    if c.shape[1] == 0:
+        return
+    j = slot - lo
+    mine = (j >= 0) & (j < c.shape[1])
+    j = j.clamp(0, c.shape[1] - 1)
+    bi = torch.arange(c.shape[0], device=c.device)
+    mine = mine.reshape(-1, *[1] * (new.dim() - 1))
+    c[bi, j] = torch.where(mine, new.to(c.dtype), c[bi, j])
+
+
+def _write_sharded(cache: dict, slot: torch.Tensor, k_new: torch.Tensor,
+                   v_new: torch.Tensor, pos: torch.Tensor) -> None:
+    """The decode write into a sharded cache (batch, kvseq, heads or head
+    dim split): each rank writes its own rows' slot, where it holds it,
+    with an index write on its local part."""
+    from torch.distributed.tensor import Replicate, Shard
+    size = cache["k"].shape[1]
+    for key, new in (("k", k_new), ("v", v_new), ("pos", pos)):
+        c = cache[key]
+        mesh, pl = c.device_mesh, list(c.placements)
+        rows = [p_ if isinstance(p_, Shard) and p_.dim == 0 else Replicate()
+                for p_ in pl]
+        # the new token on the cache's layout, its one slot whole
+        new_pl = [Replicate() if isinstance(p_, Shard) and p_.dim == 1
+                  else p_ for p_ in pl]
+        lo = local_offset(mesh, pl, 1, size)
+        local_call(lambda c_, s_, n_: _write_slot(
+            c_, s_, n_.reshape(c_.shape[0], *c_.shape[2:]), lo), mesh,
+            (c, slot, new), (pl, rows, new_pl), (None,) * 3, (None,))
 
 
 def attn_cache_init(cfg, batch: int, max_len: int, *, is_local: bool,
@@ -228,6 +420,17 @@ def attn_cache_init(cfg, batch: int, max_len: int, *, is_local: bool,
     }
 
 
+def attn_cache_specs(cfg, is_local: bool, model_axis: int = 16) -> dict:
+    """The reference's KV-cache specs: the kv-head dim on the model axis
+    when it divides ``model_axis`` (16, the production axis), else the
+    head dim; the sequence dim on the logical ``kvseq`` axis."""
+    if cfg.n_kv_heads % model_axis == 0:
+        kv = ("batch", "kvseq", "model", None)
+    else:
+        kv = ("batch", "kvseq", None, "model")
+    return {"k": kv, "v": kv, "pos": ("batch", "kvseq"), "ins": ("batch",)}
+
+
 def attn_cache_from_prefill(cfg, k: torch.Tensor, v: torch.Tensor, *,
                             is_local: bool, max_len: int) -> dict:
     """A decode cache from prefill K/V of shape (B, S, Hkv, D)."""
@@ -238,8 +441,10 @@ def attn_cache_from_prefill(cfg, k: torch.Tensor, v: torch.Tensor, *,
     if is_local and s_in > size:
         k, v, pos_keep = k[:, -size:], v[:, -size:], pos_keep[-size:]
     kept = k.shape[1]
-    c = attn_cache_init(cfg, b, max_len, is_local=is_local, dtype=k.dtype,
-                        device=dev)
+    c = {"k": k.new_zeros((b, size, *k.shape[2:])),
+         "v": v.new_zeros((b, size, *v.shape[2:])),
+         "pos": torch.full((b, size), -1, dtype=torch.int32, device=dev),
+         "ins": torch.zeros(b, dtype=torch.int32, device=dev)}
     # ring layout: token at absolute position p lives in slot p % size
     slots = (pos_keep % size).long() if is_local else torch.arange(
         kept, device=dev)
@@ -248,3 +453,26 @@ def attn_cache_from_prefill(cfg, k: torch.Tensor, v: torch.Tensor, *,
     c["pos"][:, slots] = pos_keep.expand(b, kept)
     c["ins"].fill_(s_in)
     return c
+
+
+def cache_from_prefill(cfg, k: torch.Tensor, v: torch.Tensor, *,
+                       is_local: bool, max_len: int) -> dict:
+    """:func:`attn_cache_from_prefill`; over DTensors each rank builds
+    its own batch rows' and heads' part of the cache."""
+    if not is_dtensor(k):
+        return attn_cache_from_prefill(cfg, k, v, is_local=is_local,
+                                       max_len=max_len)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, kv_pl = k.device_mesh, list(k.placements)
+    rows = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+            for pl in kv_pl]
+    b = k.shape[0]
+    size = min(cfg.window, max_len) if is_local else max_len
+    c = local_call(
+        lambda k_, v_: tuple(attn_cache_from_prefill(
+            cfg, k_, v_, is_local=is_local, max_len=max_len).values()),
+        mesh, (k, v), (kv_pl, kv_pl), (None, None),
+        (kv_pl, kv_pl, rows, rows),
+        out_shapes=((b, size, *k.shape[2:]), (b, size, *k.shape[2:]),
+                    (b, size), (b,)))
+    return dict(zip(("k", "v", "pos", "ins"), c))

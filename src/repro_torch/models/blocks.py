@@ -4,9 +4,13 @@ Port of ``repro/models/blocks.py``.  Kinds: ``global`` and ``local``
 (attention, then a dense FFN, the sparse FFN through ``ffn_apply``, or
 MoE), ``recurrent`` (RG-LRU, then the FFN) and ``mamba`` (the fused
 Mamba block).  ``cross=True`` adds encoder-decoder cross-attention
-(``lnx``, ``xattn``) to an attention block.  The parallel residual
-block raises naming its ROADMAP item (1.28): it exists to share one
-all-reduce between attention and MLP on a sharded model.
+(``lnx``, ``xattn``) to an attention block.  ``cfg.parallel_block`` is
+the PaLM-style parallel residual (attention and FFN read the same input,
+``x + attn(ln1 x) + ffn(ln2 x)``; on a sharded model their partial sums
+share one all-reduce): the reference's training forward honours it for
+attention blocks without cross-attention, and the port's training,
+prefill and decode all do (:func:`parallel`).  The reference's prefill
+and decode ignore it (ROADMAP.md, queue 3).
 
 Decode caches: an attention layer's ring buffer (``attention.py``), or
 ``{"self": ring, "xk", "xv"}`` with cross-attention, and ``{"conv",
@@ -18,8 +22,6 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch._todo import not_ported
-
 from . import attention as A
 from . import common as C
 from . import ffn as FF
@@ -27,17 +29,15 @@ from . import moe as MOE
 from . import rglru as RG
 from . import ssm as SSM
 
-__all__ = ["KINDS", "check_kind", "block_init", "block_apply_train",
-           "block_apply_decode", "block_cache_init", "cross_project",
-           "cross_attend"]
+__all__ = ["KINDS", "check_kind", "parallel", "block_init",
+           "block_apply_train", "block_apply_decode", "block_cache_init",
+           "block_cache_specs", "cross_project", "cross_attend"]
 
 KINDS = ("global", "local", "recurrent", "mamba")
 
 
 def check_kind(cfg, kind: str) -> None:
-    """Raise for a layer this port does not run yet."""
-    if cfg.parallel_block:
-        raise not_ported("the parallel residual block", "multi_card")
+    """Raise for an unknown layer kind."""
     if kind not in KINDS:
         raise ValueError(f"unknown layer kind {kind!r}")
 
@@ -69,6 +69,13 @@ def block_init(gen: torch.Generator, cfg, kind: str, *, use_moe: bool,
     return p
 
 
+def parallel(p, cfg, kind: str) -> bool:
+    """Whether the block is a parallel residual one: an attention block
+    without cross-attention of a ``parallel_block`` config."""
+    return (cfg.parallel_block and kind in ("global", "local")
+            and "xattn" not in p)
+
+
 def _mix_ffn(p, cfg, x: torch.Tensor):
     """(FFN output, auxiliary loss): MoE's loss, or 0."""
     if "moe" in p:
@@ -81,32 +88,33 @@ def cross_project(p, cfg, memory: torch.Tensor):
     """The encoder output's cross-attention keys and values (B, Se, Hkv,
     hd)."""
     hd = cfg.resolved_head_dim
-    shape = (*memory.shape[:2], cfg.n_kv_heads, hd)
-    return (C.dense_apply(p["xattn"]["wk"], memory).reshape(shape),
-            C.dense_apply(p["xattn"]["wv"], memory).reshape(shape))
+    return (A._split_heads(C.dense_apply(p["xattn"]["wk"], memory),
+                           cfg.n_kv_heads, hd),
+            A._split_heads(C.dense_apply(p["xattn"]["wv"], memory),
+                           cfg.n_kv_heads, hd))
 
 
 def cross_attend(p, cfg, x: torch.Tensor, xk: torch.Tensor,
                  xv: torch.Tensor, *, decode: bool = False,
                  q_chunk: int = 512, k_chunk: int = 512) -> torch.Tensor:
     """x plus its cross-attention over (xk, xv): non-causal, no RoPE; a
-    decode step (one token) attends through ``decode_attention``, as the
-    reference's does."""
+    decode step (one token) attends through ``decode_attend``, as the
+    reference's does through ``decode_attention``."""
     hx = C.rmsnorm(p["lnx"], x, cfg.norm_eps)
     b, s = hx.shape[:2]
-    q = C.dense_apply(p["xattn"]["wq"], hx).reshape(
-        b, s, cfg.n_heads, cfg.resolved_head_dim)
+    q = A._split_heads(C.dense_apply(p["xattn"]["wq"], hx), cfg.n_heads,
+                       cfg.resolved_head_dim)
     if decode:      # every encoder position is valid
         s_enc = xk.shape[1]
         kv_pos = torch.arange(s_enc, dtype=torch.int32,
                               device=x.device).expand(b, s_enc)
-        o = A.decode_attention(q, xk, xv, kv_pos,
-                               torch.full((b,), s_enc, dtype=torch.int32,
-                                          device=x.device))
+        o = A.decode_attend(q, xk, xv, kv_pos,
+                            torch.full((b,), s_enc, dtype=torch.int32,
+                                       device=x.device))
     else:
-        o = A.flash_attention(q, xk, xv, causal=False, window=None,
-                              q_chunk=q_chunk, k_chunk=k_chunk)
-    return x + C.dense_apply(p["xattn"]["wo"], o.reshape(b, s, -1))
+        o = A.attend(q, xk, xv, causal=False, window=None, q_chunk=q_chunk,
+                     k_chunk=k_chunk)
+    return x + C.dense_apply(p["xattn"]["wo"], A.merge_heads(o))
 
 
 def block_apply_train(p, cfg, kind: str, x: torch.Tensor,
@@ -126,6 +134,9 @@ def block_apply_train(p, cfg, kind: str, x: torch.Tensor,
         h, _ = A.attn_apply_train(p["attn"], cfg, h, positions,
                                   is_local=(kind == "local"), causal=causal,
                                   q_chunk=q_chunk, k_chunk=k_chunk)
+        if parallel(p, cfg, kind):
+            h2, aux = _mix_ffn(p, cfg, C.rmsnorm(p["ln2"], x, cfg.norm_eps))
+            return x + h + h2, aux
     x = x + h
     if "xattn" in p and memory is not None:
         xk, xv = cross_project(p, cfg, memory)
@@ -150,6 +161,9 @@ def block_apply_decode(p, cfg, kind: str, x: torch.Tensor, cache: dict,
         h, _ = A.attn_apply_decode(p["attn"], cfg, h, cache.get("self",
                                                                 cache),
                                    pos, is_local=(kind == "local"))
+        if parallel(p, cfg, kind):
+            h2, _ = _mix_ffn(p, cfg, C.rmsnorm(p["ln2"], x, cfg.norm_eps))
+            return x + h + h2, cache
     x = x + h
     if "xattn" in p and "xk" in cache:
         x = cross_attend(p, cfg, x, cache["xk"], cache["xv"], decode=True)
@@ -172,3 +186,18 @@ def block_cache_init(cfg, kind: str, batch: int, max_len: int, *,
     return {"self": c,
             "xk": torch.zeros(shape, dtype=dtype, device=device),
             "xv": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def block_cache_specs(cfg, kind: str, *, cross: bool = False) -> dict:
+    """Logical specs of :func:`block_cache_init`'s cache, as the
+    reference's."""
+    if kind == "mamba":
+        return SSM.mamba_cache_specs()
+    if kind == "recurrent":
+        return RG.rglru_cache_specs()
+    c = A.attn_cache_specs(cfg, is_local=(kind == "local"))
+    if not cross:
+        return c
+    xkv = ("batch", None, "model", None) if cfg.n_kv_heads % 16 == 0 \
+        else ("batch", None, None, "model")
+    return {"self": c, "xk": xkv, "xv": xkv}

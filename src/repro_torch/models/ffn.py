@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from . import common as C
+from .sharding import shard
 
 __all__ = ["ffn_init", "ffn_apply"]
 
@@ -20,10 +21,11 @@ def ffn_init(gen: torch.Generator, cfg, dtype,
              d_ff: int | None = None) -> nn.ModuleDict:
     d = cfg.d_model
     ff = d_ff if d_ff is not None else cfg.d_ff
-    p = nn.ModuleDict({"w1": C.dense_init(gen, d, ff, dtype)})
+    col, row = (None, "model"), ("model", None)
+    p = nn.ModuleDict({"w1": C.dense_init(gen, d, ff, dtype, spec=col)})
     if cfg.act in ("silu", "geglu"):
-        p["w3"] = C.dense_init(gen, d, ff, dtype)
-    p["w2"] = C.dense_init(gen, ff, d, dtype)
+        p["w3"] = C.dense_init(gen, d, ff, dtype, spec=col)
+    p["w2"] = C.dense_init(gen, ff, d, dtype, spec=row)
     return p
 
 
@@ -32,11 +34,11 @@ def ffn_apply(p, cfg, x: torch.Tensor) -> torch.Tensor:
     from repro_torch.sparse.sparse_ffn import SparseLinear, sparse_ffn_apply
     if isinstance(p["w1"], SparseLinear):
         # SparseLinear leaves: the operator's spMM path
-        return sparse_ffn_apply(p, cfg, x)
+        return shard(sparse_ffn_apply(p, cfg, x), "batch", None, None)
     act = C.activation(cfg.act)
-    h = C.dense_apply(p["w1"], x)
+    h = shard(C.dense_apply(p["w1"], x), "batch", None, "model")
     if "w3" in p:
         h = act(h) * C.dense_apply(p["w3"], x)
     else:
         h = act(h)
-    return C.dense_apply(p["w2"], h)
+    return shard(C.dense_apply(p["w2"], h), "batch", None, None)

@@ -23,9 +23,10 @@ from torch import nn
 
 from . import common as C
 from .scan_utils import causal_conv1d, chunked_linear_scan
+from .sharding import shard
 
 __all__ = ["rglru_init", "rglru_apply_train", "rglru_apply_decode",
-           "rglru_cache_init"]
+           "rglru_cache_init", "rglru_cache_specs"]
 
 _C = 8.0
 
@@ -35,20 +36,21 @@ def rglru_init(gen: torch.Generator, cfg, dtype) -> nn.ParameterDict:
     dev = gen.device
 
     def zeros(dt=torch.float32):
-        return C.param(torch.zeros(di, dtype=dt, device=dev))
+        return C.param(torch.zeros(di, dtype=dt, device=dev), ("model",))
+    col, row = (None, "model"), ("model", None)
     p = nn.ParameterDict()
-    p["in_x"] = C.dense_init(gen, d, di, dtype)
-    p["in_gate"] = C.dense_init(gen, d, di, dtype)
+    p["in_x"] = C.dense_init(gen, d, di, dtype, spec=col)
+    p["in_gate"] = C.dense_init(gen, d, di, dtype, spec=col)
     p["conv_w"] = C.param(C.normal(gen, (cw, di), 1.0 / math.sqrt(cw),
-                                   dtype))
+                                   dtype), col)
     p["conv_b"] = zeros(dtype)
     for k in ("w_a", "b_a", "w_x", "b_x"):     # the diagonal gates
         p[k] = zeros()
     # lam such that a^c lies in [0.9, 0.999], as in the paper
-    u = torch.empty(di, dtype=torch.float32, device=dev).uniform_(
-        0.9 ** 2, 0.999 ** 2, generator=gen)
-    p["lam"] = C.param(torch.log(torch.expm1(-torch.log(u) / _C)))
-    p["out"] = C.dense_init(gen, di, d, dtype)
+    u = C.uniform(gen, (di,), 0.9 ** 2, 0.999 ** 2)
+    p["lam"] = C.param(torch.log(torch.expm1(-torch.log(u) / _C)),
+                       ("model",))
+    p["out"] = C.dense_init(gen, di, d, dtype, spec=row)
     return p
 
 
@@ -69,14 +71,15 @@ def rglru_apply_train(p, cfg, x: torch.Tensor,
     b = x.shape[0]
     gelu = C.activation("gelu")
     gate = gelu(C.dense_apply(p["in_gate"], x))
-    xs = C.dense_apply(p["in_x"], x)
+    xs = shard(C.dense_apply(p["in_x"], x), "batch", None, "model")
     xc, conv_state = causal_conv1d(xs, p["conv_w"], p["conv_b"])
     a, bb = _gates(p, xc)
     h0 = torch.zeros((b, cfg.d_inner), dtype=torch.float32, device=x.device)
     chunk = scan_chunk if scan_chunk is not None else cfg.ssm_scan_chunk
     h_all, h_last = chunked_linear_scan(a, bb, h0, chunk=chunk)
     out = C.dense_apply(p["out"], h_all.to(x.dtype) * gate)
-    return out, {"conv": conv_state, "h": h_last}
+    return shard(out, "batch", None, None), {"conv": conv_state,
+                                             "h": h_last}
 
 
 def rglru_apply_decode(p, cfg, x: torch.Tensor, cache: dict):
@@ -93,6 +96,10 @@ def rglru_apply_decode(p, cfg, x: torch.Tensor, cache: dict):
     cache["conv"].copy_(conv_state)
     cache["h"].copy_(h)
     return out, cache
+
+
+def rglru_cache_specs() -> dict:
+    return {"conv": ("batch", None, "model"), "h": ("batch", "model")}
 
 
 def rglru_cache_init(cfg, batch: int, dtype=torch.bfloat16,

@@ -11,6 +11,9 @@ has no counterpart: ``chunk=0`` is always 1024.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import Shard
+
+from .sharding import is_dtensor, local_call
 
 __all__ = ["pick_chunk", "chunked_linear_scan", "causal_conv1d"]
 
@@ -43,7 +46,18 @@ def _doubling_scan(a: torch.Tensor, b: torch.Tensor):
 def chunked_linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
                         chunk: int = 0):
     """a, b (B, S, ...); h0 (B, ...), the state before the sequence.
-    Returns (h_all (B, S, ...), h_last (B, ...))."""
+    Returns (h_all (B, S, ...), h_last (B, ...)).  Over DTensors whose
+    sequence dim is whole, each rank scans its own batch rows and
+    channels."""
+    if is_dtensor(a) and not any(isinstance(pl, Shard) and pl.dim == 1
+                                 for pl in a.placements):
+        pls = list(a.placements)
+        h_pls = [Shard(pl.dim - 1) if isinstance(pl, Shard) and pl.dim > 1
+                 else pl for pl in pls]
+        return local_call(
+            lambda a_, b_, h_: chunked_linear_scan(a_, b_, h_, chunk),
+            a.device_mesh, (a, b, h0), (pls, pls, h_pls), (None,) * 3,
+            (pls, h_pls), out_shapes=(a.shape, h0.shape))
     s = a.shape[1]
     chunk = pick_chunk(s, chunk)
     h = h0

@@ -30,10 +30,12 @@ from . import blocks as B
 from . import common as C
 from . import rglru as RG
 from . import ssm as SSM
+from .sharding import (is_dtensor, local_call, local_offset, reduce_from,
+                       split_axes)
 
 __all__ = ["StackPlan", "make_plan", "layer_kinds", "stack_init",
            "stack_apply_train", "stack_apply_prefill", "stack_apply_decode",
-           "stack_cache_init", "chunked_xent"]
+           "stack_cache_init", "stack_cache_specs", "chunked_xent"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,11 +159,12 @@ def _block_prefill(p, cfg, kind: str, x: torch.Tensor,
                                        is_local=(kind == "local"),
                                        causal=True, q_chunk=q_chunk,
                                        k_chunk=k_chunk)
+        c = A.cache_from_prefill(cfg, k.to(cache_dtype), v.to(cache_dtype),
+                                 is_local=(kind == "local"), max_len=max_len)
+        if B.parallel(p, cfg, kind):
+            h2, _ = B._mix_ffn(p, cfg, C.rmsnorm(p["ln2"], x, cfg.norm_eps))
+            return x + h + h2, c
         x = x + h
-        c = A.attn_cache_from_prefill(cfg, k.to(cache_dtype),
-                                      v.to(cache_dtype),
-                                      is_local=(kind == "local"),
-                                      max_len=max_len)
         if "xattn" in p and memory is not None:
             xk, xv = B.cross_project(p, cfg, memory)
             x = B.cross_attend(p, cfg, x, xk, xv, q_chunk=q_chunk,
@@ -185,6 +188,14 @@ def stack_cache_init(cfg, plan: StackPlan, batch: int, max_len: int, *,
                      cross: bool = False, dtype, device=None) -> list:
     return [B.block_cache_init(cfg, kind, batch, max_len, cross=cross,
                                dtype=dtype, device=device)
+            for kind, _ in layer_kinds(plan)]
+
+
+def stack_cache_specs(cfg, plan: StackPlan, *, cross: bool = False) -> list:
+    """Logical specs of :func:`stack_cache_init`'s caches, one per
+    layer (the reference's per period position, without the stacked
+    layer axis)."""
+    return [B.block_cache_specs(cfg, kind, cross=cross)
             for kind, _ in layer_kinds(plan)]
 
 
@@ -228,6 +239,8 @@ def chunked_xent(x: torch.Tensor, embed_w: torch.Tensor,
     sums are added in order, as the reference's scan adds them."""
     b, t, _ = x.shape
     chunk = _pick_chunk(t, chunk)
+    if is_dtensor(x):
+        return _chunked_xent_sharded(x, embed_w, labels, chunk, vocab)
     w = embed_w.float()
     labels = labels.long()
     tot = x.new_zeros((), dtype=torch.float32)
@@ -238,4 +251,73 @@ def chunked_xent(x: torch.Tensor, embed_w: torch.Tensor,
                           use_reentrant=False, preserve_rng_state=False)
         tot = tot + s
         cnt = cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _chunked_xent_sharded(x, embed_w, labels, chunk: int,
+                          vocab: int | None):
+    """:func:`chunked_xent` over DTensors: x and labels batch-sharded,
+    the table vocab-sharded (``("model", None)``).  Each chunk's logits
+    stay on the rank that holds their vocab slice: the max, the sum of
+    exponentials and the target logit are all-reduced over the model
+    axis (``sharding.reduce_from``), so no rank holds a chunk's full
+    (B, chunk, V_pad) logits.  Each rank's sums over its batch rows are
+    partial over the data axes, reduced once at the end."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    w = embed_w.float()
+    v_axes = split_axes(w.placements, mesh, 0)
+    x_pl = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+            for pl in x.placements]
+    lab_pl = list(x_pl)
+    w_pl = [Shard(0) if i in v_axes else Replicate()
+            for i in range(mesh.ndim)]
+    # gradients: x's is partial over the vocab axes, the table's over
+    # the batch axes; the sums are partial over the batch axes
+    x_grad = [Partial() if i in v_axes else pl for i, pl in enumerate(x_pl)]
+    w_grad = [Partial() if isinstance(x_pl[i], Shard) else pl
+              for i, pl in enumerate(w_pl)]
+    sums = [Partial() if isinstance(pl, Shard) else Replicate()
+            for pl in x_pl]
+    v_pad = w.shape[0]
+    v_lo = local_offset(mesh, w_pl, 0, v_pad)   # this rank's first row
+
+    def body(xc, w_loc, lab):
+        if not v_axes:      # the whole vocab here: the one-device chunk
+            return _xent_chunk(xc, w_loc, lab, vocab)
+        logits = torch.einsum("bcd,vd->bcv", xc.float(), w_loc)
+        if vocab and vocab < v_pad:
+            pad = torch.arange(v_lo, v_lo + w_loc.shape[0],
+                               device=w_loc.device) >= vocab
+            logits = logits.masked_fill(pad, -1e30)
+        m = logits.amax(dim=-1)
+        for i in v_axes:
+            m = reduce_from(m, mesh, names[i], "max")
+        se = torch.exp(logits - m.detach()[..., None]).sum(-1)
+        rel = lab - v_lo
+        mine = (rel >= 0) & (rel < w_loc.shape[0])
+        gold = torch.gather(logits, -1, torch.clamp(rel, 0, max(
+            w_loc.shape[0] - 1, 0))[..., None])[..., 0]
+        gold = torch.where(mine, gold, 0.0)
+        for i in v_axes:
+            se = reduce_from(se, mesh, names[i])
+            gold = reduce_from(gold, mesh, names[i])
+        lse = m.detach() + torch.log(se)
+        mask = (lab >= 0).float()
+        return ((lse - gold) * mask).sum(), mask.sum()
+
+    labels = labels.long()
+    tot = cnt = None
+    for lo in range(0, x.shape[1], chunk):
+        def one(xc, lab, w_=w):
+            return local_call(body, mesh, (xc, w_, lab),
+                              (x_pl, w_pl, lab_pl), (x_grad, w_grad, None),
+                              (sums, sums), out_shapes=((), ()))
+        s, c = checkpoint(one, x[:, lo:lo + chunk], labels[:, lo:lo + chunk],
+                          use_reentrant=False, preserve_rng_state=False)
+        tot = s if tot is None else tot + s
+        cnt = c if cnt is None else cnt + c
+    rep = [Replicate()] * mesh.ndim
+    tot, cnt = tot.redistribute(mesh, rep), cnt.redistribute(mesh, rep)
     return tot / torch.clamp(cnt, min=1.0)

@@ -366,7 +366,8 @@ def _port_files():
     pkg = ROOT / "src" / "repro_torch"
     return sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "kernel_ab.py",
-                                        ROOT / "dist_scaling.py"]
+                                        ROOT / "dist_scaling.py",
+                                        ROOT / "dist_train.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -34,7 +34,10 @@ def test_cosine_schedule_runs():
 
 
 def test_mesh_single_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="1.28"):
+    """``--mesh single`` is the production (16, 16) mesh (ROADMAP 1.28):
+    off a 256-rank world it raises ``make_production_mesh``'s error, as
+    the reference says it is only valid on hardware of that size."""
+    with pytest.raises(RuntimeError, match="needs a world of 256 ranks"):
         LT.main(["--arch", "minicpm-2b", "--smoke", "--device", "cpu",
                  "--mesh", "single"])
 

@@ -425,8 +425,9 @@ def test_every_family_builds_on_cpu(arch):
 
 
 def test_unported_pieces_raise_naming_their_item():
-    """Training (1.27) is ported: ``Model.loss`` runs.  The parallel
-    residual block still raises naming 1.28."""
+    """Training (1.27) and the model across cards (1.28) are ported:
+    ``Model.loss`` runs, a parallel-block config builds and serves, and
+    no ROADMAP item is left to raise under."""
     cfg = TCFG.smoke("qwen2.5-14b")
     m = build_model(cfg, device="cpu")
     p = m.init(torch.Generator().manual_seed(0))
@@ -434,9 +435,13 @@ def test_unported_pieces_raise_naming_their_item():
     loss, aux = m.loss(p, {"tokens": toks[:, :-1], "labels": toks[:, 1:]},
                        q_chunk=4, k_chunk=4)
     assert bool(torch.isfinite(loss)) and sorted(aux) == ["aux", "nll"]
-    with pytest.raises(NotImplementedError, match="1.28"):
-        build_model(dataclasses.replace(cfg, parallel_block=True),
-                    device="cpu")
+    pm = build_model(dataclasses.replace(cfg, parallel_block=True),
+                     device="cpu")
+    _, logits = pm.prefill(p, {"tokens": toks[:, :-1]}, max_len=16,
+                           q_chunk=4, k_chunk=4)
+    assert bool(torch.isfinite(logits).all())
+    from repro_torch._todo import ROADMAP_ITEMS
+    assert ROADMAP_ITEMS == {}
 
 
 def test_model_refuses_the_cpu_unasked(monkeypatch):

@@ -116,9 +116,22 @@ def test_global_norm_matches_reference():
 
 
 def test_zero1_raises_naming_its_item():
-    for fn in (TO.zero1_axis, TO.zero1_specs):
-        with pytest.raises(NotImplementedError, match="1.28"):
-            fn((8,), (None,), ["data"], {"data": 2})
+    """ZeRO-1 is ported (ROADMAP 1.28): ``zero1_axis`` gives the
+    reference's picks (``tests/test_train_substrate.py``'s cases; every
+    config's against the reference in ``test_torch_sharding.py``) and
+    ``zero1_specs`` resolves a spec tree over a mesh's shape."""
+    assert TO.zero1_axis((1024, 512), ("model", None), ["data"],
+                         {"data": 16, "model": 16}) == ("model", ("data",))
+    assert TO.zero1_axis((8,), (None,), ["data"], {"data": 16}) == (None,)
+    assert TO.zero1_axis((4096, 32), (None, None), ["pod", "data"],
+                         {"pod": 2, "data": 16, "model": 16}) == \
+        (("pod", "data"), None)
+    from repro_torch.models.sharding import use_rules, DEFAULT_SINGLE_POD
+    with use_rules(DEFAULT_SINGLE_POD):
+        z = TO.zero1_specs({"w": ("model", None), "g": (None,)},
+                           {"w": (64, 32), "g": (16,)},
+                           {"data": 2, "model": 2})
+    assert z == {"w": (("model",), ("data",)), "g": (("data",),)}
 
 
 @pytest.mark.parametrize("name", ["wsd", "wsd_short", "cosine",
