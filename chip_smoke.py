@@ -56,7 +56,7 @@ shared; the x-gradient's backward split into K7, the copy of y, the
 ``w * g`` pass and an unattributed remainder, beside a
 ``torch.profiler`` trace of it) and the x-gradient of four
 ``ThreadComm`` ranks, ``reorder:poisson_shuffled`` RCM on a shuffled
-2048 x 2048 Poisson operator (one device, and four ranks with
+1448 x 1448 Poisson operator (one device, and four ranks with
 ``reorder="auto"``), and ``eigen:hmep`` Lanczos, power iteration and
 block Lanczos on the symmetrised HMEp analogue at its published 6.2 M
 rows.  The seventh (``slice7_phases``) tunes the distributed layer and
@@ -92,7 +92,15 @@ one-rank NCCL (1, 1) mesh, DTensor params and ZeRO-1 placements,
 against the unsharded step: losses within 1e-6 and whether bit for
 bit, ms a step of each) and ``lm:parallel_block:llava-next-mistral-7b``
 (the parallel residual block at full width: prefill plus 8 decode
-steps against a longer prefill, the sequential block's logits apart).
+steps against a longer prefill, the sequential block's logits apart);
+the twelfth (``slice12_phases``) runs last: ``examples:<name>`` (each
+of the reference's six examples, ported as ``repro_torch.examples``,
+through its ``main`` at the reference's sizes, with its own checks: the
+products at f32 round-off, Ritz values against ``eigvalsh``, every
+solve converged and every request served, a falling loss; K1, K5 and K7
+must launch) and ``dryrun:peak`` (the dry run's ``StepRecorder`` on one
+real train step of minicpm-2b cut to 4 layers: its peak against
+``torch.cuda.max_memory_allocated()``, the ratio within 0.5-1.5).
 Each main-path phase sets every launch count to 0 before it and reads
 the counts after it.  Each phase prints one JSON line; any failed check
 raises, and the script then exits non-zero without its final line.
@@ -3064,6 +3072,232 @@ def slice11_phases(h) -> dict:
             "seconds": time.perf_counter() - t_all}
 
 
+# ---- the twelfth slice: the reference's examples, the recorder's peak ----
+# The examples' own checks.  Products (quickstart's op @ x, op.T @ y and
+# the x-gradient, cg_solver's op.T @ b) against float64 host products:
+# max |err| <= EX_ROUND_OFF * max |ref|, f32 round-off.  eigensolver:
+# the extremal Ritz values of Lanczos m = 100 and the polished one
+# against numpy.linalg.eigvalsh on the dense HMEp (spectrum about
+# +-6.3), absolute.  cg_solver: every solve converged at its tolerance
+# (CG 1e-6, block CG 2e-6) and its true residual within 1.5 x of it.
+# train_lm: finite losses, the last below the first.
+EX_ROUND_OFF = 1e-5
+EX_EIG_TOL = 1e-4
+EX_RES_SLACK = 1.5
+EXAMPLE_ARGS = {"quickstart": [], "eigensolver": [], "cg_solver": [],
+                "serve_solver": [], "serve_lm": [],
+                "train_lm": ["--steps", "20"]}
+# dryrun:peak: minicpm-2b cut to this many layers, one real train step
+# of batch 8 x 256 (bf16, remat) under the dry run's recorder; its peak
+# over torch.cuda.max_memory_allocated() must lie in PEAK_RATIO (a count
+# of the wrong kind, such as the global-shape tensors MemTracker counted,
+# falls outside; the allocator's rounding does not)
+PEAK_LAYERS = 4
+PEAK_RATIO = (0.5, 1.5)
+
+
+def slice12_phases(h) -> dict:
+    """The reference's last surface on the card.
+
+    ``examples:<name>``: each of ``repro_torch.examples``' six modules
+    through ``main(["--device", <h.dev>, *h.example_args[name]])`` (on
+    the card ``EXAMPLE_ARGS``: the reference's sizes, ``train_lm`` 20
+    steps), its printed lines
+    captured into the phase's row, launch counts set to 0 before it and
+    read after it, and its own checks required (the constants above).
+    Together the six must launch K1, K5 and K7.
+    ``dryrun:peak``: ``h.cfgs["peak"]`` (minicpm-2b cut to
+    PEAK_LAYERS) built on the card, one warm-up train step, then the
+    peak statistics reset with the step's arguments resident and one
+    step under ``launch.comm_analysis.StepRecorder``: the recorder's
+    peak over ``torch.cuda.max_memory_allocated()``, and over that peak
+    less what earlier phases left allocated (``main`` keeps its sAMG
+    operands), both within PEAK_RATIO; the recorder's flops and bytes
+    beside the step's time.
+    Returns the launches of the examples, and the rows."""
+    import contextlib
+    import gc
+    import importlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import for_config
+    from repro_torch.launch.comm_analysis import StepRecorder
+    from repro_torch.models import build_model
+    from repro_torch.train import step as ST
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.schedules import wsd
+
+    dev = h.dev
+    require, emit = h.require, h.emit
+    cuda = dev.type == "cuda"
+    launches, rows = {}, {}
+    t_all = time.perf_counter()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def free():
+        gc.collect()
+        if cuda:
+            sync()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def close(err, ref):
+        return err <= EX_ROUND_OFF * max(ref, 1e-30)
+
+    def check(name, out):
+        if name == "quickstart":
+            require(close(out["matvec_err"], out["y_ref_max"])
+                    and out["rmatvec_rel_err"] <= EX_ROUND_OFF
+                    and close(out["grad_err"], out["grad_ref_max"]),
+                    f"quickstart: op @ x {out['matvec_err']}, op.T @ y "
+                    f"{out['rmatvec_rel_err']}, grad {out['grad_err']}")
+            require(out["pjds_elements"] < out["ell_elements"],
+                    "quickstart: pJDS stores no less than ELLPACK")
+        elif name == "eigensolver":
+            require(max(out["err_lanczos_max"], out["err_lanczos_min"],
+                        out["err_polished"]) <= EX_EIG_TOL,
+                    f"eigensolver vs eigvalsh: Lanczos "
+                    f"{out['err_lanczos_min']} / {out['err_lanczos_max']}, "
+                    f"polished {out['err_polished']} > {EX_EIG_TOL}")
+            require(out["solve_status"] == "converged",
+                    f"eigensolver: inner solve {out['solve_status']}")
+        elif name == "cg_solver":
+            modes = out["modes"]
+            require(all(r["status"] == "converged" and r["rel_res"] <= 1e-6
+                        for r in modes.values())
+                    and len({r["iters"] for r in modes.values()}) == 1
+                    and out["ranks_agree"],
+                    f"cg_solver: modes {modes}")
+            require(out["jacobi"]["status"] == "converged"
+                    and out["block_cg"]["status"] == "converged"
+                    and out["bicgstab"]["status"] == "converged",
+                    "cg_solver: jacobi / block CG / BiCGStab did not "
+                    "converge")
+            require(out["block_cg"]["true_res"] <= 2e-6 * EX_RES_SLACK
+                    and out["bicgstab"]["true_res"] <= 1e-6 * EX_RES_SLACK
+                    and out["cg_true_res"] <= 1e-6 * EX_RES_SLACK,
+                    f"cg_solver true residuals: block "
+                    f"{out['block_cg']['true_res']}, BiCGStab "
+                    f"{out['bicgstab']['true_res']}, CG "
+                    f"{out['cg_true_res']}")
+            require(out["transpose_rel_err"] <= EX_ROUND_OFF,
+                    f"cg_solver op.T: {out['transpose_rel_err']}")
+        elif name == "serve_solver":
+            st = out["statuses"]
+            require(st.count("shed") == 1 and st.count("converged")
+                    == len(st) - 1, f"serve_solver: {st}")
+        elif name == "serve_lm":
+            require(all(out["done"]) and all(len(t) == 8
+                                             for t in out["tokens"]),
+                    f"serve_lm: {out['tokens']}")
+        elif name == "train_lm":
+            ls = out["losses"]
+            require(len(ls) == out["steps"] and all(np.isfinite(ls))
+                    and ls[-1] < ls[0], f"train_lm: losses {ls}")
+
+    for name, extra in h.example_args.items():
+        phase = f"examples:{name}"
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        free()
+        buf = io.StringIO()
+        h.reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = mod.main(["--device", str(dev), *extra])
+        sync()
+        seconds = time.perf_counter() - t0
+        launched, plain_calls = h.counts()
+        h.plain_free(plain_calls, phase)
+        for k, v in launched.items():
+            launches[k] = launches.get(k, 0) + v
+        check(name, out)
+        rows[name] = {"seconds": seconds, "launches": launched,
+                      "result": out,
+                      "printed": buf.getvalue().splitlines()[-40:],
+                      "peak_gib": torch.cuda.max_memory_allocated(dev)
+                      / 2 ** 30 if cuda else None}
+        emit(phase, **rows[name])
+    for k in ("pjds_spmv", "pjds_spmm", "transpose_spmv"):
+        require(launches.get(k, 0) >= 1,
+                f"examples: {k} was not launched: {launches}")
+
+    # ---- dryrun:peak -- the recorder's peak against the allocator's -----
+    cfg = h.cfgs["peak"]
+    phase = "dryrun:peak"
+    free()
+    # what earlier phases leave resident is not the step's
+    before = torch.cuda.memory_allocated(dev) if cuda else None
+    model = build_model(cfg, device=dev)
+    o = AdamW(lr_fn=wsd(3e-4, 1, 1, 1))
+    params = model.init(torch.Generator(device=dev).manual_seed(h.seed))
+    state = o.init(params)
+    data = for_config(cfg, batch=h.batch, seq=h.seq)
+    batches = [{k: torch.as_tensor(v).to(dev) for k, v in
+                data.next().items()} for _ in range(2)]
+    step = ST.make_train_step(model, o, q_chunk=128, k_chunk=128)
+    h.reset_counts()
+    params, state, m0 = step(params, state, batches[0])     # warm-up
+    loss0 = float(m0["loss"])
+    del m0
+    gc.collect()
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev) if cuda else None
+    rec = StepRecorder()
+    held = rec.hold(params, state, batches[1])
+    t0 = time.perf_counter()
+    with rec:
+        params, state, m1 = step(params, state, batches[1])
+    sync()
+    seconds = time.perf_counter() - t0
+    loss1 = float(m1["loss"])
+    peak_alloc = torch.cuda.max_memory_allocated(dev) if cuda else None
+    launched, plain_calls = h.counts()
+    h.plain_free(plain_calls, phase)
+    require(not any(launched.values()),
+            f"{phase}: a kernel of the repo launched: {launched}")
+    ratio = rec.peak_bytes / peak_alloc if peak_alloc else None
+    own = peak_alloc - before if cuda else None
+    ratio_own = rec.peak_bytes / own if own else None
+    require(np.isfinite([loss0, loss1]).all(),
+            f"{phase}: losses {loss0}, {loss1}")
+    if cuda:
+        for what, r, alloc in (("max_memory_allocated", ratio, peak_alloc),
+                               ("its rise over the phase's start",
+                                ratio_own, own)):
+            require(PEAK_RATIO[0] <= r <= PEAK_RATIO[1],
+                    f"{phase}: recorder peak {rec.peak_bytes} over {what} "
+                    f"{alloc} = {r}, outside {PEAK_RATIO}")
+    n_params = sum(p.numel() for p in params.parameters())
+    rows["peak"] = {"arch": cfg.name, "n_layers": cfg.n_layers,
+                    "n_params": n_params, "batch": h.batch, "seq": h.seq,
+                    "remat": True, "dtype": cfg.param_dtype,
+                    "recorder_peak_bytes": rec.peak_bytes,
+                    "recorder_held_bytes": held,
+                    "max_memory_allocated": peak_alloc,
+                    "memory_allocated_at_reset": resident,
+                    "memory_allocated_before_phase": before,
+                    "max_memory_allocated_over_phase_start": own,
+                    "ratio": ratio, "ratio_over_phase_start": ratio_own,
+                    "ratio_limits": list(PEAK_RATIO),
+                    "recorder_bytes": rec.bytes,
+                    "recorder_flops": rec.flops,
+                    "step_s_under_recorder": seconds,
+                    "losses": [loss0, loss1], "launches": launched}
+    emit(phase, **rows["peak"])
+    del model, params, state, batches, rec, m1
+    free()
+    return {"launches": launches, "rows": rows,
+            "seconds": time.perf_counter() - t_all}
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4374,7 +4608,7 @@ def main() -> int:
         counts=counts, reset_counts=reset_counts, plain_free=plain_free,
         rel_err=rel_err, time_ms=time_ms, csr_of=csr_of,
         library_ms=library_ms, Y_TOL=Y_TOL, SCIPY_TOL=SCIPY_TOL,
-        HBM=HBM_BYTES_PER_S, poisson_side=2048, hmep_scale=1.0,
+        HBM=HBM_BYTES_PER_S, poisson_side=1448, hmep_scale=1.0,
         power_iters=2000))
     for rec in record:
         if s6["launches"].get(rec["name"]):
@@ -4461,6 +4695,19 @@ def main() -> int:
         rec["launches_slice11"] = s11["launches"].get(rec["name"], 0)
     emit("memory:slice11", max_allocated_gib=torch.cuda.max_memory_allocated()
          / 2 ** 30, seconds=s11["seconds"],
+         seconds_since_start=time.perf_counter() - t_start)
+
+    # ---- 10i. the reference's examples, the recorder's peak ------------
+    s12 = slice12_phases(types.SimpleNamespace(
+        dev=dev, seed=SEED, require=require, emit=emit, counts=counts,
+        reset_counts=reset_counts, plain_free=plain_free,
+        cfgs={"peak": dataclasses.replace(TCFG.get(SLICE11_MAIN),
+                                          n_layers=PEAK_LAYERS)},
+        example_args=EXAMPLE_ARGS, batch=8, seq=256))
+    for rec in record:
+        rec["launches_examples"] = s12["launches"].get(rec["name"], 0)
+    emit("memory:slice12", max_allocated_gib=torch.cuda.max_memory_allocated()
+         / 2 ** 30, seconds=s12["seconds"],
          seconds_since_start=time.perf_counter() - t_start)
 
     # ---- 11. the record, the card, the verdict ---------------------------

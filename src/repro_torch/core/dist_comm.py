@@ -258,6 +258,23 @@ class ThreadComm:
         return out
 
 
+_LINALG_LOADED: set = set()
+
+
+def _load_cuda_linalg(dev) -> None:
+    """Make one ``torch.linalg`` call on ``dev`` before the rank threads
+    start.  PyTorch loads its CUDA linear-algebra library at the first
+    such call in the process, and two threads making that first call at
+    once fail ("lazy wrapper should be called at most once"): block CG's
+    k x k solves on eight ranks did."""
+    if dev in _LINALG_LOADED:
+        return
+    eye = torch.eye(1, device=dev)
+    torch.linalg.solve_ex(eye, eye)
+    torch.cuda.synchronize(dev)
+    _LINALG_LOADED.add(dev)
+
+
 def run_ranks(comms: Sequence[ThreadComm], fn: Callable) -> list:
     """Run ``fn(comm)`` for every rank in a thread of its own (inside
     the rank's CUDA stream when it has one, and with multithreaded
@@ -266,6 +283,8 @@ def run_ranks(comms: Sequence[ThreadComm], fn: Callable) -> list:
     waits and the first failure is raised here."""
     out = [None] * len(comms)
     errors = []
+    for dev in {c.stream.device for c in comms if c.stream is not None}:
+        _load_cuda_linalg(dev)
 
     def body(c):
         try:

@@ -34,13 +34,16 @@ __all__ = [
     "CMRSMatrix",
     "csr_from_dense",
     "csr_from_coo",
+    "csr_to_dense",
     "validate_csr",
     "CSRValidationError",
     "ValidationReport",
     "csr_to_ell",
     "ell_to_dense",
     "csr_to_pjds",
+    "pjds_to_dense",
     "csr_to_sell",
+    "sell_to_dense",
     "csr_to_cmrs",
     "cmrs_to_dense",
     "windowed_sort_perm",
@@ -137,6 +140,16 @@ def csr_from_dense(a: np.ndarray) -> CSRMatrix:
     indices = np.nonzero(mask)[1].astype(np.int32)
     data = a[mask]
     return CSRMatrix(indptr, indices, data, (n_rows, n_cols))
+
+
+def csr_to_dense(m: CSRMatrix) -> np.ndarray:
+    """Dense copy of ``m`` (a repeated column keeps its last value, as
+    the reference's row loop does)."""
+    a = np.zeros(m.shape, dtype=m.data.dtype)
+    nnz = m.nnz
+    rows = np.repeat(np.arange(m.n_rows, dtype=np.int64), m.row_lengths())
+    a[rows, m.indices[:nnz]] = m.data[:nnz]
+    return a
 
 
 def csr_from_coo(
@@ -376,6 +389,24 @@ def csr_to_pjds(
                            index_dtype)
 
 
+def pjds_to_dense(p: PJDSMatrix) -> np.ndarray:
+    """Densify in the ORIGINAL basis (undoes the row / column
+    permutation).  Stored zeros and padded rows are skipped; a repeated
+    (row, column) is summed in diagonal order, as the reference's loop
+    sums it."""
+    n_rows, n_cols = p.shape
+    a = np.zeros((n_rows, n_cols), dtype=p.val.dtype)
+    blk = np.repeat(np.arange(p.n_blocks, dtype=np.int64), p.block_len)
+    pos = blk[:, None] * p.b_r + np.arange(p.b_r, dtype=np.int64)[None, :]
+    orig = p.perm[pos].astype(np.int64)
+    col = p.col_idx.astype(np.int64)
+    if p.permuted_cols:
+        col = p.perm[col].astype(np.int64)
+    keep = (orig < n_rows) & (p.val != 0)
+    np.add.at(a, (orig[keep], col[keep]), p.val[keep])
+    return a
+
+
 # --------------------------------------------------------------------------
 # SELL-C-sigma (pJDS with a bounded sorting window)
 # --------------------------------------------------------------------------
@@ -388,6 +419,10 @@ class SELLMatrix:
 
     pjds: PJDSMatrix
     sigma: int
+
+
+def sell_to_dense(s: SELLMatrix) -> np.ndarray:
+    return pjds_to_dense(s.pjds)
 
 
 def windowed_sort_perm(rowlen: np.ndarray, sigma: int) -> np.ndarray:

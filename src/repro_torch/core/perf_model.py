@@ -3,7 +3,9 @@
 A copy of what ``repro.core.perf_model`` gives ``select_format``: the
 device spec record, the stored-byte model (paper Eq. 1 generalised to
 compressed streams), the out-of-kernel permutation cost, the CMRS
-compute floor, the solver-iteration byte count, the calibration hook
+compute floor, the solver-iteration byte count and time
+(``predicted_iteration_seconds``), the three-term roofline
+(``roofline_terms``, ``RooflineReport``), the calibration hook
 those functions read (``set_calibration`` / ``get_calibration``; the
 tuner's ``tune.calibrate.fit_calibration`` fits one), and the paper's
 device-vs-link model (Eq. 1-4) with its gathered-halo refinement that
@@ -41,6 +43,10 @@ __all__ = [
     "SOLVER_SPMV_COUNT",
     "SOLVER_VECTOR_PASSES",
     "solver_iteration_bytes",
+    "predicted_iteration_seconds",
+    "spmvm_flops",
+    "roofline_terms",
+    "RooflineReport",
 ]
 
 
@@ -257,6 +263,11 @@ def n_nzr_lower_for_link_penalty(dev_bw: float, link_bw: float,
 
 
 # -------------------------------------------------------------- byte model
+def spmvm_flops(nnz: int) -> int:
+    """2 flops (multiply + add) per stored non-zero."""
+    return 2 * nnz
+
+
 def spmvm_bytes(stored_elements: int, n_rows: int, alpha: float,
                 n_nzr: float, value_bytes: int = 8,
                 index_bytes: int = 4, x_tiles: int = 1,
@@ -365,3 +376,86 @@ def solver_iteration_bytes(stored_elements: int, n_rows: int, n_nzr: float,
                        value_bytes, index_bytes, x_tiles, n_row_blocks,
                        vec_bytes)
     return spmv_count * spmv + passes * n_vec * float(n_rows) * vec_bytes
+
+
+def predicted_iteration_seconds(stored_elements: int, n_rows: int,
+                                n_nzr: float, *, method: str = "cg",
+                                strategy: str = "composed",
+                                spec: TPUSpec = H100,
+                                value_bytes: int = 4, index_bytes: int = 4,
+                                vec_bytes: int = 4, n_vec: int = 1,
+                                x_tiles: int = 1, n_row_blocks: int = 1,
+                                fmt: str | None = None,
+                                calibration="default") -> float:
+    """Memory-bound time of one solver iteration:
+    :func:`solver_iteration_bytes` over ``spec.hbm_bw`` (the H100's 3.35
+    TB/s by default), with :func:`predicted_spmv_seconds`' calibration
+    semantics and the per-format overhead charged once per spMV
+    application."""
+    b = solver_iteration_bytes(
+        stored_elements, n_rows, n_nzr, method=method, strategy=strategy,
+        value_bytes=value_bytes, index_bytes=index_bytes,
+        vec_bytes=vec_bytes, n_vec=n_vec, x_tiles=x_tiles,
+        n_row_blocks=n_row_blocks)
+    t = b / spec.hbm_bw
+    if calibration == "default":
+        calibration = _CALIBRATION
+    if calibration is not None:
+        t = t / calibration.bw_scale
+        if fmt is not None:
+            t += SOLVER_SPMV_COUNT[method] * calibration.overhead_s.get(
+                fmt, 0.0)
+    return max(t, 0.0)
+
+
+# -------------------------------------------------------------- roofline
+@dataclasses.dataclass
+class RooflineReport:
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    chips: int
+
+    @property
+    def dominant(self) -> str:
+        terms = {
+            "compute": self.compute_s,
+            "memory": self.memory_s,
+            "collective": self.collective_s,
+        }
+        return max(terms, key=terms.get)
+
+    @property
+    def bound_s(self) -> float:
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    def fraction_of_roofline(self, achieved_s: float) -> float:
+        """How close a measured step time is to the roofline bound."""
+        return self.bound_s / achieved_s if achieved_s > 0 else 0.0
+
+
+def roofline_terms(hlo_flops: float, hlo_bytes: float,
+                   collective_bytes: float, chips: int,
+                   spec: TPUSpec = H100,
+                   flops_rate: float | None = None) -> RooflineReport:
+    """Three-term roofline of a step:
+
+    compute    = flops / (chips * peak)
+    memory     = bytes / (chips * HBM rate)
+    collective = collective_bytes / (chips * link rate)
+
+    With the default :data:`H100` spec (data sheet, 700 W: 989 TFLOP/s
+    dense bf16, 3.35 TB/s HBM3, NVLink 450 GB/s each way) the
+    collective term divides by NVLink's per-direction rate.  The counts
+    are global; the dry run's record (``launch/dryrun.py``) gives a
+    rank's flops, its unfused bytes (``cost["bytes"]``) and its
+    collective bytes, so price a rank with ``chips=1``.
+    ``flops_rate`` overrides the spec's peak (e.g. ``peak_flops_f32``).
+    """
+    rate = flops_rate if flops_rate is not None else spec.peak_flops
+    return RooflineReport(
+        compute_s=hlo_flops / (chips * rate),
+        memory_s=hlo_bytes / (chips * spec.hbm_bw),
+        collective_s=collective_bytes / (chips * spec.ici_bw),
+        chips=chips,
+    )

@@ -19,13 +19,27 @@ rematerialised, AdamW with ZeRO-1), ``prefill`` or ``decode_step``,
 under ``sharding.rules_for``'s rules; its state laid out by
 ``train_state_shardings`` and its inputs by ``input_specs``.  Per rank
 the record holds the bytes of params, optimizer state, cache and batch
-(``memory.argument_size_in_bytes``, and each part), the flops and the
-collectives (``comm_analysis.StepRecorder``, ``collective_bytes``).
-No peak memory is recorded: ``torch.distributed._tools.mem_tracker.
-MemTracker`` runs under the fake tensors but counts the global-shape
-tensors DTensor's sharding propagation makes (208 GB of peak for the
-seamless-m4t-medium ``decode_32k`` cell, whose arguments are 0.95 GB a
-rank), so its peak is not a rank's.
+(``memory.argument_size_in_bytes``, and each part), the flops, the
+collectives and the step's memory and traffic, all counted by
+``comm_analysis.StepRecorder`` on the rank's local shapes, with no
+device:
+
+* ``memory.peak_bytes``: the most live storage at once, the arguments
+  included (the recorder's peak, which leaves out the global-shape
+  tensors of DTensor's sharding propagation -- what made
+  ``torch.distributed._tools.mem_tracker.MemTracker`` report 208 GB for
+  a cell whose arguments are 0.95 GB a rank);
+* ``memory.temp_size_in_bytes``: that peak less the arguments;
+* ``memory.output_size_in_bytes``: the storages of the tensors the step
+  returns (the train step updates params and state in place, so its
+  outputs are mostly its arguments);
+* ``hlo_bytes_raw`` and ``cost["bytes"]``: every local operation's
+  tensor inputs and outputs, once each -- the unfused traffic of the
+  eager step (``cost["bytes_kind"]``), not XLA's bytes accessed after
+  fusion, which the reference records under the same keys.
+
+``q_chunk`` and ``k_chunk`` name the attention chunks the cell was
+traced at.
 
 No depth or sequence extrapolation is needed, unlike the reference's
 (``unroll.py`` and ``extrapolated_cost`` exist because XLA counts a
@@ -47,6 +61,10 @@ import time
 import traceback
 
 __all__ = ["SKIP", "dryrun_cell", "main"]
+
+# the kind of byte count the record carries (``cost["bytes_kind"]``)
+BYTES_KIND = "unfused eager traffic: each local op's tensor inputs and " \
+    "outputs once"
 
 SKIP = {
     # long_500k only for sub-quadratic archs
@@ -82,25 +100,24 @@ def _local_bytes(tensors) -> int:
     return n
 
 
-def _tree_tensors(tree):
-    import torch
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _tree_tensors(v)]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in _tree_tensors(v)]
-    return []
+def _storage_bytes(tree) -> int:
+    """The bytes of the distinct local storages of ``tree``."""
+    from repro_torch.launch.comm_analysis import tree_tensors
+    seen = {}
+    for t in tree_tensors(tree):
+        st = t.untyped_storage()
+        seen[id(st)] = int(st.nbytes())
+    return sum(seen.values())
 
 
 def _place_tree(tree, specs, mesh, rules):
     """Every tensor of ``tree`` laid out by its logical spec in
-    ``specs`` (the same structure, tuples at the leaves)."""
+    ``specs`` (the same structure, tuples at the leaves); each rank's
+    slice a storage of its own, as a rank would hold it."""
     import torch
     from repro_torch.models import sharding as S
     if isinstance(tree, torch.Tensor):
-        return S.place(tree, mesh, S.placements(specs, mesh, rules),
-                       copy=False)
+        return S.place(tree, mesh, S.placements(specs, mesh, rules))
     if isinstance(tree, dict):
         return {k: _place_tree(v, specs[k], mesh, rules)
                 for k, v in tree.items()}
@@ -120,7 +137,8 @@ def dryrun_cell(arch: str, shape_name: str, mesh_name: str,
 
     from repro_torch import configs
     from repro_torch.launch.comm_analysis import (StepRecorder,
-                                                  collective_bytes)
+                                                  collective_bytes,
+                                                  tree_tensors)
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models import common as C
     from repro_torch.models import sharding as S
@@ -162,27 +180,38 @@ def dryrun_cell(arch: str, shape_name: str, mesh_name: str,
             mem["batch_bytes"] = _local_bytes(batch.values())
             step = make_train_step(model, opt, remat=True, q_chunk=q_chunk,
                                    k_chunk=k_chunk)
+            rec.hold(params, opt_state, batch)
             with rec:
-                step(params, opt_state, batch)
+                out = step(params, opt_state, batch)
         elif shape.kind == "prefill":
             batch = place_batch(batch, mesh)
             mem["batch_bytes"] = _local_bytes(batch.values())
+            rec.hold(params, batch)
             with rec:
-                model.prefill(params, batch, max_len=shape.seq_len,
-                              q_chunk=q_chunk, k_chunk=k_chunk)
+                out = model.prefill(params, batch, max_len=shape.seq_len,
+                                    q_chunk=q_chunk, k_chunk=k_chunk)
         else:
             cache = _place_tree(batch["cache"], specs["cache"], mesh, rules)
             toks = _place_tree({"tokens": batch["tokens"],
                                 "pos": batch["pos"]},
                                {"tokens": specs["tokens"],
                                 "pos": specs["pos"]}, mesh, rules)
-            mem["cache_bytes"] = _local_bytes(_tree_tensors(cache))
+            mem["cache_bytes"] = _local_bytes(tree_tensors(cache))
             mem["batch_bytes"] = _local_bytes(toks.values())
+            rec.hold(params, cache, toks)
             with rec:
-                model.decode_step(params, cache, toks["tokens"],
-                                  toks["pos"])
+                out = model.decode_step(params, cache, toks["tokens"],
+                                        toks["pos"])
+        mem["output_size_in_bytes"] = _storage_bytes(out)
+        del out
     seconds = time.time() - t0
-    mem["argument_size_in_bytes"] = sum(mem.values())
+    mem["argument_size_in_bytes"] = (mem["params_bytes"]
+                                     + mem.get("opt_state_bytes", 0)
+                                     + mem.get("cache_bytes", 0)
+                                     + mem["batch_bytes"])
+    mem["peak_bytes"] = rec.peak_bytes
+    mem["temp_size_in_bytes"] = (rec.peak_bytes
+                                 - mem["argument_size_in_bytes"])
     coll = collective_bytes(rec.collectives)
     chips = mesh.size()
     out = {
@@ -190,7 +219,9 @@ def dryrun_cell(arch: str, shape_name: str, mesh_name: str,
         "status": "ok", "chips": chips,
         "overrides": overrides or {},
         "trace_s": round(seconds, 1),
+        "q_chunk": q_chunk, "k_chunk": k_chunk,
         "flops_per_rank": rec.flops,
+        "hlo_bytes_raw": rec.bytes,
         "collective_raw": coll,
         "memory": mem,
         "n_params": cfg.n_params(),
@@ -202,6 +233,8 @@ def dryrun_cell(arch: str, shape_name: str, mesh_name: str,
     }
     if with_cost:
         out["cost"] = {"flops": float(rec.flops),
+                       "bytes": float(rec.bytes),
+                       "bytes_kind": BYTES_KIND,
                        "collective_bytes": coll["total"],
                        "extrapolated": False}
     return out
@@ -219,6 +252,8 @@ def main(argv=None) -> None:
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--no-cost", action="store_true",
                     help="leave the cost entry out of the record")
+    ap.add_argument("--q-chunk", type=int, default=512)
+    ap.add_argument("--k-chunk", type=int, default=512)
     args = ap.parse_args(argv)
 
     archs = configs.ARCH_IDS if (args.all or not args.arch) else [args.arch]
@@ -238,6 +273,8 @@ def main(argv=None) -> None:
                 print(f"[dryrun] {mesh_name}/{arch}/{shape} ...", flush=True)
                 try:
                     rec = dryrun_cell(arch, shape, mesh_name,
+                                      q_chunk=args.q_chunk,
+                                      k_chunk=args.k_chunk,
                                       with_cost=not args.no_cost)
                 except Exception as e:  # noqa: BLE001 - record and continue
                     rec = {"arch": arch, "shape": shape, "mesh": mesh_name,
@@ -248,6 +285,8 @@ def main(argv=None) -> None:
                 extra = ""
                 if rec["status"] == "ok":
                     extra = (f" flops/rank={rec['flops_per_rank']:.3e}"
+                             f" bytes={rec['hlo_bytes_raw']:.3e}"
+                             f" peak={rec['memory']['peak_bytes']:.3e}"
                              f" coll={rec['collective_raw']['total']:.3e}B"
                              f" {rec['trace_s']}s")
                 print(f"[done] {mesh_name}/{arch}/{shape}: "

@@ -24,7 +24,8 @@ from .measure import (measure_candidate, measure_solver_candidate,
 from .cache import (TuneCache, default_cache, cache_key, dtype_policy,
                     RECORD_SCHEMA)
 from .calibrate import (fit_calibration, model_error, fit_link_calibration,
-                        link_model_error)
+                        link_model_error, rows_from_bench_kernels,
+                        fit_from_bench_kernels)
 from .autotune import (TuneResult, TunePartition, SolverTuneResult,
                        autotune, tune_partition, tune_solver)
 
@@ -52,6 +53,8 @@ __all__ = [
     "model_error",
     "fit_link_calibration",
     "link_model_error",
+    "rows_from_bench_kernels",
+    "fit_from_bench_kernels",
     "TuneResult",
     "TunePartition",
     "SolverTuneResult",

@@ -22,9 +22,16 @@ default (``spec=perf_model.H100``; the reference's default is the TPU
 v5e, and with ``spec=perf_model.TPU_V5E`` the fit is the reference's).
 On ranks that share one card (``ThreadComm``) no message crosses a
 link, so such a fit describes the threads' hand-over, not a link.
+
+The bench adapter (:func:`rows_from_bench_kernels`,
+:func:`fit_from_bench_kernels`) reads a kernels bench file's
+``bytes_per_nnz`` rows -- the reference's schema: ``kind``, ``fmt``,
+``predicted_s``, ``measured_ref_s`` -- and fits them as above.
 """
 from __future__ import annotations
 
+import json
+import pathlib
 from typing import Optional, Sequence
 
 import numpy as np
@@ -32,7 +39,8 @@ import numpy as np
 from repro_torch.core import perf_model as PM
 
 __all__ = ["fit_calibration", "fit_link_calibration", "model_error",
-           "link_model_error"]
+           "link_model_error", "rows_from_bench_kernels",
+           "fit_from_bench_kernels"]
 
 _FIT_SWEEPS = 3      # coordinate-descent passes (each pass is monotone)
 
@@ -211,3 +219,30 @@ def fit_link_calibration(rows: Sequence[dict],
         link_bw_scale=link_scale,
         msg_overhead_s={h: float(ci) for h, ci in zip(halos, c) if ci > 0.0},
     )
+
+
+# ------------------------------------------------- kernels bench adapter
+def rows_from_bench_kernels(path) -> list[dict]:
+    """Calibration rows from a kernels bench file (``BENCH_kernels.json``):
+    each ``bytes_per_nnz`` row with a positive uncalibrated prediction
+    (``predicted_s``) and measured time (``measured_ref_s``) becomes
+    ``{"fmt", "model_s", "measured_s"}``."""
+    payload = json.loads(pathlib.Path(path).read_text())
+    out = []
+    for r in payload.get("rows", []):
+        if r.get("kind") != "bytes_per_nnz":
+            continue
+        if r.get("predicted_s", 0) > 0 and r.get("measured_ref_s", 0) > 0:
+            out.append(dict(fmt=r["fmt"], model_s=float(r["predicted_s"]),
+                            measured_s=float(r["measured_ref_s"])))
+    return out
+
+
+def fit_from_bench_kernels(path, source: Optional[str] = None
+                           ) -> PM.Calibration:
+    """:func:`fit_calibration` over :func:`rows_from_bench_kernels`;
+    raises ``ValueError`` when the file has no usable row."""
+    rows = rows_from_bench_kernels(path)
+    if not rows:
+        raise ValueError(f"no usable roofline rows in {path}")
+    return fit_calibration(rows, source=source or f"bench_kernels:{path}")
