@@ -56,7 +56,7 @@ shared; the x-gradient's backward split into K7, the copy of y, the
 ``w * g`` pass and an unattributed remainder, beside a
 ``torch.profiler`` trace of it) and the x-gradient of four
 ``ThreadComm`` ranks, ``reorder:poisson_shuffled`` RCM on a shuffled
-1448 x 1448 Poisson operator (one device, and four ranks with
+1024 x 1024 Poisson operator (one device, and four ranks with
 ``reorder="auto"``), and ``eigen:hmep`` Lanczos, power iteration and
 block Lanczos on the symmetrised HMEp analogue at its published 6.2 M
 rows.  The seventh (``slice7_phases``) tunes the distributed layer and
@@ -90,7 +90,10 @@ train step of three f32 smoke configs, card against CPU); the eleventh
 ``mesh:one:minicpm-2b`` (the published config's train step on a
 one-rank NCCL (1, 1) mesh, DTensor params and ZeRO-1 placements,
 against the unsharded step: losses within 1e-6 and whether bit for
-bit, ms a step of each) and ``lm:parallel_block:llava-next-mistral-7b``
+bit, ms a step of each), ``mesh:one:decode:minicpm-2b`` (its sharded
+prefill and 16 decode steps on the same one-rank mesh against the
+unsharded ones: logits within 1e-6 and whether bit for bit) and
+``lm:parallel_block:llava-next-mistral-7b``
 (the parallel residual block at full width: prefill plus 8 decode
 steps against a longer prefill, the sequential block's logits apart);
 the twelfth (``slice12_phases``) runs last: ``examples:<name>`` (each
@@ -2857,6 +2860,14 @@ def slice11_phases(h) -> dict:
     MESH_ONE_TOL relative, and whether they are equal bit for bit; ms a
     step of each (the host cost of DTensor), peak memory, K1-K7 launched
     0 times.
+    ``mesh:one:decode:<main>`` (the same config): a batch of
+    ``h.decode_batch`` prompts of ``h.decode_prompt`` tokens prefilled
+    by the unsharded model, then ``h.decode_steps`` decode steps fed the
+    next tokens; then the same on a one-rank (1, 1) mesh with DTensor
+    params under ``rules_for("decode", ...)``, the cache laid out by
+    ``Model.cache_specs()``: every step's logits within MESH_ONE_TOL
+    relative to their max, and whether they are equal bit for bit; ms
+    a step of each.
     ``lm:parallel_block:<vlm>`` (llava-next-mistral-7b with
     ``parallel_block=True``, ``h.cfgs["parallel"]``): bf16 at full width
     and depth, a batch of ``h.pb_batch`` prompts of ``h.pb_prompt``
@@ -2992,6 +3003,92 @@ def slice11_phases(h) -> dict:
         free()
         return row
 
+    # ---- mesh:one:decode -- sharded serving on a one-rank mesh ----------
+    def mesh_one_decode():
+        cfg = h.cfgs["main"]
+        phase = f"mesh:one:decode:{cfg.name}"
+        free()
+        model = build_model(cfg, device=dev)
+        b, s, k = h.decode_batch, h.decode_prompt, h.decode_steps
+        toks = torch.as_tensor(np.random.default_rng(h.seed + 13).integers(
+            0, cfg.vocab, (b, s + k))).to(dev)
+        max_len = s + k
+
+        def serve(params, place=lambda x: x, lay_out=lambda c: c):
+            logits_all, ms = [], []
+            cache, logits = model.prefill(params, place({"tokens":
+                                                          toks[:, :s]}),
+                                          max_len=max_len)
+            cache = lay_out(cache)
+            logits_all.append(full(logits))
+            for i in range(k):
+                pos = torch.full((b,), s + i, dtype=torch.int32,
+                                 device=dev)
+                x = place({"t": toks[:, s + i:s + i + 1], "p": pos})
+                sync()
+                t0 = time.perf_counter()
+                _, logits = model.decode_step(params, cache, x["t"],
+                                              x["p"])
+                sync()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                logits_all.append(full(logits))
+            return logits_all, ms
+
+        def full(t):
+            return (t.full_tensor() if MS.is_dtensor(t) else t)[
+                ..., :cfg.vocab].float()
+
+        h.reset_counts()
+        params = model.init(torch.Generator(device=dev).manual_seed(h.seed))
+        plain, plain_ms = serve(params)
+        del params
+        free()
+        tdist_store = tdist.FileStore(os.path.join(h.tmp, "mesh_one_decode"),
+                                      1)
+        LM.join("cpu" if not cuda else None, rank=0, world=1,
+                store=tdist_store, local_rank=dev.index or 0,
+                timeout=datetime.timedelta(seconds=600))
+        try:
+            mesh = LM.make_mesh((1, 1), ("data", "model"))
+            rules = MS.rules_for("decode", b, {"data": 1, "model": 1})
+            with MS.use_rules(rules):
+                params = ST.init_sharded(
+                    model, torch.Generator(device=dev).manual_seed(h.seed),
+                    mesh, rules)
+                sharded = MS.is_dtensor(params["embed"]["w"])
+                got, mesh_ms = serve(
+                    params, place=lambda x: ST.place_batch(x, mesh),
+                    lay_out=lambda c: MS.lay_out_cache(
+                        c, model.cache_specs(), mesh))
+            mesh_peak = peak_gib()
+            del params
+        finally:
+            LM.leave()
+        launched = counted(phase)
+        rel = [float((a - b_).abs().max() / b_.abs().max())
+               for a, b_ in zip(got, plain)]
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        require(sharded, f"{phase}: the params are not DTensors")
+        require(finite, f"{phase}: non-finite logits")
+        require(max(rel) <= MESH_ONE_TOL,
+                f"{phase}: sharded vs unsharded logits {max(rel)} > "
+                f"{MESH_ONE_TOL}")
+        row = {"mesh": {"data": 1, "model": 1}, "batch": b,
+               "prompt_tokens": s, "decode_steps": k,
+               "max_rel_err": max(rel), "rel_err_per_step": rel,
+               "bit_equal": all(torch.equal(a, b_)
+                                for a, b_ in zip(got, plain)),
+               "tol": MESH_ONE_TOL,
+               "step_ms": [float(q) for q in np.percentile(mesh_ms[1:],
+                                                           [50, 25, 75])],
+               "step_ms_unsharded": [float(q) for q in np.percentile(
+                   plain_ms[1:], [50, 25, 75])],
+               "peak_gib": mesh_peak, "launches": launched}
+        emit(phase, **row)
+        del model, got, plain
+        free()
+        return row
+
     # ---- the parallel residual block at full width ------------------------
     def parallel_block():
         cfg = h.cfgs["parallel"]
@@ -3067,6 +3164,7 @@ def slice11_phases(h) -> dict:
         return row
 
     rows["mesh_one"] = mesh_one()
+    rows["mesh_one_decode"] = mesh_one_decode()
     rows["parallel_block"] = parallel_block()
     return {"launches": launches, "rows": rows,
             "seconds": time.perf_counter() - t_all}
@@ -4608,7 +4706,7 @@ def main() -> int:
         counts=counts, reset_counts=reset_counts, plain_free=plain_free,
         rel_err=rel_err, time_ms=time_ms, csr_of=csr_of,
         library_ms=library_ms, Y_TOL=Y_TOL, SCIPY_TOL=SCIPY_TOL,
-        HBM=HBM_BYTES_PER_S, poisson_side=1448, hmep_scale=1.0,
+        HBM=HBM_BYTES_PER_S, poisson_side=1024, hmep_scale=1.0,
         power_iters=2000))
     for rec in record:
         if s6["launches"].get(rec["name"]):
@@ -4689,6 +4787,7 @@ def main() -> int:
               "parallel": dataclasses.replace(TCFG.get(SLICE11_PARALLEL),
                                               parallel_block=True)},
         batch=8, seq=256, steps=3, pb_batch=2, pb_prompt=16, pb_steps=8,
+        decode_batch=4, decode_prompt=64, decode_steps=16,
         tmp=mesh_dir.name))
     mesh_dir.cleanup()
     for rec in record:

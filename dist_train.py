@@ -20,6 +20,13 @@ Phases (published configs at full width and depth unless said):
     (counts and bytes by op, ``collective_bytes``); rank 0 also traces
     one step with ``torch.profiler`` (device ms, idle share, kernels).
     Losses finite, the mean of the last two below the first.
+``dist_train:falcon-mamba-7b:tp4``  falcon-mamba-7b (7.3 B parameters,
+    about 116 GB of training state at 16 B a parameter: only across
+    cards) on (1, 4), channels on ``model``, batch 8 x 256, 4 steps of
+    the same WSD start; the same numbers as the qwen2.5-14b phase, and
+    the recorded step's all-gathers as (bytes, count) pairs
+    (``all_gather_sizes``): which weights or activations the step
+    gathers at full ``d_inner``.
 ``dist_train:gemma3-4b:2x2``  gemma3-4b on (2, 2), ZeRO-1: every master
     leaf's local numel is the one-device numel over the ranks its state
     spec splits it (``zero1_specs``): /4 where the data axis found a free
@@ -38,7 +45,8 @@ Phases (published configs at full width and depth unless said):
     TF32 off: one step on the (2, 2) mesh against the same step on rank
     0's card alone, loss, grad norm and every leaf's m and sqrt(v) within
     1e-5 (as ``tests/test_torch_dist_train.py`` holds them; v itself is
-    reported).
+    reported); and a row of falcon-mamba-7b's width at 2 layers on
+    (1, 4) in float64 (``PARITY_F64``), held the same way.
 
 Rank processes start with ``torch.multiprocessing`` (spawn) and meet
 through a ``FileStore`` in a temporary directory; the script waits at
@@ -55,6 +63,7 @@ from __future__ import annotations
 import argparse
 import datetime
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -79,6 +88,167 @@ PARITY_TOL = 1e-5
 # the start of a 2000-step WSD: a 200-step warmup, lr 1.5e-6 to 9e-6 over
 # six steps
 LR_HORIZON = 2000
+# the parity rows' dtypes.  float32 with TF32 off; the Mamba row in
+# float64, since two valid f32 summation orders part a Mamba model's
+# logits and moments by more than PARITY_TOL (falcon-mamba-7b's width at
+# 2 layers, one card against the CPU: 1.08e-5 logits, 1.33e-5 m;
+# ``experiments/f32_floor.py``), so an f32 row could not tell a layout
+# fault from rounding.  In float64 only the sums the model keeps in
+# float32 (the scan's state, dt, the unembedding's logits) stay at f32
+PARITY_F32 = {"param_dtype": "float32", "activation_dtype": "float32"}
+PARITY_F64 = {"param_dtype": "float64", "activation_dtype": "float64"}
+# dist_train:parity's rows: (key, config cut to 2 layers, mesh, dtype)
+PARITY_ROWS = (("parity", "qwen2.5-14b", (2, 2), PARITY_F32),
+               ("parity_ssm", "falcon-mamba-7b", (1, 4), PARITY_F64))
+
+
+def sync(dev) -> None:
+    """Wait for ``dev``'s queue (a card's; nothing on the CPU)."""
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def free(dev) -> None:
+    """Collect garbage; on a card, return its cached blocks and restart
+    its peak count."""
+    import gc
+
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        sync(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peak_gib(dev):
+    import torch
+    return torch.cuda.max_memory_allocated(dev) / 2 ** 30 \
+        if dev.type == "cuda" else None
+
+
+def full(t):
+    """A DTensor's whole value (gathered); a plain tensor as it is."""
+    from repro_torch.models.sharding import is_dtensor
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def local(t):
+    """This rank's part of a DTensor; a plain tensor as it is."""
+    from repro_torch.models.sharding import is_dtensor
+    return t.to_local() if is_dtensor(t) else t
+
+
+def nbytes(ts) -> int:
+    """The bytes of ``ts`` this rank holds."""
+    return sum(local(t).numel() * t.element_size() for t in ts)
+
+
+def ways(pls, sizes) -> int:
+    """How many ranks split a leaf of placements ``pls`` on a mesh of
+    ``sizes``."""
+    return math.prod(sizes[i] for i, q in enumerate(pls)
+                     if type(q).__name__ == "Shard")
+
+
+def trace(fn, dev):
+    """``fn()`` under ``torch.profiler``: its result and the call's
+    device ms, idle share (against the host clock around it) and
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    sync(dev)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        r = fn()
+        sync(dev)
+    wall = time.perf_counter() - t0
+    evs = [e for e in p.events() if e.device_type.name == "CUDA"]
+    busy = sum(e.device_time for e in evs) / 1e3
+    return r, {"wall_ms": 1e3 * wall, "device_ms": busy,
+               "idle_share": max(0.0, 1 - busy / (1e3 * wall)),
+               "kernels": len(evs)}
+
+
+def batches(cfg, b: int, s: int, n: int, dev, seed: int = 0) -> list:
+    """``n`` synthetic batches of ``b`` x ``s`` on ``dev``."""
+    import torch
+
+    from repro_torch.data.pipeline import for_config
+    data = for_config(cfg, batch=b, seq=s, seed=seed)
+    return [{k: torch.as_tensor(v).to(dev) for k, v in
+             data.next().items()} for _ in range(n)]
+
+
+def train_parity(cfg, mesh_shape, dev, rank: int, seq: int, rules: dict):
+    """One step of ``cfg`` (a parity row's cut) on a ``mesh_shape``
+    mesh against the same step on rank 0's device alone: loss, grad
+    norm, every m and sqrt(v) within PARITY_TOL.  Returns (row, failure
+    or None); the row's numbers on rank 0 only."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import sharding as S
+    from repro_torch.models.api import build_model
+    from repro_torch.train import step as ST
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.schedules import constant
+
+    free(dev)
+    model = build_model(cfg, device=dev)
+    opt = AdamW(lr_fn=constant(1e-4))
+    b = batches(cfg, 4, min(seq, 128), 1, dev, seed=1)[0]
+    ref = None
+    if rank == 0:       # the one-device step
+        p1 = model.init(torch.Generator(device=dev).manual_seed(0))
+        s1 = opt.init(p1)
+        _, s1, m1 = ST.make_train_step(model, opt, q_chunk=128,
+                                       k_chunk=128)(p1, s1, b)
+        ref = ({k: float(v) for k, v in m1.items()},
+               {n: (s1.m[n].cpu(), s1.v[n].cpu(), s1.v[n].sqrt().cpu())
+                for n in s1.m})
+        del p1, s1
+        free(dev)
+    dist.barrier()
+    mesh = LM.make_mesh(mesh_shape, ("data", "model"))
+    with S.use_rules(rules):
+        _, osh = ST.train_state_shardings(model, mesh, rules)
+        p2 = ST.init_sharded(
+            model, torch.Generator(device=dev).manual_seed(0), mesh, rules)
+        s2 = opt.init(p2, shardings=osh)
+        _, s2, m2 = ST.make_train_step(model, opt, q_chunk=128,
+                                       k_chunk=128)(p2, s2, b)
+        m_full = {n: full(s2.m[n]).cpu() for n in s2.m}
+        v_full = {n: full(s2.v[n]).cpu() for n in s2.v}
+    rec = {"config": cfg.name, "mesh": list(mesh_shape),
+           "dtype": cfg.param_dtype, "batch": 4, "seq": min(seq, 128),
+           "tol": PARITY_TOL}
+    fail = None
+    if rank == 0:
+        mets, mv = ref
+        rel = {k: abs(float(m2[k]) - mets[k]) / max(abs(mets[k]), 1e-30)
+               for k in ("loss", "nll", "grad_norm")}
+
+        def leaf_rel(got, i):
+            return max(float((got[n] - mv[n][i]).abs().max())
+                       / max(float(mv[n][i].abs().max()), 1e-30)
+                       for n in got)
+        rec.update(rel_err=rel, m_max_rel_err=leaf_rel(m_full, 0),
+                   v_max_rel_err=leaf_rel(v_full, 1),
+                   sqrt_v_max_rel_err=leaf_rel(
+                       {n: v.sqrt() for n, v in v_full.items()}, 2),
+                   loss=float(m2["loss"]), loss_one_card=mets["loss"])
+        worst = max(max(rel.values()), rec["m_max_rel_err"],
+                    rec["sqrt_v_max_rel_err"])
+        if not worst <= PARITY_TOL:
+            fail = (f"parity {cfg.name}: {mesh_shape} vs one device "
+                    f"{rel}, m {rec['m_max_rel_err']}, sqrt(v) "
+                    f"{rec['sqrt_v_max_rel_err']}")
+    del p2, s2, model
+    free(dev)
+    return rec, fail
 
 
 def worker(rank: int, world: int, a: dict, store_path: str, out_dir: str,
@@ -88,7 +258,6 @@ def worker(rank: int, world: int, a: dict, store_path: str, out_dir: str,
     ``<tag>_rank<r>.json``."""
     sys.path.insert(0, str(SRC))
     import dataclasses
-    import gc
 
     import numpy as np
     import torch
@@ -96,7 +265,6 @@ def worker(rank: int, world: int, a: dict, store_path: str, out_dir: str,
 
     from repro_torch import configs
     from repro_torch.checkpoint import store
-    from repro_torch.data.pipeline import for_config
     from repro_torch.launch import comm_analysis as CA
     from repro_torch.launch import mesh as LM
     from repro_torch.launch import train as LT
@@ -104,7 +272,7 @@ def worker(rank: int, world: int, a: dict, store_path: str, out_dir: str,
     from repro_torch.models import transformer as TT
     from repro_torch.models.api import build_model
     from repro_torch.train.optimizer import AdamW
-    from repro_torch.train.schedules import constant, wsd
+    from repro_torch.train.schedules import wsd
     from repro_torch.train import step as ST
 
     gloo = a["backend"] == "gloo"
@@ -121,45 +289,15 @@ def worker(rank: int, world: int, a: dict, store_path: str, out_dir: str,
         c = configs.smoke(name) if a["smoke"] else configs.get(name)
         return dataclasses.replace(c, **kw) if kw else c
 
-    def sync():
-        if cuda:
-            torch.cuda.synchronize(dev)
-
-    def free():
-        gc.collect()
-        if cuda:
-            sync()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(dev)
-
-    def peak_gib():
-        return torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda \
-            else None
-
-    def full(t):
-        return t.full_tensor() if S.is_dtensor(t) else t
-
-    def local_bytes(ts):
-        return sum((t.to_local() if S.is_dtensor(t) else t).numel()
-                   * t.element_size() for t in ts)
-
     def predicted_bytes(model, psh, osh, sizes):
         """Params and optimizer state a rank holds, from the layout
         alone: each leaf's numel over the ranks that split it."""
-        def ways(pl):
-            return int(np.prod([sizes[i] for i, q in enumerate(pl)
-                                if type(q).__name__ == "Shard"]))
         tot = 0
         for n, p in model.param_shapes().named_parameters():
-            tot += -(-p.numel() // ways(psh[n])) * p.element_size()
+            tot += -(-p.numel() // ways(psh[n], sizes)) * p.element_size()
             if p.is_floating_point():
-                tot += 3 * 4 * -(-p.numel() // ways(osh.master[n]))
+                tot += 3 * 4 * -(-p.numel() // ways(osh.master[n], sizes))
         return tot
-
-    def batches(cfg, b, s, n, seed=0):
-        data = for_config(cfg, batch=b, seq=s, seed=seed)
-        return [{k: torch.as_tensor(v).to(dev) for k, v in
-                 data.next().items()} for _ in range(n)]
 
     def attn_flops(cfg, b, s):
         hd, tot = cfg.resolved_head_dim, 0
@@ -190,9 +328,9 @@ def worker(rank: int, world: int, a: dict, store_path: str, out_dir: str,
                 model, torch.Generator(device=dev).manual_seed(0), mesh,
                 rules)
             state = opt.init(params, shardings=osh)
-            sync()
+            sync(dev)
             rec["init_s"] = time.perf_counter() - t0
-            held = local_bytes(list(params.parameters())
+            held = nbytes(list(params.parameters())
                                + list(state.m.values())
                                + list(state.v.values())
                                + list(state.master.values()))
@@ -201,7 +339,8 @@ def worker(rank: int, world: int, a: dict, store_path: str, out_dir: str,
                                                      list(mesh.shape))
             rec["params"] = sum(p.numel() for p in params.parameters())
             step = ST.make_train_step(model, opt, q_chunk=128, k_chunk=128)
-            data = batches(cfg, b, s, steps + int(record) + int(profile))
+            data = batches(cfg, b, s, steps + int(record) + int(profile),
+                           dev)
             losses, times = [], []
             for i in range(steps):
                 dist.barrier()
@@ -217,31 +356,24 @@ def worker(rank: int, world: int, a: dict, store_path: str, out_dir: str,
             n_act = rec["params"]
             rec["mfu"] = (6 * n_act * b * s + attn_flops(cfg, b, s)) / med \
                 / (world * BF16_FLOPS) if cuda else None
-            rec["peak_gib"] = peak_gib()
+            rec["peak_gib"] = peak_gib(dev)
             if record:
                 r = CA.StepRecorder()
                 with r:
                     params, state, m = step(params, state, data[steps])
+                sizes = {}
+                for c in r.collectives:
+                    if c["op"] == "all-gather":
+                        sizes[c["bytes"]] = sizes.get(c["bytes"], 0) + 1
                 rec["recorded_step"] = {
                     "flops": r.flops,
-                    "collectives": CA.collective_bytes(r.collectives)}
+                    "collectives": CA.collective_bytes(r.collectives),
+                    "all_gather_sizes": sorted(sizes.items(),
+                                               reverse=True)}
                 rec["hfu"] = r.flops / med / BF16_FLOPS if cuda else None
             if profile and rank == 0 and cuda:
-                from torch.profiler import ProfilerActivity, profile as prof
-                sync()
-                t0 = time.perf_counter()
-                with prof(activities=[ProfilerActivity.CPU,
-                                      ProfilerActivity.CUDA]) as p_:
-                    params, state, m = step(params, state, data[-1])
-                    sync()
-                wall = time.perf_counter() - t0
-                evs = [e for e in p_.events()
-                       if e.device_type.name == "CUDA"]
-                busy = sum(e.device_time for e in evs) / 1e3
-                rec["trace"] = {"wall_ms": 1e3 * wall, "device_ms": busy,
-                                "idle_share": max(0.0,
-                                                  1 - busy / (1e3 * wall)),
-                                "kernels": len(evs)}
+                (params, state, m), rec["trace"] = trace(
+                    lambda: step(params, state, data[-1]), dev)
             elif profile:
                 params, state, m = step(params, state, data[-1])
         ok = all(np.isfinite(losses))
@@ -268,7 +400,7 @@ def worker(rank: int, world: int, a: dict, store_path: str, out_dir: str,
         return
 
     # ---- qwen2.5-14b, tensor-parallel over four cards ----------------------
-    free()
+    free(dev)
     rec, _ = train_run("qwen2.5-14b", (1, 4), 3 if a["smoke"] else 6,
                        bsz, seq, record=True, profile=True)
     # (the rehearsal's smoke configs barely move at the warmup's lr)
@@ -276,37 +408,48 @@ def worker(rank: int, world: int, a: dict, store_path: str, out_dir: str,
             np.mean(rec["losses"][-2:]) < rec["losses"][0]):
         fails.append(f"tp4: losses {rec['losses']} did not fall")
     out["tp4"] = rec
-    free()
+    free(dev)
+
+    # ---- falcon-mamba-7b, tensor-parallel over four cards ------------------
+    free(dev)
+    rec, _ = train_run("falcon-mamba-7b", (1, 4), 2 if a["smoke"] else 4,
+                       bsz, seq, record=True, profile=True)
+    if not a["smoke"] and not (
+            np.mean(rec["losses"][-2:]) < rec["losses"][0]):
+        fails.append(f"falcon tp4: losses {rec['losses']} did not fall")
+    if rec["held_bytes"] != rec["predicted_bytes"]:
+        fails.append(f"falcon tp4: held {rec['held_bytes']} bytes, the "
+                     f"layout says {rec['predicted_bytes']}")
+    out["tp4_ssm"] = rec
+    free(dev)
 
     # ---- gemma3-4b with ZeRO-1 on (2, 2) ------------------------------------
-    free()
+    free(dev)
     rec, objs = train_run("gemma3-4b", (2, 2), 2 if a["smoke"] else 4,
                           bsz, seq, record=True, keep=True)
     model, opt, mesh, params, state, psh, osh = objs
-    ways = {n: int(np.prod([mesh.size(i) for i, q in enumerate(pl)
-                            if type(q).__name__ == "Shard"]))
-            for n, pl in osh.master.items()}
+    split = {n: ways(pl, list(mesh.shape)) for n, pl in osh.master.items()}
     bad, quarter = [], 0
     for n, w in state.master.items():
-        want = -(-w.numel() // ways[n])
+        want = -(-w.numel() // split[n])
         if w.to_local().numel() > want:
             bad.append(n)
-        quarter += ways[n] == 4
+        quarter += split[n] == 4
     if bad:
         fails.append(f"zero1: masters not split as specified: {bad[:5]}")
     rec["master_leaves"] = len(state.master)
     rec["master_leaves_quartered"] = quarter
-    rec["master_leaves_halved"] = sum(v == 2 for v in ways.values())
-    rec["master_leaves_whole"] = sum(v == 1 for v in ways.values())
-    rec["master_local_bytes"] = local_bytes(state.master.values())
+    rec["master_leaves_halved"] = sum(v == 2 for v in split.values())
+    rec["master_leaves_whole"] = sum(v == 1 for v in split.values())
+    rec["master_local_bytes"] = nbytes(state.master.values())
     rec["master_full_bytes"] = sum(w.numel() * 4
                                    for w in state.master.values())
     out["zero1"] = rec
     del model, opt, params, state, objs
-    free()
+    free(dev)
 
     # ---- elastic restore: (2, 2) -> (4, 1) here, -> 2 ranks later -----------
-    free()
+    free(dev)
     gem = cfg_of("gemma3-4b")
     cut = dataclasses.replace(gem, n_layers=len(gem.layer_pattern))
     rec, objs = train_run("gemma3-4b", (2, 2), 3, bsz, seq, cfg=cut,
@@ -319,13 +462,13 @@ def worker(rank: int, world: int, a: dict, store_path: str, out_dir: str,
                    spec_tree=model.param_specs())
         rec["save_s"] = time.perf_counter() - t0
     del params, state, objs
-    free()
+    free(dev)
     rec["restore_4x1"] = restore_check(ck, cut, (4, 1), bsz, seq)
     out["elastic"] = rec
-    free()
+    free(dev)
 
     # ---- the launcher, data parallel with ZeRO-1 ----------------------------
-    free()
+    free(dev)
     argv = ["--arch", "minicpm-2b", "--mesh", "host", "--steps", "4"]
     if a["smoke"]:
         argv += ["--smoke", "--batch", str(bsz), "--seq", str(seq)]
@@ -336,70 +479,21 @@ def worker(rank: int, world: int, a: dict, store_path: str, out_dir: str,
     rec = {"argv": argv, "seconds": time.perf_counter() - t0,
            "losses": hist["losses"], "step_ms": [1e3 * t for t in
                                                  hist["times"]],
-           "peak_gib": peak_gib()}
+           "peak_gib": peak_gib(dev)}
     if not all(np.isfinite(hist["losses"])):
         fails.append("launch: a loss is not finite")
     out["launch"] = rec
-    free()
+    free(dev)
 
-    # ---- (2, 2) against one card, float32 -----------------------------------
-    free()
+    # ---- sharded against one card: float32, the Mamba row float64 ---------
     if cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    cfg = cfg_of("qwen2.5-14b", n_layers=2, param_dtype="float32",
-                 activation_dtype="float32")
-    model = build_model(cfg, device=dev)
-    opt = AdamW(lr_fn=constant(1e-4))
-    b = batches(cfg, 4, min(seq, 128), 1, seed=1)[0]
-    ref = None
-    if rank == 0:       # the one-card step
-        p1 = model.init(torch.Generator(device=dev).manual_seed(0))
-        s1 = opt.init(p1)
-        _, s1, m1 = ST.make_train_step(model, opt, q_chunk=128,
-                                       k_chunk=128)(p1, s1, b)
-        ref = ({k: float(v) for k, v in m1.items()},
-               {n: (s1.m[n].cpu(), s1.v[n].cpu(), s1.v[n].sqrt().cpu())
-                for n in s1.m})
-        del p1, s1
-        free()
-    dist.barrier()
-    mesh = LM.make_mesh((2, 2), ("data", "model"))
-    with S.use_rules(rules):
-        _, osh = ST.train_state_shardings(model, mesh, rules)
-        p2 = ST.init_sharded(
-            model, torch.Generator(device=dev).manual_seed(0), mesh,
-            rules)
-        s2 = opt.init(p2, shardings=osh)
-        _, s2, m2 = ST.make_train_step(model, opt, q_chunk=128,
-                                       k_chunk=128)(p2, s2, b)
-        m_full = {n: full(s2.m[n]).cpu() for n in s2.m}
-        v_full = {n: full(s2.v[n]).cpu() for n in s2.v}
-    rec = {"config": cfg.name, "batch": 4, "seq": min(seq, 128),
-           "tol": PARITY_TOL}
-    if rank == 0:
-        mets, mv = ref
-        rel = {k: abs(float(m2[k]) - mets[k]) / max(abs(mets[k]), 1e-30)
-               for k in ("loss", "nll", "grad_norm")}
-
-        def leaf_rel(got, i):
-            return max(float((got[n] - mv[n][i]).abs().max())
-                       / max(float(mv[n][i].abs().max()), 1e-30)
-                       for n in got)
-        rec.update(rel_err=rel, m_max_rel_err=leaf_rel(m_full, 0),
-                   v_max_rel_err=leaf_rel(v_full, 1),
-                   sqrt_v_max_rel_err=leaf_rel(
-                       {n: v.sqrt() for n, v in v_full.items()}, 2),
-                   loss=float(m2["loss"]), loss_one_card=mets["loss"])
-        worst = max(max(rel.values()), rec["m_max_rel_err"],
-                    rec["sqrt_v_max_rel_err"])
-        if not worst <= PARITY_TOL:
-            fails.append(f"parity: (2, 2) vs one card {rel}, m "
-                         f"{rec['m_max_rel_err']}, sqrt(v) "
-                         f"{rec['sqrt_v_max_rel_err']}")
-    out["parity"] = rec
-    del p2, s2
-    free()
+    for key, name, shape, dt in PARITY_ROWS:
+        out[key], fail = train_parity(cfg_of(name, n_layers=2, **dt), shape,
+                                      dev, rank, seq, rules)
+        if fail:
+            fails.append(fail)
     finish()
 
 
@@ -464,22 +558,30 @@ def nvidia_smi_line() -> str:
 
 
 def run_world(ctx, world: int, a: dict, tmp: str, tag: str,
-              deadline: float):
-    """``world`` rank processes running ``worker``'s ``tag``; their
-    records, or None after a failure (reported on stderr)."""
+              deadline: float, target=None, name: str = "dist_train"):
+    """``world`` rank processes running ``target``'s ``tag`` (default
+    this script's ``worker``); their records, or None after a failure
+    (reported on stderr).  A rank that fails ends the others at once:
+    they would wait in a collective for the one that is gone."""
     store_path = os.path.join(tmp, f"store_{tag}")
-    procs = [ctx.Process(target=worker, args=(r, world, a, store_path, tmp,
-                                              tag)) for r in range(world)]
+    procs = [ctx.Process(target=target or worker,
+                         args=(r, world, a, store_path, tmp, tag))
+             for r in range(world)]
     for p in procs:
         p.start()
-    for p in procs:
-        p.join(max(deadline - time.monotonic(), 1))
+    while time.monotonic() < deadline:
+        codes = [p.exitcode for p in procs]
+        if None not in codes or any(c not in (None, 0) for c in codes):
+            break
+        time.sleep(0.5)
     hung = [p for p in procs if p.is_alive()]
     for p in hung:
         p.kill()
+    for p in procs:
         p.join()
     if hung or any(p.exitcode != 0 for p in procs):
-        print(f"dist_train: rank exit codes {[p.exitcode for p in procs]}",
+        print(f"{name}: rank exit codes {[p.exitcode for p in procs]}"
+              + (" (ended by the script)" if hung else ""),
               file=sys.stderr)
         return None
     return [json.loads((pathlib.Path(tmp) / f"{tag}_rank{r}.json")
@@ -527,6 +629,20 @@ def main() -> int:
         "collectives_per_rank": [r["tp4"]["recorded_step"]
                                  ["collectives"] for r in ranks]}),
         flush=True)
+    f0 = ranks[0]["tp4_ssm"]
+    print(json.dumps({
+        "phase": "dist_train:falcon-mamba-7b:tp4", "configs": label,
+        **{k: v for k, v in f0.items() if k != "recorded_step"},
+        "all_gather_sizes": f0["recorded_step"]["all_gather_sizes"],
+        "ms_per_step_per_rank": [r["tp4_ssm"]["ms_per_step_median"]
+                                 for r in ranks],
+        "peak_gib_per_rank": [r["tp4_ssm"]["peak_gib"] for r in ranks],
+        "held_bytes_per_rank": [r["tp4_ssm"]["held_bytes"] for r in ranks],
+        "flops_per_rank": [r["tp4_ssm"]["recorded_step"]["flops"]
+                           for r in ranks],
+        "collectives_per_rank": [r["tp4_ssm"]["recorded_step"]
+                                 ["collectives"] for r in ranks]}),
+        flush=True)
     print(json.dumps({"phase": "dist_train:gemma3-4b:2x2",
                       "configs": label, **ranks[0]["zero1"],
                       "peak_gib_per_rank": [r["zero1"]["peak_gib"]
@@ -549,12 +665,15 @@ def main() -> int:
                       "losses_per_rank": [r["launch"]["losses"]
                                           for r in ranks]}), flush=True)
     print(json.dumps({"phase": "dist_train:parity", "configs": label,
-                      **ranks[0]["parity"]}), flush=True)
+                      **ranks[0]["parity"],
+                      "rows": {r["config"]: r for r in (
+                          ranks[0]["parity"], ranks[0]["parity_ssm"])}}),
+          flush=True)
+    if a.backend == "nccl":     # the cards the numbers above ran on
+        print(nvidia_smi_line(), flush=True)
     if fails:
         print(f"dist_train: failed: {fails}", file=sys.stderr)
         return 1
-    if a.backend == "nccl":
-        print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "backend": a.backend, "ranks": RANKS,
                       "seconds": time.perf_counter() - t_all}), flush=True)
     return 0

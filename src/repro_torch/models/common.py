@@ -40,7 +40,7 @@ __all__ = ["dtype_of", "NoDraw", "placing", "param", "replace_params",
            "padded_vocab", "embed", "embed_init"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
+           "float16": torch.float16, "float64": torch.float64}
 
 
 def dtype_of(name: str) -> torch.dtype:

@@ -37,7 +37,7 @@ __all__ = ["DEFAULT_SINGLE_POD", "DEFAULT_MULTI_POD", "rules_for",
            "set_rules", "get_rules", "use_rules", "logical_to_pspec",
            "pspec_placements", "placements", "is_dtensor", "mesh_of",
            "shard", "split_axes", "local_offset", "local_part", "place",
-           "local_call", "reduce_from", "sharded_region"]
+           "local_call", "reduce_from", "sharded_region", "lay_out_cache"]
 
 _RULES: Optional[dict] = None
 
@@ -212,6 +212,26 @@ def place(t: torch.Tensor, mesh, pls, *, copy: bool = True):
     return DTensor.from_local(local, mesh, pls, run_check=False,
                               shape=t.shape,
                               stride=_contiguous_stride(t.shape))
+
+
+def lay_out_cache(cache: list, specs: list, mesh) -> list:
+    """Lay out a decode cache (a list of per-layer dicts of tensors or
+    dicts, as ``Model.prefill`` returns it) by its logical specs
+    (``Model.cache_specs()``) under the installed rules: each DTensor
+    leaf redistributed, each plain one placed.  One layer at a time, in
+    place of the list's entry, so that only one layer's old layout is
+    alive beside the new one.  Returns ``cache``."""
+    def laid(t, spec):
+        if isinstance(t, dict):
+            return {k: laid(v, spec[k]) for k, v in t.items()}
+        pls = placements(spec, mesh)
+        if not is_dtensor(t):
+            return place(t, mesh, pls)
+        return t if tuple(t.placements) == tuple(pls) \
+            else t.redistribute(mesh, pls)
+    for i, spec in enumerate(specs):
+        cache[i] = laid(cache[i], spec)
+    return cache
 
 
 def local_call(fn: Callable, mesh, inputs: Sequence, in_placements: Sequence,

@@ -121,10 +121,6 @@ _PORT = textwrap.dedent("""
     def full(t):
         return t.full_tensor() if S.is_dtensor(t) else t
 
-    def shard_as(t, spec, mesh):
-        return t.redistribute(mesh, S.placements(spec, mesh)) \
-            if S.is_dtensor(t) else t
-
     def ref_batches(cfg, n=6):
         rng = np.random.default_rng(0)
         return [{k: torch.as_tensor(rng.integers(0, cfg.vocab, (8, 32)))
@@ -253,13 +249,7 @@ _PORT = textwrap.dedent("""
                 with S.use_rules(RULES):
                     c2, l2 = m_.prefill(p2, ST.place_batch(pb, mesh),
                                         max_len=32, q_chunk=4, k_chunk=4)
-                    specs = m_.cache_specs()
-                    c2 = [{k: (shard_as(v, specs[i][k], mesh)
-                               if not isinstance(v, dict) else
-                               {k2: shard_as(v2, specs[i][k][k2], mesh)
-                                for k2, v2 in v.items()})
-                           for k, v in layer.items()}
-                          for i, layer in enumerate(c2)]
+                    S.lay_out_cache(c2, m_.cache_specs(), mesh)
                     t2 = ST.place_batch({"t": b["tokens"][:, 8:9],
                                          "p": pos}, mesh)
                     _, d2 = m_.decode_step(p2, c2, t2["t"], t2["p"])

@@ -367,7 +367,10 @@ def _port_files():
     return sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "kernel_ab.py",
                                         ROOT / "dist_scaling.py",
-                                        ROOT / "dist_train.py"]
+                                        ROOT / "dist_train.py",
+                                        ROOT / "dist_serve.py",
+                                        ROOT / "experiments" /
+                                        "parity_rows.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -7,7 +7,8 @@
 * ``chip_smoke.slice11_phases`` with a host-clock harness: the CPU in
   place of the card, smoke configs (minicpm-2b in bfloat16, llava with
   the parallel block), counts that return zeros; the sharded step on the
-  one-rank mesh equals the unsharded one bit for bit.
+  one-rank mesh equals the unsharded one bit for bit, and the sharded
+  prefill and decode steps (``mesh:one:decode``) stay within 1e-6.
 Both run in subprocesses: they start process groups.
 """
 import json
@@ -71,6 +72,7 @@ _SLICE11 = textwrap.dedent("""
               "parallel": dataclasses.replace(
                   TCFG.smoke("llava-next-mistral-7b"), parallel_block=True)},
         batch=2, seq=32, steps=3, pb_batch=2, pb_prompt=8, pb_steps=4,
+        decode_batch=2, decode_prompt=8, decode_steps=4,
         tmp=tempfile.mkdtemp()))
     print("OUT " + json.dumps({"rows": rows, "launches": out["launches"]},
                               default=str))
@@ -86,6 +88,9 @@ def test_slice11_phases_rehearse_on_the_cpu():
                       if ln.startswith("OUT ")][-1][4:])
     one = out["rows"]["mesh:one:minicpm-2b-smoke"]
     assert one["bit_equal"] and one["max_rel_err"] == 0.0
+    dec = out["rows"]["mesh:one:decode:minicpm-2b-smoke"]
+    assert dec["decode_steps"] == 4 and len(dec["rel_err_per_step"]) == 5
+    assert dec["max_rel_err"] <= 1e-6 and isinstance(dec["bit_equal"], bool)
     pb = out["rows"]["lm:parallel_block:llava-next-mistral-7b-smoke"]
     assert pb["steps_vs_longer_prefill_rel_l2"] <= 1e-5
     assert pb["sequential_block_rel_l2"] > 1e-3

@@ -72,11 +72,7 @@ _RANK = textwrap.dedent("""
                 c2, _ = m.prefill(p2, ST.place_batch(
                     {"tokens": toks[:, :8]}, mesh), max_len=24, q_chunk=4,
                     k_chunk=4)
-                specs = m.cache_specs()
-                c2 = [{k: v.redistribute(mesh, S.placements(specs[i][k],
-                                                            mesh))
-                       for k, v in layer.items()}
-                      for i, layer in enumerate(c2)]
+                S.lay_out_cache(c2, m.cache_specs(), mesh)
                 placed = {n: [str(p) for p in v.placements]
                           for n, v in leaves(c2)}
             for t in range(8, 18):
