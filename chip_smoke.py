@@ -58,8 +58,9 @@ shared; the x-gradient's backward split into K7, the copy of y, the
 ``ThreadComm`` ranks, ``reorder:poisson_shuffled`` RCM on a shuffled
 1024 x 1024 Poisson operator (one device, and four ranks with
 ``reorder="auto"``), and ``eigen:hmep`` Lanczos, power iteration and
-block Lanczos on the symmetrised HMEp analogue at its published 6.2 M
-rows.  The seventh (``slice7_phases``) tunes the distributed layer and
+block Lanczos on the symmetrised HMEp analogue at a quarter of its
+published 6.2 M rows (1.55 M, so the script ends well inside its
+limit).  The seventh (``slice7_phases``) tunes the distributed layer and
 serves solves; the eighth (``slice8_phases``) runs last: LM serving at
 qwen2.5-14b's full width and depth (``lm:serve:qwen2.5-14b``, the
 continuous-batching engine on random bf16 weights) and the sparse FFN on
@@ -98,12 +99,16 @@ unsharded ones: logits within 1e-6 and whether bit for bit) and
 steps against a longer prefill, the sequential block's logits apart);
 the twelfth (``slice12_phases``) runs last: ``examples:<name>`` (each
 of the reference's six examples, ported as ``repro_torch.examples``,
-through its ``main`` at the reference's sizes, with its own checks: the
+through its ``main`` at the reference's sizes, cg_solver's Poisson
+at side 48 (the reference's 96 took 90-107 s), with its own checks: the
 products at f32 round-off, Ritz values against ``eigvalsh``, every
 solve converged and every request served, a falling loss; K1, K5 and K7
 must launch) and ``dryrun:peak`` (the dry run's ``StepRecorder`` on one
 real train step of minicpm-2b cut to 4 layers: its peak against
-``torch.cuda.max_memory_allocated()``, the ratio within 0.5-1.5).
+``torch.cuda.max_memory_allocated()``, the ratio within 0.5-1.5; the
+dry run's depth plan, the same step at 1, 2 and 3 layers, carried to
+4 layers: flops and bytes equal, the peak within 1 % of the
+recorder's).
 Each main-path phase sets every launch count to 0 before it and reads
 the counts after it.  Each phase prints one JSON line; any failed check
 raises, and the script then exits non-zero without its final line.
@@ -3182,9 +3187,9 @@ def slice11_phases(h) -> dict:
 EX_ROUND_OFF = 1e-5
 EX_EIG_TOL = 1e-4
 EX_RES_SLACK = 1.5
-EXAMPLE_ARGS = {"quickstart": [], "eigensolver": [], "cg_solver": [],
-                "serve_solver": [], "serve_lm": [],
-                "train_lm": ["--steps", "20"]}
+EXAMPLE_ARGS = {"quickstart": [], "eigensolver": [],
+                "cg_solver": ["--side", "48"], "serve_solver": [],
+                "serve_lm": [], "train_lm": ["--steps", "20"]}
 # dryrun:peak: minicpm-2b cut to this many layers, one real train step
 # of batch 8 x 256 (bf16, remat) under the dry run's recorder; its peak
 # over torch.cuda.max_memory_allocated() must lie in PEAK_RATIO (a count
@@ -3192,6 +3197,10 @@ EXAMPLE_ARGS = {"quickstart": [], "eigensolver": [], "cg_solver": [],
 # falls outside; the allocator's rounding does not)
 PEAK_LAYERS = 4
 PEAK_RATIO = (0.5, 1.5)
+# the dry run's peak carried from its plan's steps to PEAK_LAYERS against
+# the recorder's peak of the PEAK_LAYERS step, in units of what one layer
+# adds to the peak (a rule that misses a layer's growth reads >= 1)
+PEAK_EXTRAP_TOL = 0.5
 
 
 def slice12_phases(h) -> dict:
@@ -3199,8 +3208,8 @@ def slice12_phases(h) -> dict:
 
     ``examples:<name>``: each of ``repro_torch.examples``' six modules
     through ``main(["--device", <h.dev>, *h.example_args[name]])`` (on
-    the card ``EXAMPLE_ARGS``: the reference's sizes, ``train_lm`` 20
-    steps), its printed lines
+    the card ``EXAMPLE_ARGS``: the reference's sizes, cg_solver's side
+    48, ``train_lm`` 20 steps), its printed lines
     captured into the phase's row, launch counts set to 0 before it and
     read after it, and its own checks required (the constants above).
     Together the six must launch K1, K5 and K7.
@@ -3211,7 +3220,12 @@ def slice12_phases(h) -> dict:
     peak over ``torch.cuda.max_memory_allocated()``, and over that peak
     less what earlier phases left allocated (``main`` keeps its sAMG
     operands), both within PEAK_RATIO; the recorder's flops and bytes
-    beside the step's time.
+    beside the step's time.  Then the dry run's depth plan for that
+    config (``launch.dryrun.traced_configs``: 1, 2 and 3 layers), each
+    step recorded alike, and ``launch.dryrun.extrapolate`` carries them
+    to PEAK_LAYERS: the flops and bytes equal to the full step's, the
+    peak within PEAK_EXTRAP_TOL of one layer's growth of the
+    recorder's.
     Returns the launches of the examples, and the rows."""
     import contextlib
     import gc
@@ -3222,6 +3236,7 @@ def slice12_phases(h) -> dict:
     import torch
 
     from repro_torch.data.pipeline import for_config
+    from repro_torch.launch import dryrun as DR
     from repro_torch.launch.comm_analysis import StepRecorder
     from repro_torch.models import build_model
     from repro_torch.train import step as ST
@@ -3331,28 +3346,35 @@ def slice12_phases(h) -> dict:
     free()
     # what earlier phases leave resident is not the step's
     before = torch.cuda.memory_allocated(dev) if cuda else None
-    model = build_model(cfg, device=dev)
-    o = AdamW(lr_fn=wsd(3e-4, 1, 1, 1))
-    params = model.init(torch.Generator(device=dev).manual_seed(h.seed))
-    state = o.init(params)
-    data = for_config(cfg, batch=h.batch, seq=h.seq)
-    batches = [{k: torch.as_tensor(v).to(dev) for k, v in
-                data.next().items()} for _ in range(2)]
-    step = ST.make_train_step(model, o, q_chunk=128, k_chunk=128)
+
+    def warm_step(c):
+        """``c``'s model, state, a train step warmed up on one batch, and
+        the next batch."""
+        model = build_model(c, device=dev)
+        o = AdamW(lr_fn=wsd(3e-4, 1, 1, 1))
+        params = model.init(torch.Generator(device=dev).manual_seed(h.seed))
+        state = o.init(params)
+        data = for_config(c, batch=h.batch, seq=h.seq)
+        batches = [{k: torch.as_tensor(v).to(dev) for k, v in
+                    data.next().items()} for _ in range(2)]
+        step = ST.make_train_step(model, o, q_chunk=128, k_chunk=128)
+        params, state, m0 = step(params, state, batches[0])
+        loss0 = float(m0["loss"])
+        del m0
+        gc.collect()
+        sync()
+        return step, params, state, batches[1], loss0
+
     h.reset_counts()
-    params, state, m0 = step(params, state, batches[0])     # warm-up
-    loss0 = float(m0["loss"])
-    del m0
-    gc.collect()
-    sync()
+    step, params, state, batch, loss0 = warm_step(cfg)
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     resident = torch.cuda.memory_allocated(dev) if cuda else None
     rec = StepRecorder()
-    held = rec.hold(params, state, batches[1])
+    held = rec.hold(params, state, batch)
     t0 = time.perf_counter()
     with rec:
-        params, state, m1 = step(params, state, batches[1])
+        params, state, m1 = step(params, state, batch)
     sync()
     seconds = time.perf_counter() - t0
     loss1 = float(m1["loss"])
@@ -3374,24 +3396,72 @@ def slice12_phases(h) -> dict:
                     f"{phase}: recorder peak {rec.peak_bytes} over {what} "
                     f"{alloc} = {r}, outside {PEAK_RATIO}")
     n_params = sum(p.numel() for p in params.parameters())
+    full = {"peak": rec.peak_bytes, "held": held, "bytes": rec.bytes,
+            "flops": rec.flops}
+    del step, params, state, batch, rec, m1
+    free()
+
+    # the dry run's depth plan: the same step at its plan's depths,
+    # recorded, and the dry run's extrapolate carrying them to 4
+    t_var = time.perf_counter()
+    plan = DR._depth_variants(cfg)
+    traces = {}
+    for c in DR.traced_configs(plan, "train"):
+        step, params, state, batch, _ = warm_step(c)
+        r = StepRecorder()
+        a = r.hold(params, state, batch)
+        with r:
+            out = step(params, state, batch)
+        traces[c] = {"flops": r.flops, "bytes": r.bytes,
+                     "collectives": r.collectives,
+                     "memory": {"temp_size_in_bytes": r.peak_bytes - a,
+                                "output_size_in_bytes":
+                                    DR._storage_bytes(out)}}
+        del step, params, state, batch, r, out
+        free()
+    ex = DR.extrapolate(plan, traces, full["held"], "train")
+    extrap, (slope,) = ex["peak_bytes"], ex["slopes"]
+    # in layers' growth: 0 when exact
+    extrap_err = abs(extrap - full["peak"]) / max(abs(slope), 1)
+    require(extrap_err <= PEAK_EXTRAP_TOL,
+            f"{phase}: peak carried from {list(traces)} {extrap} vs the "
+            f"recorder's {full['peak']} at {cfg.n_layers} layers: off by "
+            f"{extrap_err} x a layer's {slope} B > {PEAK_EXTRAP_TOL}")
+    require(ex["counts"]["flops"] == full["flops"]
+            and ex["counts"]["bytes"] == full["bytes"],
+            f"{phase}: flops / bytes carried from 1-2 layers "
+            f"{ex['counts']['flops']} / {ex['counts']['bytes']} vs "
+            f"{full['flops']} / {full['bytes']}")
     rows["peak"] = {"arch": cfg.name, "n_layers": cfg.n_layers,
                     "n_params": n_params, "batch": h.batch, "seq": h.seq,
                     "remat": True, "dtype": cfg.param_dtype,
-                    "recorder_peak_bytes": rec.peak_bytes,
-                    "recorder_held_bytes": held,
+                    "recorder_peak_bytes": full["peak"],
+                    "recorder_held_bytes": full["held"],
                     "max_memory_allocated": peak_alloc,
                     "memory_allocated_at_reset": resident,
                     "memory_allocated_before_phase": before,
                     "max_memory_allocated_over_phase_start": own,
                     "ratio": ratio, "ratio_over_phase_start": ratio_own,
                     "ratio_limits": list(PEAK_RATIO),
-                    "recorder_bytes": rec.bytes,
-                    "recorder_flops": rec.flops,
+                    "recorder_bytes": full["bytes"],
+                    "recorder_flops": full["flops"],
                     "step_s_under_recorder": seconds,
-                    "losses": [loss0, loss1], "launches": launched}
+                    "losses": [loss0, loss1], "launches": launched,
+                    "variants": [{"kind": v.kind, "count": v.count}
+                                 for v in plan],
+                    "traced_layers": [c.n_layers for c in traces],
+                    "variant_steps": [{"n_layers": c.n_layers,
+                                       "temp": t["memory"][
+                                           "temp_size_in_bytes"],
+                                       "flops": t["flops"]}
+                                      for c, t in traces.items()],
+                    "extrapolated_peak_bytes": extrap,
+                    "layer_peak_growth_bytes": slope,
+                    "extrapolated_peak_err_layers": extrap_err,
+                    "extrapolated_peak_tol": PEAK_EXTRAP_TOL,
+                    "variants_s": time.perf_counter() - t_var,
+                    "card": nvidia_smi_line() if cuda else None}
     emit(phase, **rows["peak"])
-    del model, params, state, batches, rec, m1
-    free()
     return {"launches": launches, "rows": rows,
             "seconds": time.perf_counter() - t_all}
 
@@ -4706,7 +4776,7 @@ def main() -> int:
         counts=counts, reset_counts=reset_counts, plain_free=plain_free,
         rel_err=rel_err, time_ms=time_ms, csr_of=csr_of,
         library_ms=library_ms, Y_TOL=Y_TOL, SCIPY_TOL=SCIPY_TOL,
-        HBM=HBM_BYTES_PER_S, poisson_side=1024, hmep_scale=1.0,
+        HBM=HBM_BYTES_PER_S, poisson_side=1024, hmep_scale=0.25,
         power_iters=2000))
     for rec in record:
         if s6["launches"].get(rec["name"]):

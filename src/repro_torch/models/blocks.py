@@ -102,8 +102,11 @@ def cross_attend(p, cfg, x: torch.Tensor, xk: torch.Tensor,
     reference's does through ``decode_attention``."""
     hx = C.rmsnorm(p["lnx"], x, cfg.norm_eps)
     b, s = hx.shape[:2]
-    q = A._split_heads(C.dense_apply(p["xattn"]["wq"], hx), cfg.n_heads,
-                       cfg.resolved_head_dim)
+    # constrained as the self-attention's packed q: a residual that
+    # arrives split over the hidden dim would leave q a Partial sum, and
+    # the attention would run every head on each rank
+    qp = A.shard(C.dense_apply(p["xattn"]["wq"], hx), "batch", None, "model")
+    q = A._split_heads(qp, cfg.n_heads, cfg.resolved_head_dim)
     if decode:      # every encoder position is valid
         s_enc = xk.shape[1]
         kv_pos = torch.arange(s_enc, dtype=torch.int32,

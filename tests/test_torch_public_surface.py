@@ -23,9 +23,9 @@ _TPU_GRID = ("a helper of the Pallas grid on the TPU (BlockSpec index "
              "maps, interpret mode, per-tile bodies); the CUDA kernels "
              "are written whole and decide the backend per tensor")
 _XLA_COST = ("exists because XLA's cost analysis counts a while body "
-             "once; the port's stack and attention are Python loops "
-             "whose every layer and chunk pair the dry run's recorder "
-             "sees")
+             "once; the port's stack and attention are Python loops, so "
+             "the dry run's depth variants trace every layer and chunk "
+             "pair as they stand and need no cost mode")
 
 # (module, name) -> why the port has no counterpart
 OMITTED = {
@@ -56,7 +56,6 @@ OMITTED = {
         "port has one schedule, the reference's default pair list",
     ("models/common.py", "split_keys"):
         "splits a JAX PRNG key; the port draws from a torch.Generator",
-    ("launch/dryrun.py", "extrapolated_cost"): _XLA_COST,
     ("launch/hlo_analysis.py", "hlo_flops_bytes"):
         "XLA's cost analysis; the port's StepRecorder counts flops and "
         "bytes as the step runs (comm_analysis.StepRecorder)",

@@ -1,8 +1,9 @@
 """Rehearsal on the CPU of ``chip_smoke.slice12_phases``: the six
 examples through ``main`` at small sizes (the card runs the
-reference's), and ``dryrun:peak`` on a smoke config, with a host-clock
-harness whose counts map the plain versions the CPU runs to the kernels
-they stand for on the card.  Every phase's checks pass; the examples
+reference's), and ``dryrun:peak`` on a smoke config at four layers (its
+flops, bytes and peak also carried from the 1- to 3-layer steps), with
+a host-clock harness whose counts map the plain versions the CPU runs
+to the kernels they stand for on the card.  Every phase's checks pass; the examples
 reach the plain versions of K1, K5 and K7.  In a subprocess: the
 distributed example's ranks are threads of it.
 """
@@ -42,7 +43,8 @@ _SLICE12 = textwrap.dedent("""
         emit=lambda phase, **f: rows.__setitem__(phase, f),
         counts=counts, reset_counts=R.reset_calls,
         plain_free=lambda calls, phase: None,
-        cfgs={"peak": TCFG.smoke("minicpm-2b")},
+        cfgs={"peak": dataclasses.replace(TCFG.smoke("minicpm-2b"),
+                                          n_layers=4)},
         example_args={"quickstart": [],
                       "eigensolver": ["--scale", "0.0002"],
                       "cg_solver": ["--ranks", "2", "--side", "24"],
@@ -77,3 +79,9 @@ def test_slice12_phases_rehearse_on_the_cpu():
     assert peak["recorder_peak_bytes"] > peak["recorder_held_bytes"] > 0
     assert peak["recorder_bytes"] > 0 and peak["recorder_flops"] > 0
     assert peak["ratio"] is None and peak["ratio_over_phase_start"] is None
+    # the dry run's plan at 1 and 2 layers (3 for the peak), carried to 4
+    assert peak["traced_layers"] == [1, 2, 3]
+    assert peak["n_layers"] == 4
+    # within half of what one layer adds to the peak
+    assert peak["layer_peak_growth_bytes"] > 0
+    assert peak["extrapolated_peak_err_layers"] <= 0.5
