@@ -64,9 +64,10 @@ limit).  The seventh (``slice7_phases``) tunes the distributed layer and
 serves solves; the eighth (``slice8_phases``) runs last: LM serving at
 qwen2.5-14b's full width and depth (``lm:serve:qwen2.5-14b``, the
 continuous-batching engine on random bf16 weights) and the sparse FFN on
-that model's layer-0 weights (``lm:sparse_ffn:qwen2.5-14b``, K5 held to
-its plain version, float64 and the dense pruned FFN, beside its bound
-and cuBLAS); the ninth (``slice9_phases``) runs last: the other LM
+that model's layer-0 weights (``lm:sparse_ffn:qwen2.5-14b``, K5 on its
+split walk held to its plain version, float64 and the dense pruned FFN,
+beside its bound, cuBLAS and cuSPARSE; every K5 launch before it took
+the lane walk); the ninth (``slice9_phases``) runs last: the other LM
 families at their published widths and depths, each freed before the
 next -- ``lm:serve:deepseek-moe-16b`` (the engine on a mixture of
 experts: a repeated run gives the same tokens, and on a recorded decode
@@ -1609,21 +1610,26 @@ def slice8_phases(h) -> dict:
     step's bytes bound, and a ``torch.profiler`` trace of decode steps
     (device time per step, and so the card's idle share).
     ``lm:sparse_ffn:<name>``: layer 0's FFN weights as float32 on the
-    host, sparsified at ``h.ffn_density`` (``sparsify_ffn_params``) and
-    ``w1`` alone at ``h.w1_density``, and ``w2`` at ``h.ffn_density``
-    again with row blocks of ``h.narrow_b_r``; each ``SparseLinear`` at T in
-    ``h.tokens`` and ``sparse_ffn_apply`` run with the counts at 0 (K5
-    launched, no plain call), then held to the plain version (Y_TOL), to
+    host, sparsified at ``h.ffn_density`` (``sparsify_ffn_params``), and
+    ``w2`` again with row blocks of ``h.narrow_b_r``; each
+    ``SparseLinear`` at T in ``h.tokens`` and ``sparse_ffn_apply`` run
+    with the counts at 0 (K5 launched, no plain call), then held to the
+    plain version (Y_TOL), to
     float64 with the pruned dense weight (SCIPY_TOL) and to the dense
-    pruned FFN in float64 (FFN_TOL), and timed beside their bound and
-    cuBLAS's bf16 ``x @ w_pruned``.  Returns the launches and the
-    per-layer rows."""
+    pruned FFN in float64 (FFN_TOL), and timed (K5 as a burst of host
+    calls, ``k5_ms``, and as a CUDA graph, ``k5_graph_ms``) beside their
+    bound, cuBLAS's bf16 ``x @ w_pruned`` and
+    cuSPARSE (``torch.sparse.mm`` of the pruned Wᵀ as an f32 CSR by X).
+    K5 must take the split walk on the FFN's weights at ``ffn_density``
+    (``pjds_spmm.split_plan``); each row names the walk, its slices and
+    column tile.  Returns the launches and the per-layer rows."""
     import types
 
     import numpy as np
     import torch
 
     from repro_torch.kernels import ops as TO
+    from repro_torch.kernels import pjds_spmm as K5
     from repro_torch.kernels import ref as R
     from repro_torch.models import build_model
     from repro_torch.models.common import activation
@@ -1786,24 +1792,28 @@ def slice8_phases(h) -> dict:
     t0 = time.perf_counter()
     sp = sparsify_ffn_params(mlp, h.ffn_density, device=dev)
     t_sp = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    w1_dense = SparseLinear.from_dense(w_host["w1"], h.w1_density,
-                                       device=dev)
-    t_w1 = time.perf_counter() - t0
     # w2 again with row blocks of h.narrow_b_r: its 5120 output rows fill
     # 40 CTAs of 128 lanes on a 132-SM card, 160 of 32
+    t0 = time.perf_counter()
     w2_narrow = SparseLinear.from_dense(w_host["w2"], h.ffn_density,
                                         b_r=h.narrow_b_r, device=dev)
+    t_w2n = time.perf_counter() - t0
+    pruned = {k: prune(w_host[k], h.ffn_density) for k in mlp}
     layers = [(k, h.ffn_density, sp[k]) for k in sp] + [
-        ("w1", h.w1_density, w1_dense), ("w2", h.ffn_density, w2_narrow)]
+        ("w2", h.ffn_density, w2_narrow)]
     gen = torch.Generator(device=dev).manual_seed(h.seed + 8)
     xs = {(n_in, t): torch.randn((t, n_in), generator=gen, device=dev)
           for n_in in {sl.op.shape[1] for _, _, sl in layers}
           for t in h.tokens}
     x_ffn = torch.randn((4, cfg.d_model), generator=gen, device=dev)
     h.reset_counts()
-    ys = {(i, t): sl(xs[sl.op.shape[1], t])
-          for i, (_, _, sl) in enumerate(layers) for t in h.tokens}
+    ys, split_runs = {}, []
+    for i, (_, _, sl) in enumerate(layers):
+        before = K5.pjds_matmat_kernel_call.split_launches
+        for t in h.tokens:
+            ys[i, t] = sl(xs[sl.op.shape[1], t])
+        split_runs.append(K5.pjds_matmat_kernel_call.split_launches
+                          - before)
     y_ffn = sparse_ffn_apply(sp, cfg, x_ffn)
     launched = counted(phase)
     require(launched.get("pjds_spmm", 0) >= 1,
@@ -1822,15 +1832,24 @@ def slice8_phases(h) -> dict:
     for i, (k, dens, sl) in enumerate(layers):
         n_out, n_in = sl.op.shape
         d, sd = sl.a, sl.op.dev
-        wp = prune(w_host[k], dens)
+        wp = pruned[k]
         nnz = int(np.count_nonzero(wp))
         wp64 = torch.from_numpy(wp).to(dev, torch.float64)
         wp16 = wp64.to(torch.bfloat16)
         walked = int(d.warp_len.sum()) * 32
         vb, ib = d.val.element_size(), d.col_idx.element_size()
+        # K5's walk on this weight: the split walk for the FFN's weights
+        # at ffn_density (split_plan), one split launch per T above
+        if cuda and dens == h.ffn_density:
+            require(split_runs[i] == len(h.tokens),
+                    f"{phase}: {k}@{dens}: {split_runs[i]} of "
+                    f"{len(h.tokens)} K5 launches took the split walk")
+        csr = torch.from_numpy(np.ascontiguousarray(wp.T)).to(dev)
+        csr = csr.to_sparse_csr()
         row = {"weight": k, "density": dens, "format": sl.fmt, "b_r": d.b_r,
                "shape_wt": [n_out, n_in], "nnz": nnz,
                "stored_slots": d.val.numel(), "walked_slots": walked,
+               "split_launches": split_runs[i],
                "memory_summary": sl.memory_summary(), "by_t": {}}
         for t in h.tokens:
             x = xs[n_in, t]
@@ -1848,30 +1867,46 @@ def slice8_phases(h) -> dict:
                 d.val, d.col_idx, d.block_start, d.warp_len, xt,
                 n_blocks=d.n_blocks, max_col=d.max_col,
                 out_row=sd.row_map(), n_out=n_out)
+            plan = K5.plan_for(d.val, d.n_blocks) if cuda else K5.LANE
+            require(not cuda or plan.walk == (
+                "split" if split_runs[i] else "lane"),
+                f"{phase}: {k}@{dens} T={t}: plan {plan} did not run")
+            kt, lanes = K5.column_tile(t_pad)
+            tile = kt * lanes if plan.walk == "split" else 8
+            # k5_ms: a burst of host calls, what a caller gets; the
+            # device time beside it as a CUDA graph of the burst (the
+            # wrapper's host work outlasts a split-walk call at T = 4)
             k_ms = time_ms(k5)
+            g_ms = time_ms(k5, graph=cuda)
+            xc = x.T.contiguous()
             x16 = x.to(torch.bfloat16)
             tb = (walked * (vb + ib) + (n_in + n_out) * t * 4) / h.HBM
             tn = (nnz * (vb + ib) + (n_in + n_out) * t * 4) / h.HBM
             to = 2.0 * nnz * t / h.F32_FLOPS
             row["by_t"][str(t)] = {
                 "k5_ms": k_ms[0], "k5_ms_q25_q75": k_ms[1:],
+                "k5_graph_ms": g_ms[0], "k5_graph_ms_q25_q75": g_ms[1:],
                 "layer_ms_bf16_x": time_ms(lambda: sl(x16))[0],
                 "plain_ms": time_ms(lambda: plain(sl, xt), reps=5, warm=1,
                                     burst=1)[0],
                 "cublas_bf16_ms": time_ms(lambda: x16 @ wp16)[0],
+                "cusparse_ms": time_ms(lambda: torch.sparse.mm(csr, xc))[0],
+                "walk": plan.walk, "slices": plan.slices,
+                "column_tile": tile,
                 "bound_ms": 1e3 * max(tb, to),
                 "bound_by": "bytes" if tb >= to else "operations",
                 "bound_nnz_ms": 1e3 * max(tn, to),
                 "share_of_bound": 1e3 * max(tb, to) / k_ms[0],
-                "column_tiles": -(-t_pad // 8),
+                "share_of_bound_graph": 1e3 * max(tb, to) / g_ms[0],
+                "column_tiles": -(-t_pad // tile),
                 "max_rel_err_vs_plain": e_rel,
                 "max_rel_err_vs_f64": s_rel}
         rows.append(row)
-        del wp64, wp16
+        del wp64, wp16, csr
 
     act = activation(cfg.act)
-    p64 = {k: torch.from_numpy(prune(w_host[k], h.ffn_density)).to(
-        dev, torch.float64) for k in mlp}
+    p64 = {k: torch.from_numpy(pruned[k]).to(dev, torch.float64)
+           for k in mlp}
     x64 = x_ffn.double()
     ref = act(x64 @ p64["w1"])
     ref = (ref * (x64 @ p64["w3"]) if "w3" in p64 else ref) @ p64["w2"]
@@ -1880,7 +1915,7 @@ def slice8_phases(h) -> dict:
             f"{phase}: sparse_ffn_apply vs dense pruned FFN {f_rel}")
     del p64
     emit(phase, launches=launched, ffn_density=h.ffn_density,
-         w1_density=h.w1_density, sparsify_s=t_sp, w1_convert_s=t_w1,
+         sparsify_s=t_sp, w2_narrow_convert_s=t_w2n,
          tokens=list(h.tokens), layers=rows,
          ffn_max_rel_err_vs_f64=f_rel,
          ffn_ms_t4=time_ms(lambda: sparse_ffn_apply(sp, cfg, x_ffn))[0],
@@ -3498,6 +3533,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import krylov_step as KS
     from repro_torch.kernels import ops as TO
+    from repro_torch.kernels import pjds_spmm as K5
     from repro_torch.kernels import ref as R
     from repro_torch.kernels.cmrs_spmv import cmrs_matvec_kernel_call
     from repro_torch.kernels.ellr_spmv import ell_matvec_kernel_call
@@ -4439,6 +4475,10 @@ def main() -> int:
         if name in slots_read:
             rec["slots_read"] = slots_read[name]
             rec["slots_read_over_nnz"] = slots_read[name] / m.nnz
+        if name == "pjds_spmm":     # sAMG keeps the lane walk (split_plan)
+            rec["walk"] = K5.plan_for(d_s.val, n_blocks).walk
+            require(rec["walk"] == "lane",
+                    f"time:pjds_spmm: sAMG planned the {rec['walk']} walk")
         if name == "ellr_spmv":
             lb = ell_layout_bytes(d_e, n)
             rec["layout_sector_bytes"] = lb
@@ -4800,6 +4840,11 @@ def main() -> int:
          / 2 ** 30, seconds_since_start=time.perf_counter() - t_start)
 
     # ---- 10e. the sparse FFN on K5, and LM serving at full width -------
+    # every K5 launch so far -- sAMG, Poisson, block CG, the distributed
+    # layer, serving -- took the lane walk; the FFN's weights split
+    require(pjds_matmat_kernel_call.split_launches == 0,
+            f"K5's split walk ran {pjds_matmat_kernel_call.split_launches} "
+            f"times before the sparse FFN")
     from repro_torch import configs as TCFG
     s8 = slice8_phases(types.SimpleNamespace(
         dev=dev, lm_cfg=TCFG.get("qwen2.5-14b"), seed=SEED, require=require,
@@ -4808,11 +4853,21 @@ def main() -> int:
         trace=x_backward_trace, Y_TOL=Y_TOL, SCIPY_TOL=SCIPY_TOL,
         HBM=HBM_BYTES_PER_S, F32_FLOPS=F32_FLOPS, BF16_FLOPS=BF16_FLOPS,
         max_len=128, n_requests=8, max_new=16, solo_ids=(0, 5),
-        consistency_id=7, ffn_density=0.1, w1_density=0.5, narrow_b_r=32,
+        consistency_id=7, ffn_density=0.1, narrow_b_r=32,
         tokens=(4, 128)))
     for rec in record:
         if s8["launches"].get(rec["name"]):
             rec["launches_slice8"] = s8["launches"][rec["name"]]
+        if rec["name"] == "pjds_spmm":
+            rec["ffn"] = [
+                {"weight": r["weight"], "density": r["density"],
+                 "b_r": r["b_r"], "T": int(t),
+                 **{key: v[key] for key in (
+                     "walk", "slices", "k5_ms", "k5_graph_ms", "bound_ms",
+                     "bound_by",
+                     "cublas_bf16_ms", "cusparse_ms", "plain_ms",
+                     "max_rel_err_vs_plain")}}
+                for r in s8["ffn"] for t, v in r["by_t"].items()]
     emit("memory:slice8", max_allocated_gib=torch.cuda.max_memory_allocated()
          / 2 ** 30, seconds_since_start=time.perf_counter() - t_start)
 

@@ -74,6 +74,36 @@ The builds:
 
 cuSPARSE on a CSR of A^T (``torch.mv``) is timed beside them.
 
+With ``--k5-ffn`` it times K5's two walks on the sparse FFN's weights
+instead (no parent tree): qwen2.5-14b's w1 (5,120 x 13,824) and w2
+(13,824 x 5,120), Gaussian from seed 0 and magnitude-pruned to density
+0.1 (``SparseLinear.from_dense``), f32 and bf16 values, T = 4, 8, 32
+and 128 (X (n_in, T) from seed 1), each as the operator launches it
+(row map); then, at T = 4, w1 at densities 0.002, 0.003, 0.005 and 0.01
+(blocks of ~14-55 stored diagonals; 0.005 also in row blocks of 32),
+Gaussian weights of 1,024 inputs and 13,824-131,072 outputs at density
+0.05 (432-4,096 warps of ~52 diagonals) and Poisson 512^2 (8,192 warps
+of ~5 diagonals), where the plan's thresholds sit.  Through the wrapper (``pjds_spmm.K5Plan``): the lane
+walk, ``split_plan``'s own plan and the split walk at S = 1, 2, 4, 8
+and 16, whatever the plan says.  At the plan's S (4 where it keeps the
+lane walk), through the tree's library: column tiles of 4 (one lane a
+row) and 8 (two) where ``column_tile`` picks wider ones.  At the same S,
+builds of this tree's source with lines replaced: a slice's diagonals
+a step (``kSplitStep`` 2 or 8, the tree 4); the value and index streams
+through ``__ldg`` instead of ``__ldcs``; tiles of 32 columns (8 lanes a
+row, 128-byte runs of X) past 16 columns; the column tiles walked in
+turn inside one CTA instead of side by side on the grid; X's rows
+staged in shared memory by each CTA before its walk (a build for w1's
+5,120 rows and one for w2's 13,824, where the tile fits in 227 KB).
+Every plan and build is held to the plain version within ``Y_TOL``
+(1e-5 max|y|) and to its own bits on a second call, then all are timed
+in turns (forward, backward, forward, backward; the median of the four
+medians), each sample a CUDA graph of 10 calls (device time: the
+wrapper's host work outlasts a call), the plan's own also as a burst
+of 10 host calls (``plan_burst_ms``), beside cuBLAS's bf16 ``x @
+w_pruned`` and cuSPARSE (``torch.sparse.mm`` of the pruned Wᵀ as an
+f32 CSR by X), each a burst.
+
 Sources and libraries go to ``build/kernel_ab/``.  Prints one JSON line
 per build and operand (with ``ptxas``'s registers and spills per
 kernel), then ``nvidia-smi``'s name and power limit.
@@ -413,6 +443,249 @@ def k7_main(args) -> int:
     return 0
 
 
+Y_TOL = 1e-5
+K5S_STEP = "constexpr int kSplitStep = 4;"
+K5S_STREAMS = ("__ldcs(sv + u * st)", "__ldcs(sc + u * st)")
+K5S_TILE_32 = ("    case 404: REPRO_SPLIT(4, 4);\n",
+               "    case 404: REPRO_SPLIT(4, 4);\n"
+               "    case 408: REPRO_SPLIT(4, 8);\n")
+K5S_TILES_IN_CTA = {
+    "  const int c0 = blockIdx.y * TC, kt = min(TC, k - c0);\n":
+        "  for (int c0 = 0; c0 < k; c0 += TC) {\n"
+        "  const int kt = min(TC, k - c0);\n",
+    "    if (row >= 0) Y[(size_t)row * k + c0 + q] = y;\n  }\n}\n":
+        "    if (row >= 0) Y[(size_t)row * k + c0 + q] = y;\n  }\n"
+        "  __syncthreads();                            // sum is reused\n"
+        "  }\n}\n",
+    "(k + TC - 1) / TC);": "1);"}
+
+
+def _k5s_stage_x(rows: int) -> dict:
+    """X[0 : rows, c0 : c0 + TC] (0 past column k) copied into shared
+    memory by each CTA before its walk, and gathered from there."""
+    return {
+        "constexpr int kMaxSlices = 16;\n":
+            f"constexpr int kMaxSlices = 16;\nconstexpr int kStageRows = "
+            f"{rows};\n",
+        "  const int ktl = k - cl;                     // its columns in X "
+        "(may be <= 0)\n":
+            "  const int ktl = k - cl;\n"
+            "  extern __shared__ float xs[];\n"
+            "  for (int i = threadIdx.x; i < kStageRows * TC; "
+            "i += blockDim.x) {\n"
+            "    const int q = i % TC;\n"
+            "    xs[i] = q < kt ? __ldg(X + (size_t)(i / TC) * k + c0 + q)"
+            " : 0.f;\n"
+            "  }\n"
+            "  __syncthreads();\n",
+        "        load_row<KT>(X + (size_t)cr * k + cl, ktl, vec4, "
+        "xv[u][i]);\n":
+            "        for (int q = 0; q < KT; ++q)\n"
+            "          xv[u][i][q] = xs[(size_t)cr * TC + KT * qg + q];\n",
+        "  spmm_split_kernel<V, I, KT, LPR><<<grid, slices * 32, 0, s>>>(":
+            "  const size_t smem = sizeof(float) * kStageRows * TC;\n"
+            "  if (smem > 48 * 1024)\n"
+            "    cudaFuncSetAttribute(spmm_split_kernel<V, I, KT, LPR>,\n"
+            "        cudaFuncAttributeMaxDynamicSharedMemorySize, "
+            "(int)smem);\n"
+            "  spmm_split_kernel<V, I, KT, LPR><<<grid, slices * 32, smem, "
+            "s>>>("}
+
+
+def _k5s_builds() -> dict:
+    """label -> ({old text: new text} of pjds_spmm.cu, when): the split
+    walk's build alternatives; ``when(k, n_in, tile)`` gives the column
+    tile (kt, lanes a row) to launch at, or None where the build does
+    not differ from the tree or does not fit."""
+    tree = lambda k, n_in, tile: tile
+    smem = 227 * 1024
+
+    def staged(rows):
+        return lambda k, n_in, tile: tile if n_in == rows and 4 * (
+            rows * tile[0] * tile[1] + 32 * (tile[0] * tile[1] + 1)) \
+            <= smem else None
+    return {
+        "k5s_step_2": ({K5S_STEP: K5S_STEP.replace("4", "2")}, tree),
+        "k5s_step_8": ({K5S_STEP: K5S_STEP.replace("4", "8")}, tree),
+        "k5s_streams_ldg": ({s: s.replace("__ldcs", "__ldg")
+                             for s in K5S_STREAMS}, tree),
+        "k5s_tile_32": (dict([K5S_TILE_32]),
+                        lambda k, n_in, tile: (4, 8) if k > 16 else None),
+        "k5s_tiles_in_cta": (K5S_TILES_IN_CTA,
+                             lambda k, n_in, tile: tile
+                             if k > tile[0] * tile[1] else None),
+        "k5s_stage_x_5120": (_k5s_stage_x(5120), staged(5120)),
+        "k5s_stage_x_13824": (_k5s_stage_x(13824), staged(13824))}
+
+
+def k5_ffn_main(args) -> int:
+    """K5's lane and split walks on the sparse FFN's weights."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.core import matrices as TM
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import pjds_spmm as K5
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels._backend import kind_codes, stream_of
+    from repro_torch.sparse.sparse_ffn import SparseLinear, prune
+
+    procs, when = {}, {}
+    for label, (subs, when[label]) in _k5s_builds().items():
+        d = ROOT / "build" / "kernel_ab" / label
+        d.mkdir(parents=True, exist_ok=True)
+        text = (CSRC / "pjds_spmm.cu").read_text()
+        for old, new in subs.items():
+            if text.count(old) != 1:
+                raise RuntimeError(f"{label}: text to replace not found once:"
+                                   f"\n{old}")
+            text = text.replace(old, new)
+        (d / "pjds_spmm.cu").write_text(text)
+        (d / "common.cuh").write_text((CSRC / "common.cuh").read_text())
+        procs[label] = (d, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
+             str(d / "pjds_spmm.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    _build.build_all()
+    p_, i_ = ctypes.c_void_p, ctypes.c_int
+    fns, regs = {"tree": K5._fn(True)}, {}
+    for label, (d, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{label} failed to build:\n{log}")
+        regs[label] = _build.ptxas_usage(log)
+        fn = ctypes.CDLL(str(d / "lib.so")).pjds_spmm_split
+        fn.argtypes = [p_, i_, p_, i_] + [p_] * 5 + [i_] * 7 + [p_]
+        fn.restype = ctypes.c_int
+        fns[label] = fn
+    print(json.dumps({"phase": "ab:k5_tree_ptxas", "ptxas": _build.ptxas_usage(
+        _build.build_log("pjds_spmm"))}), flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def run_operand(name, d, rows, n_out, csr, w16, ks, builds=True):
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        n_in = csr.shape[1]
+        own = K5.split_plan(d.n_blocks, d.b_r, d.val.shape[0], sms)
+        base = own if own.walk == "split" else K5.K5Plan("split", slices=4)
+        for k in ks:
+            x = torch.randn((max(d.max_col + 1, n_in), k), generator=gen,
+                            device="cuda")
+            want = torch.cat([R.pjds_matmat_ref(
+                d.val, d.col_idx, d.row_block, x[:, j:j + 16].contiguous(),
+                d.n_blocks) for j in range(0, k, 16)], dim=1)
+            want = torch.empty_like(want[:n_out]).index_copy_(
+                0, rows.long()[rows >= 0], want[rows >= 0])
+            scale = float(want.abs().max())
+            alts = {"lane": K5.LANE, "plan": own}
+            for s_ in (1, 2, 4, 8, 16):
+                alts[f"split_s{s_}"] = K5.K5Plan("split", slices=s_)
+            calls = {lbl: (lambda pl=pl: K5.pjds_matmat_kernel_call(
+                d.val, d.col_idx, d.block_start, d.warp_len, x,
+                n_blocks=d.n_blocks, max_col=d.max_col, out_row=rows,
+                n_out=n_out, plan=pl)) for lbl, pl in alts.items()}
+            tile = K5.column_tile(k)
+            launch = {}
+            if builds:
+                for lanes in (1, 2):
+                    if lanes < tile[1]:
+                        launch[f"tile_{4 * lanes}"] = ("tree", (4, lanes))
+                for label in procs:
+                    at = when[label](k, n_in, tile)
+                    if at is not None:
+                        launch[label] = (label, at)
+            for label, (lib, (kt, lanes)) in launch.items():
+                def call(fn=fns[lib], label=label, kt=kt, lanes=lanes):
+                    y = torch.empty((n_out, k), device="cuda")
+                    vk, ik = kind_codes(d.val, d.col_idx)
+                    rc = fn(d.val.data_ptr(), vk, d.col_idx.data_ptr(), ik,
+                            d.block_start.data_ptr(), d.warp_len.data_ptr(),
+                            x.data_ptr(), rows.data_ptr(), y.data_ptr(),
+                            d.n_blocks, d.b_r, k, int(k % 4 == 0), kt,
+                            lanes, base.slices, stream_of(x))
+                    if rc:
+                        raise RuntimeError(f"{label}: CUDA error {rc}")
+                    return y
+                calls[label] = call
+            errs = {}
+            for lbl, fn in calls.items():
+                y = fn()
+                errs[lbl] = float((y - want).abs().max()) / scale
+                if not errs[lbl] <= Y_TOL:
+                    raise AssertionError(f"{name} k={k} {lbl}: {errs[lbl]} "
+                                         f"of max|y| from the plain version")
+                if not torch.equal(y, fn()):
+                    raise AssertionError(f"{name} k={k} {lbl}: not "
+                                         f"bit-repeatable")
+            order = list(calls)
+            t = {lbl: [] for lbl in order}
+            for lbl in 2 * (order + order[::-1]):
+                t[lbl].append(time_ms(calls[lbl], graph=True))
+            ms = {lbl: float(np.median([v[0] for v in t[lbl]]))
+                  for lbl in order}
+            burst = time_ms(calls["plan"])[0]
+            xt = x[:n_in]
+            lib = {"cusparse_ms": time_ms(lambda: torch.sparse.mm(csr, xt))[0]}
+            if w16 is not None:
+                x16 = xt.T.to(torch.bfloat16).contiguous()
+                lib["cublas_bf16_ms"] = time_ms(lambda: x16 @ w16)[0]
+            print(json.dumps({
+                "phase": "ab:k5_ffn", "operand": name, "k": k,
+                "value_dtype": str(d.val.dtype).split(".")[1],
+                "index_dtype": str(d.col_idx.dtype).split(".")[1],
+                "rows": n_out, "warps": d.n_blocks * d.b_r // 32,
+                "stored_diagonals": d.val.shape[0], "b_r": d.b_r,
+                "diagonals_a_block": d.val.shape[0] / d.n_blocks,
+                "plan": {"walk": own.walk, "slices": own.slices},
+                "base_slices": base.slices, "column_tile": list(tile),
+                "build_tiles": {lbl: list(at) for lbl, (_, at)
+                                in launch.items()},
+                "ms": ms, "vs_lane": {lbl: ms[lbl] / ms["lane"]
+                                      for lbl in order},
+                "plan_burst_ms": burst,
+                "samples": t, "max_rel_err_vs_plain": errs, **lib,
+                "ptxas": regs}), flush=True)
+
+    rng = np.random.default_rng(0)
+    w = {"w1": rng.standard_normal((5120, 13824), dtype=np.float32),
+         "w2": rng.standard_normal((13824, 5120), dtype=np.float32)}
+    layers = [(n, 0.1, dt, 128) for n in ("w1", "w2")
+              for dt in (None, torch.bfloat16)]
+    layers += [("w1", dens, None, 128) for dens in (0.002, 0.003, 0.005,
+                                                    0.01)]
+    layers += [("w1", 0.005, None, 32)]
+    # the warps term: 1,024 inputs at density 0.05 (~52 stored diagonals
+    # a block) and 13,824-131,072 outputs, 432-4,096 warps
+    for n_out in (13824, 32768, 65536, 131072):
+        w[f"rand1024x{n_out}"] = rng.standard_normal((1024, n_out),
+                                                     dtype=np.float32)
+        layers.append((f"rand1024x{n_out}", 0.05, None, 128))
+    for n, dens, dt, b_r in layers:
+        sl = SparseLinear.from_dense(w[n], dens, dtype=dt, b_r=b_r,
+                                     device="cuda")
+        wp = prune(w[n], dens)
+        csr = torch.from_numpy(np.ascontiguousarray(wp.T)).cuda()
+        csr = csr.to_sparse_csr()
+        w16 = torch.from_numpy(wp).cuda().to(torch.bfloat16)
+        main_ = dens == 0.1
+        run_operand(f"{n}@{dens}" + ("" if b_r == 128 else f"/b_r{b_r}"),
+                    sl.a, sl.op.dev.row_map(), sl.op.shape[0], csr, w16,
+                    (4, 8, 32, 128) if main_ else (4,), builds=main_)
+        del sl, csr, w16
+        if n.startswith("rand"):
+            del w[n]
+    mp = TM.poisson_2d(512, 512)
+    op = repro_torch.operator(mp, format="sell")
+    rows = op.dev.row_map()
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(mp.indptr.astype(np.int64)),
+        torch.from_numpy(mp.indices.astype(np.int64)),
+        torch.from_numpy(mp.data.astype(np.float32)), size=mp.shape).cuda()
+    run_operand("poisson512", op.dev.dev, rows, mp.n_rows, csr, None, (4,),
+                builds=False)
+    return 0
+
+
 def time_ms(fn, reps=30, warm=5, burst=10, graph=False):
     """Median and quartiles of ms per call; each sample times ``burst``
     calls back to back (host overhead hidden), or with ``graph`` one
@@ -444,20 +717,25 @@ def time_ms(fn, reps=30, warm=5, burst=10, graph=False):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("parent", type=pathlib.Path,
+    ap.add_argument("parent", type=pathlib.Path, nargs="?",
                     help="root of the earlier tree (holds src/repro_torch)")
     ap.add_argument("--scale", type=float, default=1.0,
                     help="sAMG scale (1.0: the paper's 3.4 M rows)")
     ap.add_argument("--k7", action="store_true",
                     help="time K7 (the transpose) instead of K3 / K5")
+    ap.add_argument("--k5-ffn", action="store_true",
+                    help="time K5's walks on the sparse FFN's weights "
+                         "(no parent tree needed)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    if args.k7:
-        rc = k7_main(args)
+    if args.parent is None and not args.k5_ffn:
+        ap.error("the parent tree is needed but with --k5-ffn")
+    if args.k7 or args.k5_ffn:
+        rc = k7_main(args) if args.k7 else k5_ffn_main(args)
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True, check=True).stdout.strip(),

@@ -150,11 +150,12 @@ def load(name: str):
     return lib
 
 
-def count_launch(wrapper) -> None:
+def count_launch(wrapper, attr: str = "launches") -> None:
     """Add one to ``wrapper.launches`` (a kernel wrapper's count of the
-    launches it made), atomically across threads."""
+    launches it made; or to another count ``attr`` of it), atomically
+    across threads."""
     with _COUNT_LOCK:
-        wrapper.launches += 1
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def check(name: str, code: int, what: str) -> None:

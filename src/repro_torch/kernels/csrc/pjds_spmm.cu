@@ -15,6 +15,26 @@
 // ceil(k / 8) column tiles on the grid's y axis; each re-reads the
 // matrix stream, which stays in L2 only for small matrices.
 //
+// Two walks.  The LANE walk (spmm_kernel) is the design above and below:
+// one thread a row lane walks the lane's diagonals serially.  It fits
+// operands of many short rows (sAMG: 3.4 M rows of ~20 diagonals).  An
+// FFN weight is the opposite: qwen2.5-14b's w1^T has 13,824 rows of 519
+// stored diagonals, w2^T 5,120 rows of 1,398, so one thread a row fills
+// 2-5 % of an H100's 270,336 resident threads and each walks hundreds of
+// dependent gathers.  The SPLIT walk (spmm_split_kernel, below) gives
+// the 32 row lanes of one warp_len entry a CTA of S warps, each walking
+// one contiguous slice of their [0, warp_len) diagonals with the loads
+// coalesced as here (a diagonal of 32 lanes is 32 consecutive slots),
+// and adds the S partials of each (row, column) in slice order through
+// shared memory, then the skipped padding's 0 * X[0, c]: no atomics, so
+// two calls give the same bits, and a NaN or Inf in X[0, c] poisons the
+// same rows of column c as the lane walk and the plain version.  Its
+// column tiles are up to 16 wide: past 4 columns 2 or 4 lanes share a
+// row, 4 columns each, so that a warp-wide gather reads runs of 32 or
+// 64 bytes of X's rows.  Which walk, S and the tile are the host's
+// plan (pjds_spmm.py, split_plan), from the operand's shape and the SM
+// count.
+//
 // What bounds it on an H100: bytes.  Under the operator K5 runs on
 // SELL's (or pJDS's) layout, whose blocks store every lane to the
 // block's longest row rounded up to diag_align: 2.70 x nnz slots on the
@@ -175,6 +195,153 @@ cudaError_t launch(const V* val, const I* col, const int* block_start,
   return cudaGetLastError();
 }
 
+// ---- the split walk ----------------------------------------------------
+
+// Diagonals a slice issues per step (their value and index loads, then
+// the X gathers, before the FMAs) when a lane sums one row; a lane that
+// sums LPR rows issues max(1, kSplitStep / LPR) diagonals' gathers, LPR
+// each.  At most kMaxSlices warps a CTA (512 threads, so up to 128
+// registers a thread).  Slice s of S takes the contiguous run of
+// diagonals [s c, s c + c), c = ceil(n / S).
+constexpr int kSplitStep = 4;
+constexpr int kMaxSlices = 16;
+
+// The CTA of warp_len entry g = blockIdx.x and column tile blockIdx.y:
+// row lanes r0 .. r0 + 31 of block b = g / (b_r / 32), whose walked
+// diagonals its S = blockDim.x / 32 warps split into slices.  A column
+// tile holds TC = KT * LPR columns: lane l owns the KT columns from KT
+// (l % LPR) and the LPR rows l / LPR + (32 / LPR) i, i < LPR, so one
+// warp-wide gather reads 32 / LPR rows of X, TC contiguous floats each
+// (with LPR = 1 a lane sums its own row, KT columns).  Each diagonal's
+// values and indices are read coalesced, one per row lane, and passed
+// to the lanes that use them by warp shuffles.  Every (row, column) is
+// summed in diagonal order within its slice; then the warps add their
+// partials into one shared buffer, [32][TC + 1] (padded against bank
+// conflicts), in turn s = 0 .. S-1, and the skipped padding's
+// 0 * X[0, c] goes on last: one small buffer leaves the SM's L1 to the
+// gathers of X.
+template <typename V, typename I, int KT, int LPR>
+__global__ void __launch_bounds__(kMaxSlices * 32) spmm_split_kernel(
+    const V* __restrict__ val, const I* __restrict__ col,
+    const int* __restrict__ block_start, const int* __restrict__ warp_len,
+    const float* __restrict__ X, const int* __restrict__ out_row,
+    float* __restrict__ Y, int b_r, int k, int vec4) {
+  constexpr int TC = KT * LPR, RPI = 32 / LPR, P = TC + 1;
+  constexpr int U = kSplitStep / LPR > 0 ? kSplitStep / LPR : 1;
+  __shared__ float sum[32 * P];
+  const int S = blockDim.x >> 5, s = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, p = lane / LPR, qg = lane % LPR;
+  const int g = blockIdx.x, wpb = b_r >> 5;
+  const int b = g / wpb;
+  const int r0 = (g - b * wpb) * 32;          // the warp's first row lane
+  const size_t lane0 = (size_t)b * b_r + r0;  // ... as a stored row
+  const int jb = block_start[b];
+  const int stored = block_start[b + 1] - jb;
+  const int n = min(max(warp_len[g], 0), stored);
+  const int chunk = (n + S - 1) / S;
+  const int j0 = min(n, s * chunk), j1 = min(n, j0 + chunk);
+  const size_t st = (size_t)b_r;
+  const int c0 = blockIdx.y * TC, kt = min(TC, k - c0);
+  const int cl = c0 + KT * qg;                // the lane's first column
+  const int ktl = k - cl;                     // its columns in X (may be <= 0)
+  float acc[LPR][KT];
+#pragma unroll
+  for (int i = 0; i < LPR; ++i)
+#pragma unroll
+    for (int q = 0; q < KT; ++q) acc[i][q] = 0.f;
+  const V* sv = val + ((size_t)jb + j0) * st + r0 + lane;
+  const I* sc = col + ((size_t)jb + j0) * st + r0 + lane;
+  for (int j = j0; j < j1; j += U, sv += U * st, sc += U * st) {
+    const int nu = min(U, j1 - j);            // warp-uniform
+    float v[U];
+    int c[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      v[u] = u < nu ? repro::to_f32(__ldcs(sv + u * st)) : 0.f;
+      c[u] = u < nu ? (int)__ldcs(sc + u * st) : 0;
+    }
+    float xv[U][LPR][KT], vr[U][LPR];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int i = 0; i < LPR; ++i) {
+        const int src = i * RPI + p;          // the row lane summed here
+        const int cr = LPR == 1 ? c[u] : __shfl_sync(~0u, c[u], src);
+        vr[u][i] = LPR == 1 ? v[u] : __shfl_sync(~0u, v[u], src);
+        load_row<KT>(X + (size_t)cr * k + cl, ktl, vec4, xv[u][i]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (u < nu) {
+#pragma unroll
+        for (int i = 0; i < LPR; ++i)
+#pragma unroll
+          for (int q = 0; q < KT; ++q) acc[i][q] += vr[u][i] * xv[u][i][q];
+      }
+    }
+  }
+  // the partials, in slice order: warp 0 stores, warp u adds in turn
+  for (int u = 0; u < S; ++u) {
+    if (s == u) {
+#pragma unroll
+      for (int i = 0; i < LPR; ++i)
+#pragma unroll
+        for (int q = 0; q < KT; ++q) {
+          float* a = sum + (i * RPI + p) * P + KT * qg + q;
+          *a = u == 0 ? acc[i][q] : *a + acc[i][q];
+        }
+    }
+    __syncthreads();
+  }
+  // thread i stores (row lane i / TC, column i % TC)
+  for (int i = threadIdx.x; i < 32 * TC; i += blockDim.x) {
+    const int l = i / TC, q = i - l * TC;
+    if (q >= kt) continue;
+    float y = sum[l * P + q];
+    if (n < stored) y += 0.f * __ldg(X + c0 + q);  // skipped padding
+    const int row = out_row ? out_row[lane0 + l] : (int)(lane0 + l);
+    if (row >= 0) Y[(size_t)row * k + c0 + q] = y;
+  }
+}
+
+template <typename V, typename I, int KT, int LPR>
+cudaError_t launch_split_tile(const V* val, const I* col,
+                              const int* block_start, const int* warp_len,
+                              const float* X, const int* out_row, float* Y,
+                              int n_blocks, int b_r, int k, int vec4,
+                              int slices, cudaStream_t s) {
+  constexpr int TC = KT * LPR;
+  const dim3 grid(n_blocks * (b_r / 32), (k + TC - 1) / TC);
+  spmm_split_kernel<V, I, KT, LPR><<<grid, slices * 32, 0, s>>>(
+      val, col, block_start, warp_len, X, out_row, Y, b_r, k, vec4);
+  return cudaGetLastError();
+}
+
+// (kt, lanes_per_row): the column tile the host picks (pjds_spmm.py,
+// column_tile); kernel_ab.py --k5-ffn also builds (4, 8).
+template <typename V, typename I>
+cudaError_t launch_split(const V* val, const I* col, const int* block_start,
+                         const int* warp_len, const float* X,
+                         const int* out_row, float* Y, int n_blocks, int b_r,
+                         int k, int vec4, int kt, int lanes_per_row,
+                         int slices, cudaStream_t s) {
+  if (slices < 1 || slices > kMaxSlices) return cudaErrorInvalidValue;
+#define REPRO_SPLIT(KT, LPR)                                              \
+  return launch_split_tile<V, I, KT, LPR>(val, col, block_start,         \
+                                          warp_len, X, out_row, Y,       \
+                                          n_blocks, b_r, k, vec4, slices, s)
+  switch (kt * 100 + lanes_per_row) {
+    case 101: REPRO_SPLIT(1, 1);
+    case 201: REPRO_SPLIT(2, 1);
+    case 401: REPRO_SPLIT(4, 1);
+    case 402: REPRO_SPLIT(4, 2);
+    case 404: REPRO_SPLIT(4, 4);
+    default: return cudaErrorInvalidValue;
+  }
+#undef REPRO_SPLIT
+}
+
 }  // namespace
 
 REPRO_ERROR_STRING_FN(pjds_spmm_error_string)
@@ -195,5 +362,26 @@ extern "C" int pjds_spmm(const void* val, int val_kind, const void* col,
                  return (int)launch<V, I>((const V*)val, (const I*)col,
                                           block_start, warp_len, X, out_row,
                                           Y, n_blocks, b_r, k, vec4, s));
+  return 0;
+}
+
+// The split walk (spmm_split_kernel): operands and vec4 as pjds_spmm;
+// kt columns a lane and lanes_per_row lanes a row ((kt, lanes_per_row)
+// in (1, 1), (2, 1), (4, 1), (4, 2), (4, 4): column tiles of
+// kt * lanes_per_row), slices = S warps per 32 row lanes (1 .. 16).
+extern "C" int pjds_spmm_split(const void* val, int val_kind,
+                               const void* col, int idx_kind,
+                               const int* block_start, const int* warp_len,
+                               const float* X, const int* out_row, float* Y,
+                               int n_blocks, int b_r, int k, int vec4,
+                               int kt, int lanes_per_row, int slices,
+                               void* stream) {
+  if (n_blocks <= 0 || k <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  REPRO_DISPATCH(val_kind, idx_kind,
+                 return (int)launch_split<V, I>(
+                     (const V*)val, (const I*)col, block_start, warp_len, X,
+                     out_row, Y, n_blocks, b_r, k, vec4, kt, lanes_per_row,
+                     slices, s));
   return 0;
 }

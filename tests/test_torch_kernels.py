@@ -1201,3 +1201,107 @@ def test_k3_k5_wrappers_validate_lengths_on_card():
             run(torch.stack([derived, derived], 1)[:, 0])   # strides
         with pytest.raises(TypeError):
             run(derived.float())                            # dtype
+
+
+# ----------------------------------------- K5's split walk (FFN weights)
+def _ffn_operand(tdt, idt, b_r=128):
+    """A pruned FFN weight (2048 inputs, 1536 outputs, density 0.1,
+    Gaussian from seed 29) as ``SparseLinear`` stores it on the card:
+    48 warps of ~210 diagonals, which ``split_plan`` splits."""
+    from repro_torch.sparse.sparse_ffn import SparseLinear
+    w = np.random.default_rng(29).standard_normal((2048, 1536)).astype(
+        np.float32)
+    sl = SparseLinear.from_dense(w, 0.1, b_r=b_r, dtype=tdt,
+                                 index_dtype=idt, device="cuda")
+    assert str(sl.a.col_idx.dtype) == f"torch.{idt}"
+    return sl
+
+
+def _k5_call(sl, xk, row_map, plan=None):
+    d, sd = sl.a, sl.op.dev
+    return pjds_matmat_kernel_call(
+        d.val, d.col_idx, d.block_start, d.warp_len, xk,
+        n_blocks=d.n_blocks, max_col=d.max_col,
+        out_row=sd.row_map() if row_map else None,
+        n_out=sl.op.shape[0] if row_map else 0, plan=plan)
+
+
+def _k5_plain(sl, xk, row_map):
+    d, sd = sl.a, sl.op.dev
+    y = TR.pjds_matmat_ref(d.val, d.col_idx, d.row_block, xk, d.n_blocks)
+    return y.index_select(0, sd.stored_rows()) if row_map else y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_map", [False, True])
+@pytest.mark.parametrize("tdt,idt", [(None, "int32"), (None, "int16"),
+                                     (torch.bfloat16, "int32"),
+                                     (torch.bfloat16, "int16")])
+def test_k5_split_walk_matches_plain_version_on_card(tdt, idt, row_map):
+    from repro_torch.kernels import pjds_spmm as K5
+    _need_cuda()
+    sl = _ffn_operand(tdt, idt)
+    d = sl.a
+    rng = np.random.default_rng(31)
+    for k in (1, 3, 4, 8, 12, 128):
+        plan = K5.plan_for(d.val, d.n_blocks)
+        assert plan.walk == "split" and plan.slices >= 2
+        xk = torch.from_numpy(rng.standard_normal(
+            (d.max_col + 1, k)).astype(np.float32)).cuda()
+        before = (pjds_matmat_kernel_call.launches,
+                  pjds_matmat_kernel_call.split_launches)
+        y = _k5_call(sl, xk, row_map)
+        assert (pjds_matmat_kernel_call.launches,
+                pjds_matmat_kernel_call.split_launches) == (
+                    before[0] + 1, before[1] + 1)
+        _close(y.cpu(), _k5_plain(sl, xk, row_map).cpu())
+        assert torch.equal(y, _k5_call(sl, xk, row_map))   # deterministic
+    if row_map:        # the operator's own product takes the same walk
+        xk = torch.from_numpy(rng.standard_normal(
+            (sl.op.shape[1], 4)).astype(np.float32)).cuda()
+        assert torch.equal(sl.op.matmat(xk), _k5_call(sl, xk, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+def test_k5_split_walk_poisons_like_the_plain_version_on_card(bad):
+    _need_cuda()
+    sl = _ffn_operand(None, "int32")
+    d = sl.a
+    k, c = 8, 5
+    xk = torch.from_numpy(np.random.default_rng(37).standard_normal(
+        (d.max_col + 1, k)).astype(np.float32)).cuda()
+    xk[0, c] = bad
+    for row_map in (False, True):
+        y, want = _k5_call(sl, xk, row_map), _k5_plain(sl, xk, row_map)
+        for test in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(test(y), test(want))
+        fin = torch.isfinite(y)
+        assert not bool(fin[:, c].all())
+        assert bool(torch.cat([fin[:, :c], fin[:, c + 1:]], 1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b_r", [32, 128])
+def test_k5_lane_and_split_plans_agree_on_one_operand_on_card(b_r):
+    # either walk on the same operand: both within Y_TOL of the plain
+    # version, the split walk at the plan's S and at others
+    from repro_torch.kernels import pjds_spmm as K5
+    _need_cuda()
+    sl = _ffn_operand(None, "int16", b_r=b_r)
+    d = sl.a
+    rng = np.random.default_rng(41)
+    for k in (4, 12):
+        xk = torch.from_numpy(rng.standard_normal(
+            (d.max_col + 1, k)).astype(np.float32)).cuda()
+        want = _k5_plain(sl, xk, True).cpu()
+        own = K5.plan_for(d.val, d.n_blocks)
+        plans = [K5.LANE, own] + [K5.K5Plan("split", slices=s)
+                                  for s in (1, 3, 16)]
+        lane = split = 0
+        for plan in plans:
+            before = pjds_matmat_kernel_call.split_launches
+            _close(_k5_call(sl, xk, True, plan).cpu(), want)
+            split += pjds_matmat_kernel_call.split_launches - before
+            lane += plan.walk == "lane"
+        assert (lane, split) == (1, len(plans) - 1)
