@@ -56,7 +56,7 @@ shared; the x-gradient's backward split into K7, the copy of y, the
 ``w * g`` pass and an unattributed remainder, beside a
 ``torch.profiler`` trace of it) and the x-gradient of four
 ``ThreadComm`` ranks, ``reorder:poisson_shuffled`` RCM on a shuffled
-1024 x 1024 Poisson operator (one device, and four ranks with
+512 x 512 Poisson operator (one device, and four ranks with
 ``reorder="auto"``), and ``eigen:hmep`` Lanczos, power iteration and
 block Lanczos on the symmetrised HMEp analogue at a quarter of its
 published 6.2 M rows (1.55 M, so the script ends well inside its
@@ -68,7 +68,8 @@ that model's layer-0 weights (``lm:sparse_ffn:qwen2.5-14b``, K5 on its
 split walk held to its plain version, float64 and the dense pruned FFN,
 beside its bound, cuBLAS and cuSPARSE; every K5 launch before it took
 the lane walk); the ninth (``slice9_phases``) runs last: the other LM
-families at their published widths and depths, each freed before the
+families at their published widths, cut in depth (``GROUP_DEPTH``: 3,
+4, 5, 2 + 2 and 4 layers), each freed before the
 next -- ``lm:serve:deepseek-moe-16b`` (the engine on a mixture of
 experts: a repeated run gives the same tokens, and on a recorded decode
 batch the sorted dispatch equals the one-hot one and a float64 loop),
@@ -81,16 +82,18 @@ prefill plus a step against a longer prefill); the tenth
 (``slice10_phases``) runs last: LM training through the launcher
 ``repro_torch.launch.train.main`` -- ``train:minicpm-2b`` (the main
 path: published width and depth, bf16, batch 8 x 256, WSD, 8 steps,
-a committed checkpoint at the last), then ``train:granite-moe-3b-a800m``,
-``train:recurrentgemma-2b`` and ``train:seamless-m4t-medium`` (8 steps
-each), each with losses falling, ms a step, MFU / HFU, the step's bound,
+a committed checkpoint at the last), then ``train:granite-moe-3b-a800m``
+(4 layers), ``train:recurrentgemma-2b`` (one period and its suffix, 5
+layers) and ``train:seamless-m4t-medium`` (2 + 2 layers; 8 steps
+each, the depth through the launcher's ``--n-layers`` /
+``--enc-layers``), each with losses falling, ms a step, MFU / HFU, the step's bound,
 the forward+backward / optimizer split and a profiler trace --
 ``train:resume`` (a 2-layer cut of minicpm-2b resumed from its step-2
 checkpoint in fresh objects, bit for bit) and ``train:parity`` (one
 train step of three f32 smoke configs, card against CPU); the eleventh
 (``slice11_phases``) runs last: the model across cards on one card --
-``mesh:one:minicpm-2b`` (the published config's train step on a
-one-rank NCCL (1, 1) mesh, DTensor params and ZeRO-1 placements,
+``mesh:one:minicpm-2b`` (the config's train step, published width cut
+to 8 layers, on a one-rank NCCL (1, 1) mesh, DTensor params and ZeRO-1 placements,
 against the unsharded step: losses within 1e-6 and whether bit for
 bit, ms a step of each), ``mesh:one:decode:minicpm-2b`` (its sharded
 prefill and 16 decode steps on the same one-rank mesh against the
@@ -109,7 +112,13 @@ real train step of minicpm-2b cut to 4 layers: its peak against
 ``torch.cuda.max_memory_allocated()``, the ratio within 0.5-1.5; the
 dry run's depth plan, the same step at 1, 2 and 3 layers, carried to
 4 layers: flops and bytes equal, the peak within 1 % of the
-recorder's).
+recorder's); last, ``attn_impl_phases``: ``attn:qloop:minicpm-2b``
+(the reference's attention switch at published width and depth: a
+prefill and two train steps under ``use_attn_impl("pairs")`` and
+``"qloop"``, 1024 tokens in chunks of 256; logits, cache and losses
+equal bit for bit, ms and peak of each).
+``GROUP_SIZES`` and ``GROUP_DEPTH`` hold what ``main`` passes each
+group; every cut is in depth, never in width or checks.
 Each main-path phase sets every launch count to 0 before it and reads
 the counts after it.  Each phase prints one JSON line; any failed check
 raises, and the script then exits non-zero without its final line.
@@ -119,8 +128,12 @@ raises, and the script then exits non-zero without its final line.
 Needs one CUDA card of compute capability >= 9.0, ``nvcc`` and scipy.
 It exits non-zero at once when CUDA is absent, and when run from a
 directory that does not hold the repository's ``src/repro_torch``.
-The last line is ``{"ok": true, "device": {...}}``; the line before it
-is ``nvidia-smi``'s name and power limit, and the one before that the
+Every phase line carries ``at_s``, the seconds since the script
+started.  The last line is ``{"ok": true, "device": {...}}``; the line
+before it is the budget, ``{"budget": {"groups_s": {...}, "total_s",
+"limit_s": 1200, "free_s"}}`` (each group's seconds: a new card phase
+must fit in ``free_s``, or cut an earlier phase's depth first), before
+that ``nvidia-smi``'s name and power limit, and before that the
 per-kernel record (launches, errors, times and bounds).
 """
 from __future__ import annotations
@@ -164,8 +177,14 @@ MOE_F64_TOL = 3e-2
 PREFILL_F32_TOL = 1e-3
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """Print one phase's JSON line; ``at_s`` is the seconds since the
+    script started, so a phase's cost is the step from the line before."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - T_START}), flush=True)
 
 
 def require(ok: bool, what: str) -> None:
@@ -1929,8 +1948,9 @@ SLICE9_MODELS = {"moe": "deepseek-moe-16b", "ssm": "falcon-mamba-7b",
 
 
 def slice9_phases(h) -> dict:
-    """The rest of LM serving, each model at its published width and
-    depth (``h.cfgs``), built on the card in bf16 with random weights
+    """The rest of LM serving, each model at its published width and the
+    depth ``h.cfgs`` gives it (``main`` cuts it: ``GROUP_DEPTH``), built
+    on the card in bf16 with random weights
     from ``torch.Generator(device).manual_seed(h.seed)`` and freed before
     the next.
 
@@ -2402,8 +2422,9 @@ def slice10_phases(h) -> dict:
     loss), ``train:<hybrid>`` (recurrentgemma-2b: RG-LRU and local
     attention, its suffix layers outside the rematerialised periods) and
     ``train:<audio>`` (seamless-m4t-medium: the encoder over the
-    pipeline's ``enc_frames``): the same launcher, ``h.steps_other``
-    steps, no checkpoint.  Every launcher phase: losses and grad norms
+    pipeline's ``enc_frames``): the same launcher at the depth of
+    ``h.cfgs`` (its ``--n-layers`` / ``--enc-layers`` where that is cut),
+    ``h.steps_other`` steps, no checkpoint.  Every launcher phase: losses and grad norms
     finite, the mean of the last two losses below the first, every
     master and most bf16 params moved, K1-K7 launched 0 times; reports
     ms a step (host clock around a step ending in the loss read,
@@ -2622,6 +2643,14 @@ def slice10_phases(h) -> dict:
                 "--lr", "3e-4", "--schedule", "wsd", "--device", str(dev)]
         argv += ["--smoke"] if h.smoke else []
         argv += ["--ckpt", ckpt_dir] if ckpt_dir else []
+        # a config cut in depth (GROUP_DEPTH) goes in as the launcher's
+        # depth options
+        base = (TCFG.smoke if h.smoke else TCFG.get)(
+            cfg.name.removesuffix("-smoke"))
+        if cfg.n_layers != base.n_layers:
+            argv += ["--n-layers", str(cfg.n_layers)]
+        if cfg.enc_layers != base.enc_layers:
+            argv += ["--enc-layers", str(cfg.enc_layers)]
         h.reset_counts()
         LT.train, LT.make_train_step, TL.store.save = training, making, \
             saving
@@ -2890,8 +2919,9 @@ def slice11_phases(h) -> dict:
 
     ``mesh:one:<main>`` (minicpm-2b, ``h.cfgs["main"]``): an NCCL group
     of one rank (gloo on the CPU) on a ``FileStore`` in ``h.tmp``, a
-    (1, 1) (data, model) mesh, the published config at full width and
-    depth in bf16: ``h.steps`` train steps of the unsharded model
+    (1, 1) (data, model) mesh, the config at its published width and the
+    depth ``h.cfgs`` gives it (``main`` cuts it: ``GROUP_DEPTH``) in
+    bf16: ``h.steps`` train steps of the unsharded model
     (``model.init``, ``make_train_step``) on batches ``h.batch`` x
     ``h.seq`` from the pipeline, the model freed, then the same steps of
     the sharded one (``train.step.init_sharded``, ``AdamW.init`` with
@@ -3501,6 +3531,260 @@ def slice12_phases(h) -> dict:
             "seconds": time.perf_counter() - t_all}
 
 
+ATTN_MAIN = "minicpm-2b"
+
+
+def attn_impl_phases(h) -> dict:
+    """The reference's attention switch on the card.
+
+    ``attn:qloop:<main>`` (minicpm-2b, ``h.cfgs["main"]``: published
+    width, depth as given), bf16, attention in chunks of ``h.chunk`` so
+    that a sequence of ``h.seq`` walks several q chunks.  Under each
+    schedule -- ``use_attn_impl("pairs")`` and ``"qloop"`` -- a prefill
+    of ``h.prefill_batch`` prompts (``torch.no_grad``, params drawn from
+    ``h.seed``; its peak, then ``h.prefill_reps`` calls of each schedule
+    in turns, timed by CUDA events), then ``h.train_steps`` train steps
+    on batches ``h.batch`` x ``h.seq`` from params drawn again
+    (``make_train_step``, AdamW, host clock around a step ending in the
+    loss read), under the pair loop, the q-loop and the pair loop again
+    (the order's share of a difference in step time).  The q-loop's last
+    logits, prefill cache and every loss must equal the pair loop's bit
+    for bit (the two visit the same pairs in the same order with the
+    same operations); the grad norms and the params after the steps are
+    compared and reported.  Reports ms and peak memory of each
+    schedule's prefill and steps, K1-K7 launched 0 times.
+    Returns the launches of the repo's kernels and the phase's row."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import for_config
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import get_attn_impl, use_attn_impl
+    from repro_torch.train.optimizer import AdamW, trainable
+    from repro_torch.train.schedules import wsd
+    from repro_torch.train.step import make_train_step
+
+    dev = h.dev
+    require, emit = h.require, h.emit
+    cuda = dev.type == "cuda"
+    t_all = time.perf_counter()
+    cfg = h.cfgs["main"]
+    phase = f"attn:qloop:{cfg.name}"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def free():
+        gc.collect()
+        if cuda:
+            sync()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda \
+            else None
+
+    def mark():
+        if cuda:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+        return time.perf_counter()
+
+    def between(a, b):
+        sync()
+        return a.elapsed_time(b) if cuda else 1e3 * (b - a)
+
+    def on_host(cache, logits):
+        """The prefill's last logits and every cache tensor, copied to
+        the host so that the next schedule's peak does not hold them."""
+        return (logits.float().cpu(),
+                [t.cpu() for layer in cache for t in layer.values()
+                 if isinstance(t, torch.Tensor)])
+
+    free()
+    model = build_model(cfg, device=dev)
+    toks = torch.as_tensor(np.random.default_rng(h.seed + 16).integers(
+        0, cfg.vocab, (h.prefill_batch, h.seq))).to(dev)
+    data = for_config(cfg, batch=h.batch, seq=h.seq, seed=h.seed)
+    batches = [{k: torch.as_tensor(v).to(dev) for k, v in
+                data.next().items()} for _ in range(h.train_steps)]
+    chunks = dict(q_chunk=h.chunk, k_chunk=h.chunk)
+    impls = ("pairs", "qloop")
+    h.reset_counts()
+    got = {impl: {} for impl in impls}
+    # prefill: one set of params, each schedule's output and peak, then
+    # the two timed in turns (so neither holds the other's order)
+    params = model.init(torch.Generator(device=dev).manual_seed(h.seed))
+    with torch.no_grad():
+        for impl in impls:
+            with use_attn_impl(impl):
+                require(get_attn_impl() == impl, f"{phase}: switch not set")
+                sync()
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats(dev)
+                out = model.prefill(params, {"tokens": toks},
+                                    max_len=h.seq, **chunks)
+                got[impl]["prefill_peak_gib"] = peak_gib()
+                got[impl]["prefill"] = on_host(*out)
+                del out
+        ms = {impl: [] for impl in impls}
+        for _ in range(h.prefill_reps):
+            for impl in impls:
+                with use_attn_impl(impl):
+                    a = mark()
+                    model.prefill(params, {"tokens": toks}, max_len=h.seq,
+                                  **chunks)
+                    ms[impl].append(between(a, mark()))
+    del params
+    # train steps from the same params under each schedule, the pair
+    # loop again last: the step times' order effect
+    for impl in ("pairs", "qloop", "pairs"):
+        key = impl if "steps" not in got[impl] else "pairs_again"
+        with use_attn_impl(impl):
+            free()
+            params = model.init(torch.Generator(device=dev).manual_seed(
+                h.seed))
+            opt = AdamW(lr_fn=wsd(3e-4, 1, h.train_steps, 1))
+            state = opt.init(params)
+            step = make_train_step(model, opt, **chunks)
+            losses, gns, step_ms = [], [], []
+            for b in batches:
+                sync()
+                t0 = time.perf_counter()
+                params, state, met = step(params, state, b)
+                losses.append(float(met["loss"]))
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                gns.append(float(met["grad_norm"]))
+            got.setdefault(key, {}).update(
+                steps=True, losses=losses, grad_norms=gns, step_ms=step_ms,
+                train_peak_gib=peak_gib(),
+                param_sums=[float(p.detach().sum(dtype=torch.float64))
+                            for p in trainable(params).values()])
+            del params, state, step, opt, met
+    launched, plain_calls = h.counts()
+    h.plain_free(plain_calls, phase)
+    require(not any(launched.values()),
+            f"{phase}: a kernel of the repo launched: {launched}")
+    require(get_attn_impl() == "pairs", f"{phase}: switch not restored")
+    p, q, p2 = got["pairs"], got["qloop"], got["pairs_again"]
+    (lp, kvp), (lq, kvq) = p["prefill"], q["prefill"]
+    require(bool(torch.isfinite(lq).all()) and all(np.isfinite(q["losses"])),
+            f"{phase}: q-loop logits or losses not finite")
+    logits_equal = torch.equal(lq, lp)
+    cache_equal = len(kvq) == len(kvp) and all(
+        torch.equal(a, b) for a, b in zip(kvq, kvp))
+    require(logits_equal, f"{phase}: q-loop logits differ from the pair "
+            f"loop's by {float((lq - lp).abs().max())}")
+    require(cache_equal, f"{phase}: q-loop prefill cache differs")
+    require(q["losses"] == p["losses"] == p2["losses"],
+            f"{phase}: q-loop losses {q['losses']} vs the pair loop's "
+            f"{p['losses']} and {p2['losses']}")
+    row = {"config": {"name": cfg.name, "n_layers": cfg.n_layers,
+                      "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                      "head_dim": cfg.resolved_head_dim},
+           "prefill_batch": h.prefill_batch, "batch": h.batch, "seq": h.seq,
+           "chunk": h.chunk, "q_chunks": h.seq // h.chunk,
+           "train_steps": h.train_steps,
+           "logits_bit_equal": logits_equal, "cache_bit_equal": cache_equal,
+           "losses_bit_equal": True, "losses": q["losses"],
+           "grad_norms_bit_equal": q["grad_norms"] == p["grad_norms"],
+           "params_after_equal": q["param_sums"] == p["param_sums"],
+           "launches": launched,
+           "card": nvidia_smi_line() if cuda else None}
+    for impl in impls:
+        row[impl] = {"prefill_ms": [float(v) for v in np.percentile(
+                         ms[impl], [50, 25, 75])],
+                     "prefill_ms_all": ms[impl],
+                     "prefill_peak_gib": got[impl]["prefill_peak_gib"],
+                     **{k: got[impl][k] for k in (
+                         "step_ms", "train_peak_gib", "grad_norms")}}
+    row["pairs_again"] = {k: p2[k] for k in ("step_ms", "train_peak_gib")}
+    emit(phase, **row)
+    del model, got, batches
+    free()
+    return {"launches": launched, "rows": {"qloop": row},
+            "seconds": time.perf_counter() - t_all}
+
+
+# The sizes main() passes each group of phases, and the depth of each
+# config a group builds.  Widths never change: d_model, heads, head dim,
+# vocab, experts and the layer pattern stay published; only n_layers
+# (and an encoder's enc_layers) is cut, a multi-kind pattern in whole
+# periods (recurrentgemma-2b keeps one (recurrent, recurrent, local)
+# period and its two-layer suffix), deepseek-moe-16b keeps its dense
+# first layer.  The cut configs serve phases that check behaviour (the
+# MoE dispatch holds, prefill against streamed decode, the cross path,
+# losses falling); minicpm-2b's training, qwen2.5-14b's serving and
+# sparse FFN (K5's split walk on w1 and w2) and the sAMG kernels keep
+# their published sizes.  PERF.md section 4 lists each cut and what it
+# saved; the budget line (``budget_line``) gives each group's seconds
+# against LIMIT_S.
+SAMG_SCALE = 1.0                 # sAMG at its published 3.4 M rows
+LIMIT_S = 1200                   # the whole proof, kernel build included
+GROUP_SIZES = {
+    "slice6": dict(poisson_side=512, hmep_scale=0.25, power_iters=2000),
+    "slice7": dict(sweep_scale=0.05, poisson_side=512, n_requests=16,
+                   serve_tol=1e-5, maxiter=5000),
+    "slice8": dict(max_len=128, n_requests=8, max_new=16, solo_ids=(0, 5),
+                   consistency_id=7, ffn_density=0.1, narrow_b_r=32,
+                   tokens=(4, 128)),
+    "slice9": dict(max_len=128, n_requests=8, max_new=16, solo_ids=(0, 5),
+                   consistency_id=7, cross_batch=4, cross_prompt=8,
+                   cross_steps=16),
+    "slice10": dict(smoke=False, batch=8, seq=256, steps_main=8,
+                    steps_other=8, resume_layers=2, trace_steps=1),
+    "slice11": dict(batch=8, seq=256, steps=3, pb_batch=2, pb_prompt=16,
+                    pb_steps=8, decode_batch=4, decode_prompt=64,
+                    decode_steps=16),
+    "slice12": dict(batch=8, seq=256),
+    "attn": dict(prefill_batch=4, batch=2, seq=1024, chunk=256,
+                 prefill_reps=5, train_steps=2),
+}
+# group -> role -> (n_layers, enc_layers) of a cut config
+GROUP_DEPTH = {
+    "slice9": {"moe": (3, 0), "ssm": (4, 0), "hybrid": (5, 0),
+               "audio": (2, 2), "vlm": (4, 0)},
+    "slice10": {"moe": (4, 0), "hybrid": (5, 0), "audio": (2, 2)},
+    "slice11": {"main": (8, 0)},
+}
+
+
+def group_configs(TCFG, group: str) -> dict:
+    """role -> the config ``main`` builds for ``group``: the published
+    one of the group's model table, cut in depth by GROUP_DEPTH."""
+    import dataclasses
+    names = {"slice8": {"lm": "qwen2.5-14b"}, "slice9": SLICE9_MODELS,
+             "slice10": SLICE10_MODELS,
+             "slice11": {"main": SLICE11_MAIN, "parallel": SLICE11_PARALLEL},
+             "slice12": {"peak": SLICE11_MAIN},
+             "attn": {"main": ATTN_MAIN}}[group]
+    out = {}
+    for role, name in names.items():
+        cfg = TCFG.get(name)
+        depth = GROUP_DEPTH.get(group, {}).get(role)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth[0],
+                                      enc_layers=depth[1])
+        if group == "slice11" and role == "parallel":
+            cfg = dataclasses.replace(cfg, parallel_block=True)
+        if group == "slice12":
+            cfg = dataclasses.replace(cfg, n_layers=PEAK_LAYERS)
+        out[role] = cfg
+    return out
+
+
+def budget_line(groups: dict, total_s: float) -> dict:
+    """The budget record: each group's seconds, the total and the
+    limit; ``free_s`` is what a new phase may take."""
+    return {"budget": {"groups_s": groups, "total_s": total_s,
+                       "limit_s": LIMIT_S, "free_s": LIMIT_S - total_s}}
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3510,7 +3794,7 @@ def nvidia_smi_line() -> str:
 
 
 def main() -> int:
-    t_start = time.perf_counter()
+    t_start = T_START                    # the clock of every line's at_s
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3677,7 +3961,7 @@ def main() -> int:
     smi = nvidia_smi_line()
     print(smi, flush=True)
     t0 = time.perf_counter()
-    m = TM.samg(scale=1.0)
+    m = TM.samg(scale=SAMG_SCALE)
     t_gen = time.perf_counter() - t0
     n = m.n_rows
     a64 = sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape)
@@ -4784,8 +5068,21 @@ def main() -> int:
             f"samg bf16: {rsb.info['strategy']}")
     TO.clear_device_cache()
     tune_dir.cleanup()
-    emit("memory:tuned", max_allocated_gib=torch.cuda.max_memory_allocated()
-         / 2 ** 30, seconds_since_start=time.perf_counter() - t_start)
+    groups = {}
+
+    def close_group(name, since):
+        """Record group ``name``'s seconds (from ``since``) and emit its
+        memory line; returns the clock for the next group."""
+        now = time.perf_counter()
+        groups[name] = now - since
+        phase = {"build_to_tuning": "tuned", "training": "slice10",
+                 "examples": "slice12"}.get(name, name)
+        emit(f"memory:{phase}", max_allocated_gib=torch.cuda.
+             max_memory_allocated() / 2 ** 30, seconds=groups[name],
+             seconds_since_start=now - t_start)
+        return now
+
+    t_group = close_group("build_to_tuning", t_start)
 
     # ---- 10b. the distributed layer --------------------------------------
     import types
@@ -4806,8 +5103,7 @@ def main() -> int:
                 dist_out["worst_rel_err_vs_plain"][rec["name"]]
             require(rec["launches_dist"] >= 1,
                     f"{rec['name']} not launched on the dist phases")
-    emit("memory:dist", max_allocated_gib=torch.cuda.max_memory_allocated()
-         / 2 ** 30, seconds_since_start=time.perf_counter() - t_start)
+    t_group = close_group("dist", t_group)
 
     # ---- 10c. transposes, gradients, RCM and the eigensolvers ----------
     s6 = slice6_phases(types.SimpleNamespace(
@@ -4816,28 +5112,24 @@ def main() -> int:
         counts=counts, reset_counts=reset_counts, plain_free=plain_free,
         rel_err=rel_err, time_ms=time_ms, csr_of=csr_of,
         library_ms=library_ms, Y_TOL=Y_TOL, SCIPY_TOL=SCIPY_TOL,
-        HBM=HBM_BYTES_PER_S, poisson_side=1024, hmep_scale=0.25,
-        power_iters=2000))
+        HBM=HBM_BYTES_PER_S, **GROUP_SIZES["slice6"]))
     for rec in record:
         if s6["launches"].get(rec["name"]):
             rec["launches_slice6"] = s6["launches"][rec["name"]]
     record.append(s6["k7"])
     emit("time:transpose_spmv", **s6["k7"])
-    emit("memory:slice6", max_allocated_gib=torch.cuda.max_memory_allocated()
-         / 2 ** 30, seconds_since_start=time.perf_counter() - t_start)
+    t_group = close_group("slice6", t_group)
 
     # ---- 10d. the distributed tuner and solve serving ------------------
     s7 = slice7_phases(types.SimpleNamespace(
         dev=dev, m=m, a64=a64, seed=SEED, require=require, emit=emit,
         counts=counts, reset_counts=reset_counts, plain_free=plain_free,
         rel_err=rel_err, time_ms=time_ms, SCIPY_TOL=SCIPY_TOL,
-        sweep_scale=0.05, poisson_side=512, n_requests=16, serve_tol=1e-5,
-        maxiter=5000))
+        **GROUP_SIZES["slice7"]))
     for rec in record:
         if s7["launches"].get(rec["name"]):
             rec["launches_slice7"] = s7["launches"][rec["name"]]
-    emit("memory:slice7", max_allocated_gib=torch.cuda.max_memory_allocated()
-         / 2 ** 30, seconds_since_start=time.perf_counter() - t_start)
+    t_group = close_group("slice7", t_group)
 
     # ---- 10e. the sparse FFN on K5, and LM serving at full width -------
     # every K5 launch so far -- sAMG, Poisson, block CG, the distributed
@@ -4847,14 +5139,12 @@ def main() -> int:
             f"times before the sparse FFN")
     from repro_torch import configs as TCFG
     s8 = slice8_phases(types.SimpleNamespace(
-        dev=dev, lm_cfg=TCFG.get("qwen2.5-14b"), seed=SEED, require=require,
-        emit=emit, counts=counts, reset_counts=reset_counts,
-        plain_free=plain_free, rel_err=rel_err, time_ms=time_ms,
-        trace=x_backward_trace, Y_TOL=Y_TOL, SCIPY_TOL=SCIPY_TOL,
-        HBM=HBM_BYTES_PER_S, F32_FLOPS=F32_FLOPS, BF16_FLOPS=BF16_FLOPS,
-        max_len=128, n_requests=8, max_new=16, solo_ids=(0, 5),
-        consistency_id=7, ffn_density=0.1, narrow_b_r=32,
-        tokens=(4, 128)))
+        dev=dev, lm_cfg=group_configs(TCFG, "slice8")["lm"], seed=SEED,
+        require=require, emit=emit, counts=counts,
+        reset_counts=reset_counts, plain_free=plain_free, rel_err=rel_err,
+        time_ms=time_ms, trace=x_backward_trace, Y_TOL=Y_TOL,
+        SCIPY_TOL=SCIPY_TOL, HBM=HBM_BYTES_PER_S, F32_FLOPS=F32_FLOPS,
+        BF16_FLOPS=BF16_FLOPS, **GROUP_SIZES["slice8"]))
     for rec in record:
         if s8["launches"].get(rec["name"]):
             rec["launches_slice8"] = s8["launches"][rec["name"]]
@@ -4868,23 +5158,17 @@ def main() -> int:
                      "cublas_bf16_ms", "cusparse_ms", "plain_ms",
                      "max_rel_err_vs_plain")}}
                 for r in s8["ffn"] for t, v in r["by_t"].items()]
-    emit("memory:slice8", max_allocated_gib=torch.cuda.max_memory_allocated()
-         / 2 ** 30, seconds_since_start=time.perf_counter() - t_start)
+    t_group = close_group("slice8", t_group)
 
     # ---- 10f. MoE, Mamba, RG-LRU, cross-attention and the frontends ----
-    t9 = time.perf_counter()
     s9 = slice9_phases(types.SimpleNamespace(
         dev=dev, seed=SEED, require=require, emit=emit, counts=counts,
         reset_counts=reset_counts, plain_free=plain_free,
         trace=x_backward_trace, HBM=HBM_BYTES_PER_S, BF16_FLOPS=BF16_FLOPS,
-        cfgs={role: TCFG.get(name) for role, name in SLICE9_MODELS.items()},
-        max_len=128, n_requests=8, max_new=16, solo_ids=(0, 5),
-        consistency_id=7, cross_batch=4, cross_prompt=8, cross_steps=16))
+        cfgs=group_configs(TCFG, "slice9"), **GROUP_SIZES["slice9"]))
     for rec in record:
         rec["launches_slice9"] = s9["launches"].get(rec["name"], 0)
-    emit("memory:slice9", max_allocated_gib=torch.cuda.max_memory_allocated()
-         / 2 ** 30, seconds=time.perf_counter() - t9,
-         seconds_since_start=time.perf_counter() - t_start)
+    t_group = close_group("slice9", t_group)
 
     # ---- 10g. LM training: the launcher, resume, card against CPU ------
     train_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
@@ -4892,51 +5176,49 @@ def main() -> int:
         dev=dev, seed=SEED, require=require, emit=emit, counts=counts,
         reset_counts=reset_counts, plain_free=plain_free,
         trace=x_backward_trace, HBM=HBM_BYTES_PER_S, BF16_FLOPS=BF16_FLOPS,
-        cfgs={role: TCFG.get(name) for role, name in SLICE10_MODELS.items()},
-        smoke=False, batch=8, seq=256, steps_main=8, steps_other=8,
-        resume_layers=2, trace_steps=1, tmp=train_dir.name))
+        cfgs=group_configs(TCFG, "slice10"), tmp=train_dir.name,
+        **GROUP_SIZES["slice10"]))
     train_dir.cleanup()
     for rec in record:
         rec["launches_slice10"] = s10["launches"].get(rec["name"], 0)
-    emit("memory:slice10", max_allocated_gib=torch.cuda.max_memory_allocated()
-         / 2 ** 30, seconds=s10["seconds"],
-         seconds_since_start=time.perf_counter() - t_start)
+    t_group = close_group("training", t_group)
 
     # ---- 10h. the model across cards, on one card -----------------------
-    import dataclasses
     mesh_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_")
     s11 = slice11_phases(types.SimpleNamespace(
         dev=dev, seed=SEED, require=require, emit=emit, counts=counts,
         reset_counts=reset_counts, plain_free=plain_free,
-        cfgs={"main": TCFG.get(SLICE11_MAIN),
-              "parallel": dataclasses.replace(TCFG.get(SLICE11_PARALLEL),
-                                              parallel_block=True)},
-        batch=8, seq=256, steps=3, pb_batch=2, pb_prompt=16, pb_steps=8,
-        decode_batch=4, decode_prompt=64, decode_steps=16,
-        tmp=mesh_dir.name))
+        cfgs=group_configs(TCFG, "slice11"), tmp=mesh_dir.name,
+        **GROUP_SIZES["slice11"]))
     mesh_dir.cleanup()
     for rec in record:
         rec["launches_slice11"] = s11["launches"].get(rec["name"], 0)
-    emit("memory:slice11", max_allocated_gib=torch.cuda.max_memory_allocated()
-         / 2 ** 30, seconds=s11["seconds"],
-         seconds_since_start=time.perf_counter() - t_start)
+    t_group = close_group("slice11", t_group)
 
     # ---- 10i. the reference's examples, the recorder's peak ------------
     s12 = slice12_phases(types.SimpleNamespace(
         dev=dev, seed=SEED, require=require, emit=emit, counts=counts,
         reset_counts=reset_counts, plain_free=plain_free,
-        cfgs={"peak": dataclasses.replace(TCFG.get(SLICE11_MAIN),
-                                          n_layers=PEAK_LAYERS)},
-        example_args=EXAMPLE_ARGS, batch=8, seq=256))
+        cfgs=group_configs(TCFG, "slice12"), example_args=EXAMPLE_ARGS,
+        **GROUP_SIZES["slice12"]))
     for rec in record:
         rec["launches_examples"] = s12["launches"].get(rec["name"], 0)
-    emit("memory:slice12", max_allocated_gib=torch.cuda.max_memory_allocated()
-         / 2 ** 30, seconds=s12["seconds"],
-         seconds_since_start=time.perf_counter() - t_start)
+    t_group = close_group("examples", t_group)
 
-    # ---- 11. the record, the card, the verdict ---------------------------
+    # ---- 10j. the reference's attention switch ---------------------------
+    sa = attn_impl_phases(types.SimpleNamespace(
+        dev=dev, seed=SEED, require=require, emit=emit, counts=counts,
+        reset_counts=reset_counts, plain_free=plain_free,
+        cfgs=group_configs(TCFG, "attn"), **GROUP_SIZES["attn"]))
+    for rec in record:
+        rec["launches_attn"] = sa["launches"].get(rec["name"], 0)
+    groups["attn"] = time.perf_counter() - t_group
+
+    # ---- 11. the record, the card, the budget, the verdict ---------------
     print(json.dumps({"kernels": record}), flush=True)
     print(nvidia_smi_line(), flush=True)
+    print(json.dumps(budget_line(groups, time.perf_counter() - t_start)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

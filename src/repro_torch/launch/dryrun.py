@@ -39,7 +39,9 @@ device:
   fusion, which the reference records under the same keys.
 
 ``q_chunk`` and ``k_chunk`` name the attention chunks the cell was
-traced at.
+traced at, ``attn_impl`` the attention schedule (``"pairs"`` or
+``"qloop"``, :func:`repro_torch.models.attention.use_attn_impl`), which
+every trace enters in its own process.
 
 The record comes from the depth plan (:func:`_depth_variants`,
 :func:`extrapolated_cost`): the cell's step traced at one and two units
@@ -149,11 +151,13 @@ def _place_tree(tree, specs, mesh, rules):
 
 
 def _trace_cell(cfg, shape, mesh_name: str, q_chunk: int, k_chunk: int,
-                step: bool = True) -> dict:
+                step: bool = True, attn_impl: str = "pairs") -> dict:
     """One config's state laid out on the fake mesh and, with ``step``,
-    its step traced under the recorder.  Returns the rank's argument
-    bytes (``memory``), and with ``step`` its peak, temporaries, output,
-    flops, unfused bytes and collective records."""
+    its step traced under the recorder with attention schedule
+    ``attn_impl``.  Returns the rank's argument bytes (``memory``), and
+    with ``step`` its peak, temporaries, output, flops, unfused bytes and
+    collective records; ``attn_impl`` is the schedule the step ran under,
+    read inside the step's process."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
 
@@ -162,6 +166,7 @@ def _trace_cell(cfg, shape, mesh_name: str, q_chunk: int, k_chunk: int,
     from repro_torch.models import common as C
     from repro_torch.models import sharding as S
     from repro_torch.models.api import build_model
+    from repro_torch.models.attention import get_attn_impl, use_attn_impl
     # the FFN imports it on its first call: imported under the recorder,
     # its module-level constants would count in a process's first trace
     from repro_torch.sparse import sparse_ffn  # noqa: F401
@@ -179,7 +184,9 @@ def _trace_cell(cfg, shape, mesh_name: str, q_chunk: int, k_chunk: int,
     t0 = time.time()
     mem = {}
     rec = StepRecorder()
-    with FakeTensorMode(allow_non_fake_inputs=True), S.use_rules(rules):
+    with FakeTensorMode(allow_non_fake_inputs=True), S.use_rules(rules), \
+            use_attn_impl(attn_impl):
+        ran_under = get_attn_impl()
         param_sh, opt_sh = train_state_shardings(model, mesh, rules)
 
         def placer(t, spec):
@@ -235,7 +242,7 @@ def _trace_cell(cfg, shape, mesh_name: str, q_chunk: int, k_chunk: int,
     return {"memory": mem, "flops": rec.flops, "bytes": rec.bytes,
             "collectives": rec.collectives,
             "seconds": time.time() - t0, "chips": mesh.size(),
-            "rules": rules}
+            "rules": rules, "attn_impl": ran_under}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -387,7 +394,7 @@ def extrapolate(variants, traces, args_bytes: int, step_kind: str) -> dict:
 
 
 def extrapolated_cost(cfg, shape, mesh_name: str, *, q_chunk: int = 512,
-                      k_chunk: int = 512) -> dict:
+                      k_chunk: int = 512, attn_impl: str = "pairs") -> dict:
     """The full depth's counts of one cell from the depth plan's
     traces (:func:`_depth_variants`, :func:`traced_configs`), each at
     the cell's own sequence and chunks and in a process of its own, all
@@ -401,8 +408,10 @@ def extrapolated_cost(cfg, shape, mesh_name: str, *, q_chunk: int = 512,
     "chips", "rules", "n_variant_traces", "variants", "trace_s",
     "state_s", "wall_s", "traced"}``: ``variants`` each kind's count
     and its pair's depths, ``traced`` every config traced with its
-    temporaries and output bytes, ``trace_s`` the sum of the variants'
-    traces, ``wall_s`` the whole call's."""
+    temporaries, output bytes and the attention schedule its process ran
+    (``attn_impl``, passed to each trace: the parent's switch does not
+    reach a process forked from the forkserver), ``trace_s`` the sum of
+    the variants' traces, ``wall_s`` the whole call's."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -417,7 +426,7 @@ def extrapolated_cost(cfg, shape, mesh_name: str, *, q_chunk: int = 512,
     with ProcessPoolExecutor(n, mp_context=ctx) as pool:
         done = list(pool.map(_trace_cell, [c for c, _ in work], [shape] * n,
                              [mesh_name] * n, [q_chunk] * n, [k_chunk] * n,
-                             [step for _, step in work]))
+                             [step for _, step in work], [attn_impl] * n))
     traces, state = dict(zip(cfgs, done[:-1])), done[-1]
     mem = dict(state["memory"])
     ex = extrapolate(variants, traces, mem["argument_size_in_bytes"],
@@ -444,7 +453,8 @@ def extrapolated_cost(cfg, shape, mesh_name: str, *, q_chunk: int = 512,
                          for v in variants],
             "traced": [{"n_layers": c.n_layers, "enc_layers": c.enc_layers,
                         **{k: traces[c]["memory"][k] for k in (
-                            "temp_size_in_bytes", "output_size_in_bytes")}}
+                            "temp_size_in_bytes", "output_size_in_bytes")},
+                        "attn_impl": traces[c]["attn_impl"]}
                        for c in cfgs],
             "trace_s": sum(t["seconds"] for t in traces.values()),
             "state_s": state["seconds"], "wall_s": time.time() - t0}
@@ -452,12 +462,16 @@ def extrapolated_cost(cfg, shape, mesh_name: str, *, q_chunk: int = 512,
 
 def dryrun_cell(arch: str, shape_name: str, mesh_name: str,
                 q_chunk: int = 512, k_chunk: int = 512,
-                with_cost: bool = True,
+                with_cost: bool = True, attn_impl: str = "pairs",
                 overrides: dict | None = None) -> dict:
     """One cell's record on the fake mesh: with ``with_cost`` from the
     depth plan's traces (:func:`extrapolated_cost`), without it (or
     when the full depth is no deeper than the plan's configs) from a
-    trace of the full depth."""
+    trace of the full depth; attention under schedule ``attn_impl``
+    (the reference's knob, in the record as ``"attn_impl"``)."""
+    from repro_torch.models.attention import ATTN_IMPLS
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl {attn_impl!r}: not one of {ATTN_IMPLS}")
     if (arch, shape_name) in SKIP:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                 "status": "skipped", "reason": SKIP[(arch, shape_name)]}
@@ -472,17 +486,19 @@ def dryrun_cell(arch: str, shape_name: str, mesh_name: str,
                                                  shape.kind)
     if extrapolated:
         ex = extrapolated_cost(cfg, shape, mesh_name, q_chunk=q_chunk,
-                               k_chunk=k_chunk)
+                               k_chunk=k_chunk, attn_impl=attn_impl)
         flops, byts, coll = ex["flops"], ex["bytes"], ex["collective_raw"]
         seconds = ex["trace_s"]
     else:
-        ex = _trace_cell(cfg, shape, mesh_name, q_chunk, k_chunk)
+        ex = _trace_cell(cfg, shape, mesh_name, q_chunk, k_chunk,
+                         attn_impl=attn_impl)
         flops, byts = ex["flops"], ex["bytes"]
         coll = collective_bytes(ex["collectives"])
         seconds = ex["seconds"]
     out = {
         "arch": arch, "shape": shape_name, "mesh": mesh_name,
         "status": "ok", "chips": ex["chips"],
+        "attn_impl": attn_impl,
         "overrides": overrides or {},
         "trace_s": round(seconds, 1),
         "q_chunk": q_chunk, "k_chunk": k_chunk,
@@ -524,6 +540,8 @@ def main(argv=None) -> None:
                     "no cost entry")
     ap.add_argument("--q-chunk", type=int, default=512)
     ap.add_argument("--k-chunk", type=int, default=512)
+    ap.add_argument("--attn-impl", default="pairs", choices=["pairs",
+                                                             "qloop"])
     args = ap.parse_args(argv)
 
     archs = configs.ARCH_IDS if (args.all or not args.arch) else [args.arch]
@@ -545,7 +563,8 @@ def main(argv=None) -> None:
                     rec = dryrun_cell(arch, shape, mesh_name,
                                       q_chunk=args.q_chunk,
                                       k_chunk=args.k_chunk,
-                                      with_cost=not args.no_cost)
+                                      with_cost=not args.no_cost,
+                                      attn_impl=args.attn_impl)
                 except Exception as e:  # noqa: BLE001 - record and continue
                     rec = {"arch": arch, "shape": shape, "mesh": mesh_name,
                            "status": "error", "error": repr(e),

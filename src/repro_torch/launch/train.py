@@ -4,12 +4,14 @@ Port of ``repro/launch/train.py``::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \\
         [--smoke] [--steps N] [--mesh host|single] [--ckpt DIR] \\
-        [--device cpu]
+        [--device cpu] [--n-layers N] [--enc-layers N]
 
 The reference's flags, plus ``--device``: the model trains on CUDA
 unless ``--device cpu`` is given, and with neither it raises.  The
 published config is the default; ``--smoke`` builds the family's reduced
-one.  Weights are random (``torch.Generator`` seeded 0), the data
+one.  ``--n-layers`` / ``--enc-layers`` cut the chosen config's depth
+(decoder layers, an encoder-decoder's encoder layers) and keep its
+widths: a quick run of a published model's layer shapes.  Weights are random (``torch.Generator`` seeded 0), the data
 synthetic (``data.pipeline.for_config``, seed 0); the step is
 ``make_train_step(model, AdamW(schedule), q_chunk=128, k_chunk=128)``
 with rematerialisation, the schedule WSD (or cosine) over ``--steps``
@@ -37,6 +39,7 @@ Every rank draws the same weights and batches; each keeps its slices
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 
 import torch
@@ -78,9 +81,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the depth (decoder layers); widths stay")
+    ap.add_argument("--enc-layers", type=int, default=None,
+                    help="cut an encoder-decoder's encoder layers")
     args = ap.parse_args(argv)
 
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
+    depth = {k: v for k, v in (("n_layers", args.n_layers),
+                               ("enc_layers", args.enc_layers))
+             if v is not None}
+    if depth:
+        cfg = dataclasses.replace(cfg, **depth)
     dev = resolve_device(args.device)
     sharded = args.mesh == "single" or _multi_rank()
     if sharded:

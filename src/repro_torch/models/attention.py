@@ -8,8 +8,12 @@ that can interact, from :func:`block_pairs` -- and its arithmetic: the
 online softmax in float32, rows with no valid key kept at ``m = -inf``,
 and ``acc / max(l, 1e-30)``.  ``scaled_dot_product_attention`` is not
 used: parity needs the reference's masking and summation.  The
-reference's ``use_attn_impl`` switch only picks another XLA schedule
-with the same result; the port has the one schedule (ROADMAP.md).
+reference's switch picks the schedule: ``use_attn_impl("qloop")`` runs
+one stream per q chunk over exactly its kv range (``_flash_qloop``),
+each chunk's output finished before the next starts.  Both schedules
+visit the same pairs in the same q-major order with the same
+operations, so in the port (unlike the reference, where XLA fuses the
+two apart) they give the same bits.
 
 The decode cache is the reference's ring buffer (``k``, ``v``, ``pos``,
 ``ins``), but :func:`attn_apply_decode` writes the new token into it in
@@ -18,6 +22,7 @@ then a cache of its own, which the LM engine uses to run one slot.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Callable, Optional
@@ -30,11 +35,40 @@ from . import common as C
 from .sharding import (is_dtensor, local_call, local_offset, reduce_from,
                        shard)
 
-__all__ = ["block_pairs", "flash_attention", "decode_attention",
+__all__ = ["use_attn_impl", "get_attn_impl", "block_pairs",
+           "flash_attention", "decode_attention",
            "decode_attend",
            "attend", "attn_init", "attn_apply_train", "attn_apply_decode",
            "attn_cache_init", "attn_cache_specs", "attn_cache_from_prefill",
            "cache_from_prefill"]
+
+
+ATTN_IMPLS = ("pairs", "qloop")
+_ATTN_IMPL = "pairs"
+
+
+def get_attn_impl() -> str:
+    """The schedule :func:`flash_attention` runs: ``"pairs"`` (the
+    default) or ``"qloop"``."""
+    return _ATTN_IMPL
+
+
+@contextlib.contextmanager
+def use_attn_impl(name: str):
+    """Run :func:`flash_attention` under schedule ``name`` inside the
+    block (``"pairs"``: one loop over the interacting (q-chunk, kv-chunk)
+    pairs; ``"qloop"``: a stream per q chunk); the previous schedule
+    comes back on leaving it, also on an exception.  The switch is this
+    process's: a process forked from a forkserver enters it itself."""
+    global _ATTN_IMPL
+    if name not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl {name!r}: not one of {ATTN_IMPLS}")
+    prev = _ATTN_IMPL
+    _ATTN_IMPL = name
+    try:
+        yield
+    finally:
+        _ATTN_IMPL = prev
 
 
 def block_pairs(n_q: int, n_k: int, q_chunk: int, k_chunk: int,
@@ -82,23 +116,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qs = q.reshape(b, nq, q_chunk, hkv, g, d)
     ks = k.reshape(b, nk, k_chunk, hkv, d)
     vs = v.reshape(b, nk, k_chunk, hkv, d)
-    pairs_q, pairs_k = block_pairs(nq, nk, q_chunk, k_chunk, causal, window,
-                                   kv_offset)
-
     # float32, or float64 for float64 inputs (gradcheck)
     f32, dev = torch.promote_types(q.dtype, torch.float32), q.device
-    # each q chunk's running state, replaced (never written in place) so
-    # that autograd keeps every value the backward needs
-    acc = [torch.zeros((b, q_chunk, hkv, g, d), dtype=f32, device=dev)
-           for _ in range(nq)]
-    m = [torch.full((b, q_chunk, hkv, g), -math.inf, dtype=f32, device=dev)
-         for _ in range(nq)]
-    l = [torch.zeros((b, q_chunk, hkv, g), dtype=f32, device=dev)
-         for _ in range(nq)]
     q_arange = torch.arange(q_chunk, device=dev)
     k_arange = torch.arange(k_chunk, device=dev)
 
-    for qi, ki in zip(pairs_q.tolist(), pairs_k.tolist()):
+    def init():
+        return (torch.zeros((b, q_chunk, hkv, g, d), dtype=f32, device=dev),
+                torch.full((b, q_chunk, hkv, g), -math.inf, dtype=f32,
+                           device=dev),
+                torch.zeros((b, q_chunk, hkv, g), dtype=f32, device=dev))
+
+    def update(state, qi, ki):
+        """One (q chunk, kv chunk) pair's online-softmax step on q chunk
+        ``qi``'s running (acc, m, l); returns the new state (never
+        written in place, so autograd keeps what the backward needs)."""
+        acc, m_old, l_old = state
         s = torch.einsum("bqhgd,bkhd->bqhgk", qs[:, qi].to(f32),
                          ks[:, ki].to(f32)) * scale
         s = _softcap(s, logit_softcap)
@@ -111,8 +144,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             ok &= qpos[:, None] - kpos[None, :] < window
         bad = ~ok[None, :, None, None, :]
         s = s.masked_fill(bad, -math.inf)
-
-        m_old, l_old = m[qi], l[qi]
         m_new = torch.maximum(m_old, s.amax(dim=-1))
         # rows with no valid kv yet keep m = -inf; make exp well-defined
         m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
@@ -120,13 +151,47 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         corr = torch.where(torch.isneginf(m_old), 0.0,
                            torch.exp(m_old - m_safe))
         pv = torch.einsum("bqhgk,bkhd->bqhgd", p, vs[:, ki].to(f32))
-        acc[qi] = acc[qi] * corr[..., None] + pv
-        l[qi] = l_old * corr + p.sum(dim=-1)
-        m[qi] = m_new
+        return (acc * corr[..., None] + pv, m_new,
+                l_old * corr + p.sum(dim=-1))
 
-    out = torch.stack(acc, 1) / torch.clamp(torch.stack(l, 1),
-                                             min=1e-30)[..., None]
+    if _ATTN_IMPL == "qloop":
+        out = _flash_qloop(init, update, nq, nk, q_chunk, k_chunk, causal,
+                           window, kv_offset)
+    else:
+        # every q chunk's running state at once, updated pair by pair
+        state = [init() for _ in range(nq)]
+        for qi, ki in zip(*(a.tolist() for a in block_pairs(
+                nq, nk, q_chunk, k_chunk, causal, window, kv_offset))):
+            state[qi] = update(state[qi], qi, ki)
+        acc, _, l = zip(*state)
+        out = torch.stack(acc, 1) / torch.clamp(torch.stack(l, 1),
+                                                min=1e-30)[..., None]
     return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def _flash_qloop(init, update, nq: int, nk: int, q_chunk: int, k_chunk: int,
+                 causal: bool, window: Optional[int],
+                 kv_offset: int) -> torch.Tensor:
+    """The reference's ``_flash_qloop`` schedule: q chunk by q chunk,
+    each a stream over exactly its kv range ``ki_lo..ki_hi`` with a
+    chunk-local state, its output finished before the next chunk starts.
+    The range is :func:`block_pairs`' pairs of the chunk, so the pairs,
+    their order and each one's operations are the pair loop's."""
+    outs = []
+    for qi in range(nq):
+        q_lo = kv_offset + qi * q_chunk
+        q_hi = q_lo + q_chunk - 1
+        ki_lo, ki_hi = 0, nk - 1
+        if causal:
+            ki_hi = min(ki_hi, q_hi // k_chunk)
+        if window is not None:
+            ki_lo = max(ki_lo, (q_lo - window + 1) // k_chunk)
+        state = init()
+        for ki in range(ki_lo, ki_hi + 1):
+            state = update(state, qi, ki)
+        acc, _, l = state
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    return torch.stack(outs, 1)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -71,3 +71,38 @@ def test_published_config_is_the_default():
     cfg = built[0]
     assert (cfg.name, cfg.n_layers, cfg.d_model, cfg.vocab) == \
         ("minicpm-2b", 40, 2304, 122_753)
+
+
+@pytest.mark.parametrize("arch, argv, want", [
+    ("granite-moe-3b-a800m", ["--n-layers", "4"], (4, 0)),
+    ("seamless-m4t-medium", ["--n-layers", "2", "--enc-layers", "2"],
+     (2, 2)),
+])
+def test_depth_options_cut_only_the_depth(monkeypatch, arch, argv, want):
+    """``--n-layers`` / ``--enc-layers`` cut the published config's
+    depth and keep every other field (checked without building it)."""
+    import dataclasses
+    from repro_torch import configs
+    built = []
+
+    class Stop(Exception):
+        pass
+
+    def fake_build(cfg, device=None):
+        built.append(cfg)
+        raise Stop
+
+    monkeypatch.setattr(LT, "build_model", fake_build)
+    with pytest.raises(Stop):
+        LT.main(["--arch", arch, "--device", "cpu", *argv])
+    cfg = built[0]
+    assert (cfg.n_layers, cfg.enc_layers) == want
+    assert dataclasses.replace(cfg, n_layers=0, enc_layers=0) == \
+        dataclasses.replace(configs.get(arch), n_layers=0, enc_layers=0)
+
+
+def test_depth_option_trains_a_cut_smoke_model():
+    hist = LT.main(["--arch", "recurrentgemma-2b", "--smoke", "--device",
+                    "cpu", "--steps", "1", "--batch", "2", "--seq", "16",
+                    "--n-layers", "3"])
+    assert len(hist["losses"]) == 1

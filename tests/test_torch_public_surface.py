@@ -48,12 +48,6 @@ OMITTED = {
     ("tune/measure.py", "measurement_backend"):
         "the port measures on the operand's device; there is no "
         "interpret mode to avoid timing",
-    ("models/attention.py", "use_attn_impl"):
-        "the switch picks another XLA schedule of the same result; the "
-        "port has one schedule, the reference's default pair list",
-    ("models/attention.py", "get_attn_impl"):
-        "the switch picks another XLA schedule of the same result; the "
-        "port has one schedule, the reference's default pair list",
     ("models/common.py", "split_keys"):
         "splits a JAX PRNG key; the port draws from a torch.Generator",
     ("launch/hlo_analysis.py", "hlo_flops_bytes"):
